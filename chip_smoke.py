@@ -11,6 +11,11 @@ Phases, in order; any failure exits non-zero without the final result line:
      card, at the 129^3 main path's shapes (128^3 fine, 64^3 coarse), and
      each one's time beside the plain version's (CUDA events); the bf16
      defect trio (residual_split, error_sweep, merge_fold) included; then
+     the time-skewed wavefront (timeskew.cu, T = 2 sweeps per launch),
+     bitwise on small and odd-tiled levels and at 256^3 and 512^3 over 1,
+     T, 2T + 1 and 100 sweeps, a 100-sweep leg timed beside its plain
+     version, and (dense in and out) beside the half-sweep chain and the
+     bf16 defect leg, and at 128^3 and 64^3 beside the half-sweeps; then
      the 2D Lyapunov kernels, bitwise: split2d, merge2d and half_sweep2d
      (with and without f) at 4097^2, resident over 500-sweep legs at
      257^2 and 65^2 (with and without f);
@@ -25,8 +30,11 @@ Phases, in order; any failure exits non-zero without the final result line:
      through the plain tensor tier, against which the mixed solve's
      error_linf must lie within 10 % of the float64 solve's, and its
      solution within 10 % of that error;
-  5. the same at 257^3 (256^3 and 128^3 relaxed by the kernels, 64^3
-     solved exactly);
+  5. the same at 257^3 (256^3 relaxed by the wavefront in f32, 128^3 by
+     the half-sweeps, 64^3 solved exactly) and at 513^3 (512^3 and 256^3
+     by the wavefront); in f32 exactly the launches of the schedule:
+     4 (l + 1) legs on level l, each ceil(100 / T) wavefront launches or
+     200 half-sweeps;
   6. the 2D Lyapunov path at 4097^2: FMG(2, 500, 500), exact (dense
      inverse) coarsest level 33^2, precision="mixed", through
      `MultigridSolver.solve()` on "cuda": error_linf < max(10 h, 5e-5)
@@ -206,14 +214,30 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/stencilop.cu",
         "pde_multigrid_tpu/ops/pallas/stencilop.py:132",
     ),
+    # one kernel serves both TPU wavefronts: row 11's record at 256^3 (the
+    # level JAX gives the whole-plane kernel), row 13's at 512^3 (the level
+    # it gives the j-blocked one), each with its launches on that level
+    "timeskew": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/timeskew.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:1476",
+    ),
+    "timeskew_jb": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/timeskew.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:2051",
+    ),
 }
+# the levels (halves shapes) whose wavefront launches each record counts
+TIMESKEW_LEVELS = {"timeskew": (256, 128, 256), "timeskew_jb": (512, 256, 512)}
 
-# the kernels each precision's main path must launch; between the two
-# every kernel runs (all legs have 100 sweeps, so a mixed solve takes the
-# defect path on every relaxed level and never the f32 split relax)
+# the kernels each 3D row's path must launch; between them every kernel
+# runs (all legs have 100 sweeps, so a mixed solve takes the defect path
+# on every relaxed level and never the f32 relax)
 TRANSFERS = ("residual_restrict", "prolong_blend", "residual")
+F32_3D = ("split", "merge", "half_sweep", *TRANSFERS)
 PATHS = {
-    "f32": ("split", "merge", "half_sweep", *TRANSFERS),
+    "f32": F32_3D,  # 129^3: the half-sweeps on 128^3
+    "f32_257": (*F32_3D, "timeskew"),  # the wavefront on 256^3
+    "f32_513": (*F32_3D, "timeskew", "timeskew_jb"),  # on 512^3 and 256^3
     "mixed": ("residual_split", "error_sweep", "merge_fold", *TRANSFERS),
     # the 2D Lyapunov path (any precision: no defect plan covers 2D)
     "lyapunov": ("split2d", "merge2d", "half_sweep2d", "resident"),
@@ -228,6 +252,9 @@ PATHS = {
 # per-sweep barrier floors of the whole-leg kernels, measured on the
 # smallest levels (printed with the main-path summaries)
 FLOORS = {}
+# the wavefront's dense 100-sweep leg per level beside the chains it
+# replaces or stands beside, ms (printed with the summaries)
+TIMESKEW_AB = {}
 
 
 class Failed(Exception):
@@ -556,6 +583,116 @@ def phase_kernels(torch):
     return out
 
 
+def phase_kernels_timeskew(torch):
+    """The wavefront kernel (csrc/timeskew.cu) against its plain version,
+    bitwise: on small and odd-tiled wrap levels (16^3, 32^3, 64^3, a
+    (10, 13, 38) and a (64, 65, 100) halves level, neither j nor z a
+    multiple of the window's owned columns) over nu = 1, T, 2T + 1 (a
+    remainder launch alone, one launch of T sweeps, a chain with a
+    remainder), with and without v_zero; then at the 256^3 and 512^3
+    levels over nu = 1, T, 2T + 1 and 100.  On those two levels a 100-sweep
+    leg on halves is timed beside the plain version, and the dense
+    100-sweep leg (black-only split of v, split of f, sweeps, merge) of the
+    wavefront beside the two chains it replaces or stands beside: the f32
+    half-sweeps (one launch each, `make_split_relax`) and the bf16 defect
+    leg (the mixed plan's choice on these levels).  On 128^3 and 64^3,
+    below the gate, the dense leg of the wavefront beside the half-sweeps
+    that relax them.  Returns {"timeskew": the 256^3 record,
+    "timeskew_jb": the 512^3 record}, each per 100-sweep leg."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.models import Poisson3D
+    from pde_multigrid_tpu_torch.ops.cuda import defect as D
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
+    dev = torch.device("cuda")
+    prob = Poisson3D()
+    rng = np.random.default_rng(2027)
+    T = R.TIMESKEW_T
+    nsw = 100
+    out = {}
+
+    def rand(shape):
+        return torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                            device=dev)
+
+    def halves(g):
+        X, Y, Z = g.padded_shape
+        return [rand((X, Y // 2, Z)) for _ in range(3)]
+
+    def check(g, b, fr, fb, ns, v_zero=False):
+        k = R.timeskew_relax_halves(None if v_zero else b, fr, fb, ns, prob,
+                                    g, v_zero)
+        p = R.timeskew_sweeps_plain(b, fr, fb, ns, prob, g, v_zero)
+        err = max(_max_err(torch, a, c) for a, c in zip(k, p))
+        require(all(map(torch.equal, k, p)),
+                f"timeskew {tuple(fr.shape)} nu={ns} v_zero={v_zero}"
+                f" not bitwise: max diff {err!r}")
+        return err
+
+    def dense_legs(g, legs):
+        v = rand(g.padded_shape) * torch.tensor(
+            wrap_interior(g.padded_shape), device=dev)
+        f = rand(g.padded_shape)
+        _, bk = R.split(v, red=False)
+        require(torch.equal(bk, R.split_colors(v)[1]),
+                f"black-only split at {g.padded_shape} not bitwise")
+        # each leg relaxes v in place, again at every call
+        return {k: device_ms(torch, lambda fn=fn: fn(v, f, nsw), 1)
+                for k, fn in legs.items()}
+
+    small = ((17, 17, 17), (33, 33, 33), (65, 65, 65), (11, 27, 39),
+             (65, 131, 101))
+    for shape in small:
+        g = build_geometries(shape, prob.domain, 1, wrap=True)[0]
+        b, fr, fb = halves(g)
+        for ns in (1, T, 2 * T + 1):
+            for v_zero in (False, True):
+                check(g, b, fr, fb, ns, v_zero)
+    log(f"kernel timeskew: bitwise against its plain version at nu = 1, "
+        f"{T}, {2 * T + 1}, with and without v_zero, on the halves levels "
+        f"{[(s[0] - 1, (s[1] - 1) // 2, s[2] - 1) for s in small]}")
+
+    for name, n in (("timeskew", 257), ("timeskew_jb", 513)):
+        g = build_geometries((n,) * 3, prob.domain, 1, wrap=True)[0]
+        b, fr, fb = halves(g)
+        err = max(check(g, b, fr, fb, ns) for ns in (1, T, 2 * T + 1, nsw))
+        t = paired_times(
+            torch,
+            lambda: R.timeskew_relax_halves(b, fr, fb, nsw, prob, g),
+            lambda: R.timeskew_sweeps_plain(b, fr, fb, nsw, prob, g), 1)
+        dense = dense_legs(g, {
+            "wavefront": R.make_timeskew_relax(prob, g),
+            "half_sweeps": R.make_split_relax(prob, g),
+            "defect": D.plan_defect_relax(prob, g, torch.float32)})
+        # the leg reads b, fr and fb once and writes r and b once; per
+        # sweep and halves point 2 updates of 13 operations (3 pair sums,
+        # 3 products and 3 sums, the negation, the scale, the select)
+        nl = -(-nsw // T)
+        out[name] = {"max_abs_err": err, "ms": t["ms"],
+                     "plain_ms": t["plain_ms"],
+                     **bound(5 * fr.nbytes, nsw * 2 * 13 * fr.numel()),
+                     "library_ms": None}
+        TIMESKEW_AB[f"{n - 1}^3"] = dense
+        log(f"kernel {name} ({n - 1}^3, one {nsw}-sweep leg on halves, "
+            f"T = {T}, {nl} launches): bitwise at nu = 1, {T}, {2 * T + 1}, "
+            f"{nsw}; device {t['ms']!r} ms vs plain {t['plain_ms']!r} ms "
+            f"(bound {out[name]['bound_ms']!r} ms by "
+            f"{out[name]['bound_by']}); eager {t['eager_ms']!r} ms vs plain "
+            f"{t['eager_plain_ms']!r} ms; dense leg ms: {dense!r}")
+    for n in (129, 65):
+        g = build_geometries((n,) * 3, prob.domain, 1, wrap=True)[0]
+        dense = dense_legs(g, {"wavefront": R.make_timeskew_relax(prob, g),
+                               "half_sweeps": R.make_split_relax(prob, g)})
+        TIMESKEW_AB[f"{n - 1}^3"] = dense
+        log(f"wavefront below its gate ({n - 1}^3, plan: "
+            f"{'wavefront' if R.timeskew_plan(g) else 'half-sweeps'}): "
+            f"dense {nsw}-sweep leg ms {dense!r}")
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_kernels2d(torch):
     """The 2D Lyapunov kernels against their plain versions: split2d,
     merge2d and half_sweep2d (with and without f) at the 4097^2 level's
@@ -779,9 +916,13 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
     out = {}
     for mod in _counter_modules():
         out.update(mod.launches)
+    for name, level in TIMESKEW_LEVELS.items():
+        out[name] = R.timeskew_by_level.get(level, 0)
     return out
 
 
@@ -819,18 +960,32 @@ def _check_counts(tag, path, launches=None):
     return counts
 
 
+def row_path(n: int, precision: str) -> str:
+    """The PATHS entry of the 3D row at n^3 in `precision`."""
+    if precision == "mixed":
+        return "mixed"
+    return "f32" if n == 129 else f"f32_{n}"
+
+
 def phase_main_path(torch, n: int, precision: str):
     """FMG(2,100,100) exact-coarsest solve at n^3 on the card in
-    `precision`.  Returns (launch counts of the solve, summary, solution
-    v)."""
+    `precision`.  In f32, exactly the launches of the schedule: level l
+    takes 4 (l + 1) legs of 100 sweeps (nu0 = 2 V-cycles from each of the
+    l + 1 levels at or above it, two legs each), each ceil(100 / T)
+    wavefront launches on the levels the plan gives the wavefront and 200
+    half-sweeps on the others.  Returns (launch counts of the solve,
+    summary, solution v)."""
     from pde_multigrid_tpu_torch import (
         CycleConfig,
         MultigridSolver,
         Poisson3D,
         SolverConfig,
     )
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
+    nus = (2, 100, 100)
     cfg = SolverConfig(
-        cycle=CycleConfig("fmg", 2, 100, 100, coarsest="exact"),
+        cycle=CycleConfig("fmg", *nus, coarsest="exact"),
         precision=precision,
     )
     solver = MultigridSolver(Poisson3D(), n, cfg, device="cuda")
@@ -839,13 +994,26 @@ def phase_main_path(torch, n: int, precision: str):
     reset_counts()
     res = solver.solve(levels)
     counts = read_counts()
+    by_level = dict(R.timeskew_by_level)
     h = solver.geoms[0].spacing[0]
     tag = f"main path {n}^3 {precision}"
     log(f"{tag}: levels {[g.padded_shape for g in solver.geoms]}, "
         f"error_linf {res.error_linf!r} (limit 50 h^2 = {50 * h * h!r}), "
         f"residual_l2 {res.residual_l2!r}, residual_linf "
-        f"{res.residual_linf!r}, launches {counts}")
-    _check_solve(torch, tag, res, solver, 50 * h * h, precision)
+        f"{res.residual_linf!r}, launches {counts}, wavefront launches by "
+        f"level {by_level}")
+    _check_solve(torch, tag, res, solver, 50 * h * h, row_path(n, precision))
+    if precision == "f32":
+        legs = [2 * nus[0] * (l + 1) for l in range(len(solver.geoms) - 1)]
+        plan = [R.timeskew_plan(g) for g in solver.geoms[:len(legs)]]
+        want = {(g.padded_shape[0], g.padded_shape[1] // 2,
+                 g.padded_shape[2]): k * -(-nus[1] // R.TIMESKEW_T)
+                for g, k, w in zip(solver.geoms, legs, plan) if w}
+        half = sum(k * 2 * nus[1] for k, w in zip(legs, plan) if not w)
+        require(by_level == want and counts["half_sweep"] == half
+                and sum(want.values()) == R.launches["timeskew"],
+                f"{tag}: wavefront launches {by_level} and {counts['half_sweep']}"
+                f" half-sweeps; the schedule implies {want} and {half}")
 
     summary = {"n": n, "precision": precision,
                "levels": [g.padded_shape for g in solver.geoms],
@@ -1742,9 +1910,11 @@ def main() -> int:
 
         timed("build", phase_build)
         results = timed("kernels3d", phase_kernels, torch)
+        results.update(timed("kernels_timeskew", phase_kernels_timeskew,
+                             torch))
         results.update(timed("kernels2d", phase_kernels2d, torch))
         summaries, counts = [], {}
-        for n in (129, 257):
+        for n in (129, 257, 513):
             c32, s32, v32 = timed("poisson3d", phase_main_path, torch, n,
                                   "f32")
             cmx, smx, vmx = timed("poisson3d", phase_main_path, torch, n,
@@ -1752,8 +1922,9 @@ def main() -> int:
             timed("poisson3d", phase_reference, torch, n,
                   {"f32": (s32, v32), "mixed": (smx, vmx)})
             summaries += [s32, smx]
-            counts.setdefault("f32", c32)
+            counts.setdefault(row_path(n, "f32"), c32)
             counts.setdefault("mixed", cmx)
+            del v32, vmx
         counts["lyapunov"], sly, vly = timed("lyapunov", phase_lyapunov,
                                              torch)
         timed("lyapunov", phase_f64_reference, torch, Lyapunov2D(), LYAP_N,
@@ -1790,13 +1961,15 @@ def main() -> int:
     # launches: each kernel's count from the solve of the path it serves
     # (the 3D kernels' from the 129^3 solves: the bench's default
     # precision, mixed, for the defect trio and the transfers, f32 for the
-    # f32 split relax; the 2D kernels' from the 4097^2 Lyapunov solve;
-    # relax1d's from the ode1d 8193 solve; slab2d's and resident_hjb's
-    # from the hjb2d 513^2 solve; the stencil kernels' from the varcoef2d
-    # 1025^2 solve)
+    # f32 split relax; the wavefront's from the 257^3 f32 solve (row 11,
+    # 256^3) and the 513^3 one (row 13, 512^3); the 2D kernels' from the
+    # 4097^2 Lyapunov solve; relax1d's from the ode1d 8193 solve; slab2d's
+    # and resident_hjb's from the hjb2d 513^2 solve; the stencil kernels'
+    # from the varcoef2d 1025^2 solve)
     def path_of(name):
         return next(p for p in ("ode1d", "lyapunov", "hjb", "varcoef",
-                                "mixed", "f32") if name in PATHS[p])
+                                "mixed", "f32", "f32_257", "f32_513")
+                    if name in PATHS[p])
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1804,7 +1977,8 @@ def main() -> int:
         for name, (src, rep) in KERNELS.items()
     ]
     log(json.dumps({"card": card, "main_path": summaries,
-                    "barrier_floors": FLOORS, "phase_s": PHASE_S}))
+                    "barrier_floors": FLOORS, "timeskew_ab": TIMESKEW_AB,
+                    "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -56,6 +56,9 @@ SIGNATURES = {
     "pdemg_error_half_sweep": (
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
     ),
+    "pdemg_timeskew": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+    ),
     "pdemg_residual_split": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     "pdemg_merge_fold": (_P, _P, _P, _I, _I, _I, _P),
     "pdemg_residual": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _P),

@@ -61,7 +61,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "stencil.cuh"  // row_grid, row_block, row_launch_ok
+#include "stencil.cuh"  // split_update, row_grid, row_block, row_launch_ok
 
 namespace {
 
@@ -79,7 +79,7 @@ __global__ void split_kernel(const float* __restrict__ v,
   const int x = (int)(xj / Y2);
   const int q = (x + z) & 1;
   const long long row = ((long long)x * (2 * Y2) + 2 * j) * Z + z;
-  r[i] = v[row + (long long)q * Z];
+  if (r) r[i] = v[row + (long long)q * Z];  // null: the black half only
   b[i] = v[row + (long long)(1 - q) * Z];
 }
 
@@ -133,12 +133,7 @@ __global__ void half_sweep_kernel(float* __restrict__ u,
   const float p1 = w[base + z] + w[(long long)x * plane + (long long)jo * Z + z];
   const float p2 = w[base + zm] + w[base + zp];
 
-  // Poisson.split_update: num = -f; num += pair_ax * w_ax; upd = num * inv_den
-  float num = -fu[i];
-  num = num + p0 * w0;
-  num = num + p1 * w1;
-  num = num + p2 * w2;
-  const float upd = num * inv_den;
+  const float upd = split_update(p0, p1, p2, fu[i], w0, w1, w2, inv_den);
 
   const bool jz_ok = (j >= 1) || (color == 0 ? q == 1 : q == 0);
   const float m = (x >= 1 && z >= 1 && jz_ok) ? 1.0f : 0.0f;

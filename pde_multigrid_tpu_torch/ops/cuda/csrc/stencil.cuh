@@ -1,6 +1,6 @@
 // Helpers shared by the 3D wrap-storage kernels (sm_90a): wrapped
-// neighbour indices, dense offsets, the residual at one point, and the
-// row launch shape.
+// neighbour indices, dense offsets, the color-split update and the
+// residual at one point, and the row launch shape.
 //
 // Wrap storage: indices wrap modulo the extent; plane 0 of each axis is
 // the zero boundary that both ends share.  Built with --fmad=false; the
@@ -36,6 +36,19 @@ __device__ __forceinline__ int wrap_inc(int i, int n) {
 }
 __device__ __forceinline__ long long at(int x, int y, int z, int Y, int Z) {
   return ((long long)x * Y + y) * Z + z;
+}
+
+// Poisson.split_update on the neighbour pair sums (x, y, z) of a point
+// and its RHS f, in the plain version's order: num = -f; num += pair_ax *
+// w_ax; upd = num * inv_den.
+__device__ __forceinline__ float split_update(float p0, float p1, float p2,
+                                              float f, float w0, float w1,
+                                              float w2, float inv_den) {
+  float num = -f;
+  num = num + p0 * w0;
+  num = num + p1 * w1;
+  num = num + p2 * w2;
+  return num * inv_den;
 }
 
 // m_int * (f - L v) at one dense point; L v in Poisson.kernel_operator's

@@ -7,10 +7,20 @@ with the hand-written kernels.
 3D Poisson, wrap storage:
 
   * relax: the color-split red-black sweep (`ops/cuda/relax.py`) on every
-    3D wrap level with even extents that the cycle relaxes; with `mixed`
-    (precision="mixed"), legs of at least `min_sweeps` sweeps take the
-    bf16 defect correction (`ops/cuda/defect.py`) instead, as the JAX
-    `PallasKernels.relax` chooses (dispatch.py:196-206);
+    3D wrap level with even extents that the cycle relaxes: the
+    time-skewed wavefront (`relax.TIMESKEW_T` sweeps per launch) on the
+    levels JAX's `timeskew_plan` gives it (`relax.timeskew_plan`: a
+    half-plane of at least 16384 points, so 256^3 and 512^3), one launch
+    per half-sweep below (128^3 and smaller, where JAX keeps its slab
+    kernel).  With
+    `mixed` (precision="mixed"), legs of at least `min_sweeps` sweeps take
+    the bf16 defect correction (`ops/cuda/defect.py`) instead on every
+    level, shorter legs the level's float32 relax, as the JAX
+    `PallasKernels.relax` chooses (dispatch.py:196-206).  One deliberate
+    difference: JAX has no defect plan at 256^3 and 512^3 (a VMEM budget,
+    defect.py:289-368) and runs the float32 wavefront there; the port
+    keeps the defect path, whose solve stays within 10 % of float64's
+    error where the float32 sweeps do not (ROADMAP queue 2 item 37);
   * residual + restrict, restrict alone (the FMG f-cascade) and
     prolong + blend in both modes (`ops/cuda/transfer.py`) for every 3D
     wrap level pair with (X, Y, Z) == 2 (Xc, Yc, Zc);
@@ -185,7 +195,10 @@ class CudaKernels(TorchKernels):
                                   if resident_mod.hjb_ctas(g)
                                   else self._relax_slab)
             elif not lyap and _level_ok(g):
-                self._relax[l] = relax_mod.make_split_relax(problem, g)
+                self._relax[l] = (
+                    relax_mod.make_timeskew_relax(problem, g)
+                    if relax_mod.timeskew_plan(g)
+                    else relax_mod.make_split_relax(problem, g))
             else:
                 raise _not_planned(f"relax on level {g}")
             if mixed:

@@ -1,12 +1,16 @@
 """Color-split red-black Gauss-Seidel on 3D wrap levels: the CUDA kernels
-of `csrc/relax.cu` and their plain PyTorch versions.
+of `csrc/relax.cu` and `csrc/timeskew.cu` and their plain PyTorch
+versions.
 
 Replaces the TPU kernels `pde_multigrid_tpu/ops/pallas/relax.py`
 `_pallas_split`, `_pallas_merge`, `make_split_slab_relax` (float32
-sweeps of the iterate) and `make_split_resident_sweeps` (bf16 sweeps of
-the error equation from zero, for `ops/cuda/defect.py`).  Halves
-layout: a dense (X, Y, Z) level becomes red/black (X, Y/2, Z) arrays;
-with q = (x + z) % 2, red (parity 0) sits at y = 2j + q and black at
+sweeps of the iterate, one half-sweep per launch here),
+`make_split_timeskew_relax` and `make_split_timeskew_relax_jb` (float32
+sweeps of the iterate, T sweeps per launch: the time-skewed wavefront on
+the large levels) and `make_split_resident_sweeps` (bf16 sweeps of the
+error equation from zero, for `ops/cuda/defect.py`).  Halves layout: a
+dense (X, Y, Z) level becomes red/black (X, Y/2, Z) arrays; with
+q = (x + z) % 2, red (parity 0) sits at y = 2j + q and black at
 y = 2j + 1 - q.
 
 Each wrapper launches its kernel for CUDA tensors, runs the plain version
@@ -28,12 +32,26 @@ from pde_multigrid_tpu_torch.ops.cuda import build
 
 RED, BLACK = 0, 1
 
-launches = {"split": 0, "merge": 0, "half_sweep": 0, "error_sweep": 0}
+# the smallest half-plane (Y/2 * Z points) the wavefront takes: the JAX
+# package's crossover, measured on the TPU (relax.py:3842-3853,
+# timeskew_plan); the card's own crossover is ROADMAP queue 2 item 39
+TIMESKEW_MIN_PLANE = 16384
+# sweeps per wavefront launch, from an A/B on the card at 256^3 and 512^3
+# (PERF.md); csrc/timeskew.cu is built for T = TIMESKEW_T and for T = 1,
+# the remainder launch of an odd leg
+TIMESKEW_T = 2
+
+launches = {"split": 0, "merge": 0, "half_sweep": 0, "error_sweep": 0,
+            "timeskew": 0}
+# wavefront launches by the level's halves shape (X, Y/2, Z), counted at
+# the same place as launches["timeskew"]
+timeskew_by_level: dict[tuple[int, int, int], int] = {}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    timeskew_by_level.clear()
 
 
 # ------------------------------------------------------------ checks
@@ -187,18 +205,48 @@ def error_sweeps_plain(rr, rb, nsweeps: int, problem, geom: LevelGeometry):
     return er, eb
 
 
+def timeskew_sweeps_plain(b, fr, fb, nsweeps: int, problem,
+                          geom: LevelGeometry, v_zero: bool = False):
+    """(r, b): `nsweeps` red-then-black sweeps from the black half `b`
+    and the RHS halves (fr, fb) in the where form of the time-skewed TPU
+    kernels (relax.py:1592-1612): every update is written as
+    where(ok, upd, 0) with Poisson.split_update, so the red input is never
+    read, and plane 0 of `b` reads as zero (the kernels never load it).
+    `v_zero`: b is zero (`b` is not read).  In any float dtype; new
+    tensors, the inputs are not written.  This is not the blend form
+    u + m*(upd - u) of `half_sweep_plain`: the two differ in the last bits,
+    as the TPU kernels do."""
+    if nsweeps < 1:
+        raise ValueError(f"nsweeps {nsweeps}: the wavefront runs >= 1 sweep")
+    ok_r, ok_b = half_sweep_masks(*fr.shape, fr.device)
+    if v_zero:
+        b = torch.zeros_like(fr)
+    else:
+        b = b.clone()
+        b[0] = 0.0
+    for _ in range(nsweeps):
+        r = torch.where(ok_r, problem.split_update(_pairs(b, RED), fr, geom),
+                        0.0)
+        b = torch.where(ok_b, problem.split_update(_pairs(r, BLACK), fb,
+                                                   geom), 0.0)
+    return r, b
+
+
 # ------------------------------------------------------------ wrappers
 
 
-def split(v: torch.Tensor):
-    """Dense (X, Y, Z) -> (r, b) halves."""
+def split(v: torch.Tensor, red: bool = True):
+    """Dense (X, Y, Z) -> (r, b) halves; without `red` only the black half
+    is written, and r is None."""
     X, Y2, Z = _halves_shape(v.shape)
     if not _on_cuda(v):
-        return split_colors(v)
-    r = torch.empty((X, Y2, Z), dtype=v.dtype, device=v.device)
-    b = torch.empty_like(r)
+        r, b = split_colors(v)
+        return (r if red else None), b
+    b = torch.empty((X, Y2, Z), dtype=v.dtype, device=v.device)
+    r = torch.empty_like(b) if red else None
     rc = build.load().lib.pdemg_split(
-        v.data_ptr(), r.data_ptr(), b.data_ptr(), X, Y2, Z, _stream()
+        v.data_ptr(), None if r is None else r.data_ptr(), b.data_ptr(), X,
+        Y2, Z, _stream()
     )
     launches["split"] += 1
     build.check(rc, "split")
@@ -299,6 +347,63 @@ def error_sweeps(rr, rb, nsweeps: int, problem, geom: LevelGeometry):
     return er, eb
 
 
+def timeskew_relax_halves(b, fr, fb, nsweeps: int, problem,
+                          geom: LevelGeometry, v_zero: bool = False):
+    """(r, b) after `nsweeps` red->black sweeps from the black half `b`
+    (not read with `v_zero`, and then may be None) and the RHS halves
+    (fr, fb), as `relax_raw` chains the TPU wavefront (relax.py:1744-1769):
+    nsweeps // T launches of T = TIMESKEW_T sweeps, then one of the
+    nsweeps % T left, each from the previous launch's b.  New tensors;
+    the inputs are not written."""
+    if nsweeps < 1:
+        raise ValueError(f"nsweeps {nsweeps}: the wavefront runs >= 1 sweep")
+    on_cuda = _check_sweep_args(fr, fr if v_zero else b, fb, geom)
+    X, Y2, Z = fr.shape
+    # the kernel holds two z points per thread and 32-bit element offsets
+    if Z % 2 or (X + 16) * Y2 * Z >= 2**31:
+        raise ValueError(
+            f"halves {(X, Y2, Z)}: the wavefront takes an even Z and "
+            "(X + 16) * Y/2 * Z < 2^31 points")
+    if not on_cuda:
+        return timeskew_sweeps_plain(b, fr, fb, nsweeps, problem, geom,
+                                     v_zero)
+    _check_poisson(problem)
+    if any(t.data_ptr() % 8 for t in (fr, fb, *(() if v_zero else (b,)))):
+        raise ValueError("the wavefront kernel reads 8-byte aligned halves")
+    (w0, w1, w2), inv_den = split_constants(geom)
+    fn = build.load().lib.pdemg_timeskew
+    stream = _stream()
+    r = torch.empty_like(fr)
+    bufs = (torch.empty_like(fr), torch.empty_like(fr))  # ping-pong b
+    src = None if v_zero else b
+    n_full, rem = divmod(nsweeps, TIMESKEW_T)
+    for k, t in enumerate([TIMESKEW_T] * n_full + [rem] * (rem > 0)):
+        dst = bufs[k % 2]
+        rc = fn(None if src is None else src.data_ptr(), fr.data_ptr(),
+                fb.data_ptr(), r.data_ptr(), dst.data_ptr(), X, Y2, Z, t,
+                int(src is None), w0, w1, w2, inv_den, stream)
+        launches["timeskew"] += 1
+        timeskew_by_level[(X, Y2, Z)] = timeskew_by_level.get((X, Y2, Z),
+                                                              0) + 1
+        build.check(rc, "timeskew")
+        src = dst
+    return r, src
+
+
+def timeskew_plan(geom: LevelGeometry) -> bool:
+    """Whether the wavefront relaxes this level: JAX's gate
+    (`timeskew_plan`, relax.py:3833-3855) without its TPU-only conditions
+    (Z % 128, Y/2 % 8 and the VMEM ladder): a 3D wrap level with even
+    extents, X >= 8, and a half-plane of at least TIMESKEW_MIN_PLANE
+    points."""
+    if not (geom.wrap and geom.ndim == 3):
+        return False
+    X, Y, Z = geom.padded_shape
+    if X % 2 or Y % 2 or Z % 2 or X < 8:
+        return False
+    return (Y // 2) * Z >= TIMESKEW_MIN_PLANE
+
+
 def make_split_relax(problem, geom: LevelGeometry):
     """relax(v, f, nsweeps) -> v for one 3D wrap level: split v and f
     into halves, sweep, merge back into v's own storage (in place — the
@@ -309,6 +414,22 @@ def make_split_relax(problem, geom: LevelGeometry):
         r, b = split(v)
         fr, fb = split(f)
         relax_halves(r, b, fr, fb, nsweeps, problem, geom)
+        return merge(r, b, out=v)
+
+    return relax
+
+
+def make_timeskew_relax(problem, geom: LevelGeometry):
+    """relax(v, f, nsweeps) -> v for one 3D wrap level through the
+    wavefront (the TPU kernels' `relax`, relax.py:1778-1782): split v's
+    black half (the wavefront never reads red) and f, sweep, merge back
+    into v's own storage in place."""
+    _halves_shape(geom.padded_shape)
+
+    def relax(v, f, nsweeps: int):
+        _, b = split(v, red=False)
+        fr, fb = split(f)
+        r, b = timeskew_relax_halves(b, fr, fb, nsweeps, problem, geom)
         return merge(r, b, out=v)
 
     return relax
