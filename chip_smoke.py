@@ -16,6 +16,13 @@ Phases, in order; any failure exits non-zero without the final result line:
      T, 2T + 1 and 100 sweeps, a 100-sweep leg timed beside its plain
      version, and (dense in and out) beside the half-sweep chain and the
      bf16 defect leg, and at 128^3 and 64^3 beside the half-sweeps; then
+     the fused coarse-subtree V-cycle (subtree.cu) bitwise against the
+     unfused chain of the port's kernels and against its plain version at
+     the roots 64^3 ... 2^3, nu = (1, 1), (1, 0), (2, 3), with and without
+     the root's relax, and at nu = 3000 on the 64^3 and 32^3 roots, timed
+     at nu = 3000 on every root (at 64^3 and 32^3 beside the chain); the
+     transfer kernels on the sub-lane pairs
+     32^3 -> 16^3 ... 4^3 -> 2^3 (rows 23 and 24) bitwise; then
      the 2D Lyapunov kernels, bitwise: split2d, merge2d and half_sweep2d
      (with and without f) at 4097^2, resident over 500-sweep legs at
      257^2 and 65^2 (with and without f);
@@ -34,7 +41,16 @@ Phases, in order; any failure exits non-zero without the final result line:
      the half-sweeps, 64^3 solved exactly) and at 513^3 (512^3 and 256^3
      by the wavefront); in f32 exactly the launches of the schedule:
      4 (l + 1) legs on level l, each ceil(100 / T) wavefront launches or
-     200 half-sweeps;
+     200 half-sweeps; then the thesis' 3D presets through the CLI,
+     `--preset poisson3d` (129^3) and `--preset poisson3d-cuda` (257^3),
+     FMG(2, 3000, 3000) relaxed down to 2^3: error_linf < 50 h^2, finite
+     residuals, exactly the schedule's launches (one subtree launch per
+     V-cycle) and no other kernel, ms per step eager and as one CUDA
+     graph, at 129^3 two steps with the fused hooks on and off (the same
+     solution bit for bit, eager ms each) and the plan with the 64^3-rooted
+     V-cycles unfused (bitwise the same; eager and graph ms); and 129^3
+     FMG(2, 4, 4) relaxed to 2^3 with the hooks on and off: the same
+     residual history and solution bit for bit;
   6. the 2D Lyapunov path at 4097^2: FMG(2, 500, 500), exact (dense
      inverse) coarsest level 33^2, precision="mixed", through
      `MultigridSolver.solve()` on "cuda": error_linf < max(10 h, 5e-5)
@@ -99,10 +115,14 @@ Phases, in order; any failure exits non-zero without the final result line:
      and as one CUDA graph, the profiler's busy time split into the two
      kernels and plain ops; and the float64 solve of the same schedule
      (`MultigridSolver(dtype="float64", device="cuda")`, the plain tier):
-     error_linf and max|v - v_float64| within VARCOEF_F32_FLOOR.
+     error_linf and max|v - v_float64| within VARCOEF_F32_FLOOR;
+ 11. the presets' schedule, FMG(2, 3000, 3000) relaxed to 2^3, at 17^3,
+     33^3 and 65^3 in float32 on the card against float64 on the host CPU
+     (the plain tier, in child processes started after the build that run
+     beside the phases above): error_linf of each and max|v32 - v64|.
 
-Every float64 reference is a `MultigridSolver(..., dtype="float64",
-device="cuda")` solve: the plain tier on the card.  Each phase's seconds
+Every float64 reference but phase 11's is a `MultigridSolver(...,
+dtype="float64", device="cuda")` solve: the plain tier on the card.  Each phase's seconds
 are printed as it ends.
 
 Every kernel's record carries its bound (the larger of its bytes over
@@ -225,6 +245,20 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/timeskew.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:2051",
     ),
+    "subtree": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/subtree.cu",
+        "pde_multigrid_tpu/ops/pallas/subtree.py:350",
+    ),
+    # transfer.cu's kernels on the sub-lane pairs (SMALL_PAIR_FINE), which
+    # JAX serves with its small resident transfer kernels
+    "small_restrict": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/transfer.cu",
+        "pde_multigrid_tpu/ops/pallas/subtree.py:754",
+    ),
+    "small_prolong_blend": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/transfer.cu",
+        "pde_multigrid_tpu/ops/pallas/subtree.py:792",
+    ),
 }
 # the levels (halves shapes) whose wavefront launches each record counts
 TIMESKEW_LEVELS = {"timeskew": (256, 128, 256), "timeskew_jb": (512, 256, 512)}
@@ -247,6 +281,18 @@ PATHS = {
     "hjb": ("slab2d", "resident_hjb"),
     # the varcoef2d 1025^2 Galerkin row (f32)
     "varcoef": ("stencil_resident", "stencil_slab2d"),
+    # the 3D presets (FMG(2,3000,3000), relaxed to 2^3): the fused subtree
+    # on 64^3 and below, the half-sweeps on 128^3, the wavefront on 256^3
+    "preset129": (*F32_3D, "subtree", "small_restrict",
+                  "small_prolong_blend"),
+    "preset257": (*F32_3D, "timeskew", "subtree", "small_restrict",
+                  "small_prolong_blend"),
+    # 33^3 V(2, 2) cycles, relaxed to 2^3: the correction scheme fuses
+    # every V-cycle; FAS (no fused hooks) relaxes every level with the
+    # half-sweeps and transfers on the sub-lane pairs
+    "fas3d_cs": ("subtree", "residual"),
+    "fas3d_fas": ("split", "merge", "half_sweep", "residual",
+                  "small_restrict", "small_prolong_blend"),
 }
 
 # per-sweep barrier floors of the whole-leg kernels, measured on the
@@ -482,10 +528,11 @@ def phase_kernels(torch):
         torch, lambda: R.relax_halves(t_r, t_b, fr, fb, 1, prob, gf),
         plain_sweep, 25,
     )
-    # per half-sweep: u read and written, w and fu read; 14 operations a
-    # point (3 pair sums, 3 products and sums, the scale, the blend)
+    # per half-sweep: u read and written, w and fu read; 13 operations a
+    # point (3 pair sums, 3 products and 3 sums, the negation, the scale,
+    # the blend's difference and sum)
     record("half_sweep", err, {k: x / 2 for k, x in t.items()},
-           4 * r.nbytes, 14 * r.numel())
+           4 * r.nbytes, 13 * r.numel())
 
     # residual: bitwise
     k = T.residual(v, f, prob, gf)
@@ -493,9 +540,10 @@ def phase_kernels(torch):
     require(torch.equal(k, p), "residual not bitwise")
     t = paired_times(torch, lambda: T.residual(v, f, prob, gf),
                            lambda: T.residual_plain(v, f, prob, gf), 20)
-    # (a - 2v + b) w per axis and their sum, f - L v, the mask: 16 a point
+    # 2 v, (a - 2v + b) w per axis and their sum, f - L v, the mask: 14 a
+    # point
     record("residual", _max_err(torch, k, p), t, 3 * v.nbytes,
-           16 * v.numel())
+           14 * v.numel())
 
     # residual + restrict, both modes (restrict alone on f, whose
     # boundary planes are not zero: the FMG RHS cascade)
@@ -513,7 +561,7 @@ def phase_kernels(torch):
     )
     # the residual at every fine point, a 27-point weighted sum per coarse
     record("residual_restrict", max(errs), t, 2 * v.nbytes + c.nbytes,
-           16 * v.numel() + 53 * c.numel())
+           14 * v.numel() + 53 * c.numel())
 
     # prolong + blend, both modes
     errs = []
@@ -689,6 +737,228 @@ def phase_kernels_timeskew(torch):
         log(f"wavefront below its gate ({n - 1}^3, plan: "
             f"{'wavefront' if R.timeskew_plan(g) else 'half-sweeps'}): "
             f"dense {nsw}-sweep leg ms {dense!r}")
+    torch.cuda.synchronize()
+    return out
+
+
+# the subtree kernel's roots on the 3D presets' hierarchies (stored
+# extents), and the sweep pairs it is held bitwise at on every root
+SUBTREE_ROOTS = (64, 32, 16, 8, 4, 2)
+SUBTREE_NUS = ((1, 1), (1, 0), (2, 3))
+# the presets' nu, checked at the 64^3 and 32^3 roots, timed at every root
+SUBTREE_LONG = 3000
+# the sub-lane pairs JAX gives its small resident transfer kernels
+# (subtree.py _small_pair_ok: a fine level of at most 32^3 here), by the
+# fine level's stored shape: rows 23 and 24 count the transfer kernels'
+# launches there, rows 25 and 26 the others
+SMALL_PAIR_FINE = ((32, 32, 32), (16, 16, 16), (8, 8, 8), (4, 4, 4))
+# the subtree kernel's V-cycle per root and nu beside the unfused chain and
+# the plain version, ms (printed with the summaries)
+SUBTREE_AB = {}
+
+
+def _subtree_cost(geoms, nu1, nu2, with_root_relax):
+    """(bytes, operations) of one fused call: the root's v read and
+    written and its f read; per point and sweep 13 operations (3 pair
+    sums, 3 products and 3 sums, the negation, the scale, the blend's
+    difference and sum) on every relaxed level, nu1 + nu2 sweeps each;
+    per fine point of each pair the residual (14: 2 c, per axis a
+    difference, a sum and a product, 2 sums, f - L v, the mask) and the
+    prolongation (10), per coarse point the weighting (53)."""
+    pts = [g.padded_shape[0] * g.padded_shape[1] * g.padded_shape[2]
+           for g in geoms]
+    relaxed = pts if with_root_relax else pts[1:]
+    ops = 13 * (nu1 + nu2) * sum(relaxed)
+    ops += sum(24 * f + 53 * c for f, c in zip(pts, pts[1:]))
+    return 3 * 4 * pts[0], ops
+
+
+def phase_kernels_subtree(torch):
+    """The fused subtree V-cycle (csrc/subtree.cu) bitwise against the
+    unfused chain of the port's kernels (split, half-sweeps, merge,
+    residual_restrict, prolong_blend through `CycleProgram.v_cycle` on a
+    `CudaKernels` without a fused plan) and against its plain version, at
+    the roots 64^3 ... 2^3 of the 65^3 wrap hierarchy, nu = (1, 1), (1, 0),
+    (2, 3), with the root relaxed and without (the correction alone); at
+    the 64^3 and 32^3 roots also nu = 3000 (the plain version there only
+    with the root relaxed: the correction's sub-V-cycle is the next
+    root's check).  Inputs are random with the wrap invariant (v zero on
+    the stored planes 0), f random everywhere.  The V-cycle at nu = 3000
+    is timed at every root, the kernel graph-replayed, at 64^3 and 32^3
+    beside the chain (graph-replayed) and the plain version (eager, one
+    call: some 2e6 PyTorch operations, too many to capture).
+    Then the transfer kernels on the
+    sub-lane pairs 32^3 -> 16^3 ... 4^3 -> 2^3 (rows 23 and 24: restrict
+    alone, and prolong + blend in both modes) bitwise against their plain
+    versions, timed at 32^3 -> 16^3.  Returns {"subtree": the 64^3 record
+    at nu = 3000, "small_restrict", "small_prolong_blend"}."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.config import CycleConfig
+    from pde_multigrid_tpu_torch.cycles import CycleProgram
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.models import Poisson3D
+    from pde_multigrid_tpu_torch.ops.cuda import subtree as S
+    from pde_multigrid_tpu_torch.ops.cuda import transfer as T
+    from pde_multigrid_tpu_torch.ops.cuda.dispatch import CudaKernels
+
+    dev = torch.device("cuda")
+    prob = Poisson3D()
+    geoms = build_geometries((SUBTREE_ROOTS[0] + 1,) * 3, prob.domain,
+                             wrap=True)
+    require([g.padded_shape[0] for g in geoms] == list(SUBTREE_ROOTS),
+            f"hierarchy {[g.padded_shape for g in geoms]}")
+    rng = np.random.default_rng(2028)
+    chain_tier = CudaKernels(prob, geoms, torch.float32)  # no fused plan
+    require(not any(chain_tier._sub_v), "the chain tier has a fused plan")
+    levels = [prob.init_level(g, torch.float32, dev) for g in geoms]
+    out = {}
+
+    def rand(shape, interior_only):
+        a = rng.standard_normal(shape).astype(np.float32)
+        if interior_only:
+            a *= wrap_interior(shape)
+        return torch.tensor(a, device=dev)
+
+    def chain(l, v, f, nu1, nu2, with_root_relax):
+        """The unfused V-cycle (or correction) on a copy of v."""
+        prog = CycleProgram(prob, geoms, CycleConfig("v", 0, nu1, nu2),
+                            chain_tier, device=dev)
+        v = v.clone()
+        if with_root_relax:
+            levels[l].v, levels[l].f = v, f
+            prog.v_cycle(levels, l, f_is_rhs=False)
+            return levels[l].v
+        coarse = levels[l + 1]
+        coarse.f = T.residual_restrict(v, f, prob, geoms[l], geoms[l + 1])
+        coarse.v.zero_()
+        prog.v_cycle(levels, l + 1, f_is_rhs=False)
+        return T.prolong_blend(coarse.v, v, "add", geoms[l + 1], geoms[l],
+                               out=v)
+
+    def kernel(l, v, f, nu1, nu2, with_root_relax):
+        return S.subtree_vcycle(v.clone(), f, prob, geoms[l:], nu1, nu2,
+                                with_root_relax)
+
+    def plain(l, v, f, nu1, nu2, with_root_relax):
+        return S.subtree_vcycle_plain(v, f, prob, geoms[l:], nu1, nu2,
+                                      with_root_relax)
+
+    def check(l, nu1, nu2, wr, with_plain=True):
+        g = geoms[l]
+        v = rand(g.padded_shape, True)
+        f = rand(g.padded_shape, False)
+        k = kernel(l, v, f, nu1, nu2, wr)
+        c = chain(l, v, f, nu1, nu2, wr)
+        tag = (f"subtree root {g.padded_shape[0]}^3 nu = ({nu1}, {nu2}) "
+               f"with_root_relax={wr}")
+        err = _max_err(torch, k, c)
+        require(torch.equal(k, c), f"{tag}: kernel != chain, max diff "
+                f"{err!r}")
+        plain_ms = None
+        if with_plain:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            p = plain(l, v, f, nu1, nu2, wr)
+            e1.record()
+            e1.synchronize()
+            plain_ms = e0.elapsed_time(e1)
+            err = max(err, _max_err(torch, k, p))
+            require(torch.equal(k, p), f"{tag}: kernel != plain, max diff "
+                    f"{err!r}")
+        require(bool(torch.isfinite(k).all()), f"{tag}: non-finite")
+        return v, f, plain_ms, err
+
+    ncases, max_err = 0, 0.0
+    for l in range(len(geoms)):
+        for nu1, nu2 in SUBTREE_NUS:
+            for wr in (True, False) if l + 1 < len(geoms) else (True,):
+                max_err = max(max_err, check(l, nu1, nu2, wr)[3])
+                ncases += 1
+    log(f"kernel subtree: bitwise against the unfused chain and the plain "
+        f"version at roots {list(SUBTREE_ROOTS)}, nu {list(SUBTREE_NUS)}, "
+        f"with and without the root's relax ({ncases} cases)")
+    nu = SUBTREE_LONG
+    for l, root in enumerate(SUBTREE_ROOTS):
+        ab = SUBTREE_AB[f"{root}^3 nu={nu}"] = {}
+        if l < 2:
+            max_err = max(max_err,
+                          check(l, nu, nu, False, with_plain=False)[3])
+            v, f, plain_ms, err = check(l, nu, nu, True)
+            max_err = max(max_err, err)
+        else:
+            v = rand(geoms[l].padded_shape, True)
+            f = rand(geoms[l].padded_shape, False)
+        vk = v.clone()
+        ab["kernel_ms"] = device_ms(
+            torch, lambda: kernel(l, vk, f, nu, nu, True), 1)
+        if l < 2:
+            ab["chain_ms"] = device_ms(
+                torch, lambda: chain(l, vk, f, nu, nu, True), 1)
+            ab["plain_eager_ms"] = plain_ms
+        if l == 0:
+            nbytes, ops = _subtree_cost(geoms, nu, nu, True)
+            out["subtree"] = {"max_abs_err": max_err, "ms": ab["kernel_ms"],
+                              "plain_ms": plain_ms, **bound(nbytes, ops),
+                              "library_ms": None}
+        what = ("; bitwise against the chain (graph-replayed) in both "
+                "variants and the plain version (eager, one call)"
+                if l < 2 else "")
+        log(f"kernel subtree ({root}^3 root, nu = {nu}): ms {ab}{what}")
+
+    # rows 23, 24: the transfer kernels on the sub-lane pairs
+    errs = {"small_restrict": 0.0, "small_prolong_blend": 0.0}
+    for gf, gc in zip(geoms[1:], geoms[2:]):
+        a = rand(gf.padded_shape, False)
+        vb = rand(gf.padded_shape, True)
+        c = rand(gc.padded_shape, True)
+        pair = f"{gf.padded_shape[0]}^3 -> {gc.padded_shape[0]}^3"
+        for with_res in (False, True):
+            k = T.residual_restrict(vb if with_res else a, a, prob, gf, gc,
+                                    with_residual=with_res)
+            p = T.residual_restrict_plain(vb if with_res else a, a, prob, gf,
+                                          gc, with_res)
+            if not with_res:
+                errs["small_restrict"] = max(errs["small_restrict"],
+                                             _max_err(torch, k, p))
+            require(torch.equal(k, p), f"residual_restrict({with_res}) "
+                    f"{pair} not bitwise")
+        for mode in ("add", "replace"):
+            k = T.prolong_blend(c, vb, mode, gc, gf)
+            p = T.prolong_blend_plain(c, vb, mode)
+            errs["small_prolong_blend"] = max(errs["small_prolong_blend"],
+                                              _max_err(torch, k, p))
+            require(torch.equal(k, p),
+                    f"prolong_blend({mode}) {pair} not bitwise")
+        if gf.padded_shape[0] == SMALL_PAIR_FINE[0][0]:
+            t = paired_times(
+                torch, lambda: T.residual_restrict(a, None, prob, gf, gc,
+                                                   with_residual=False),
+                lambda: T.residual_restrict_plain(a, None, prob, gf, gc,
+                                                  False), 20)
+            out["small_restrict"] = {
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                **bound(a.nbytes + a.nbytes // 8, 53 * c.numel()),
+                "library_ms": None}
+            dst = torch.empty_like(vb)
+            t2 = paired_times(
+                torch, lambda: T.prolong_blend(c, vb, "replace", gc, gf,
+                                               out=dst),
+                lambda: T.prolong_blend_plain(c, vb, "replace"), 20)
+            out["small_prolong_blend"] = {
+                "ms": t2["ms"],
+                "plain_ms": t2["plain_ms"],
+                **bound(c.nbytes + 2 * vb.nbytes, 11 * vb.numel()),
+                "library_ms": None}
+            log(f"kernels small_restrict / small_prolong_blend ({pair}): "
+                f"device {t['ms']!r} / {t2['ms']!r} ms vs plain "
+                f"{t['plain_ms']!r} / {t2['plain_ms']!r} ms")
+    for name, err in errs.items():
+        out[name]["max_abs_err"] = err
+    log("kernels small_restrict / small_prolong_blend: bitwise against "
+        "their plain versions (and the residual mode) on "
+        f"{[s[0] for s in SMALL_PAIR_FINE]}^3 -> half")
     torch.cuda.synchronize()
     return out
 
@@ -905,9 +1175,10 @@ def _counter_modules():
     from pde_multigrid_tpu_torch.ops.cuda import resident as RS
     from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
     from pde_multigrid_tpu_torch.ops.cuda import stencilop as SO
+    from pde_multigrid_tpu_torch.ops.cuda import subtree as ST
     from pde_multigrid_tpu_torch.ops.cuda import transfer as T
 
-    return (R, T, D, R2, RS, R1, SL, SO)
+    return (R, T, D, R2, RS, R1, SL, SO, ST)
 
 
 def reset_counts() -> None:
@@ -917,12 +1188,22 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     from pde_multigrid_tpu_torch.ops.cuda import relax as R
+    from pde_multigrid_tpu_torch.ops.cuda import transfer as T
 
     out = {}
     for mod in _counter_modules():
         out.update(mod.launches)
     for name, level in TIMESKEW_LEVELS.items():
         out[name] = R.timeskew_by_level.get(level, 0)
+    # rows 23 and 24: the transfer kernels' launches on the sub-lane pairs
+    # (restrict alone; prolong + blend), taken out of rows 25 and 26
+    for name, key, total in (("small_restrict", "restrict",
+                              "residual_restrict"),
+                             ("small_prolong_blend", "prolong_blend",
+                              "prolong_blend")):
+        out[name] = sum(T.launches_by_fine.get((key, s), 0)
+                        for s in SMALL_PAIR_FINE)
+        out[total] -= out[name]
     return out
 
 
@@ -1589,8 +1870,10 @@ def phase_fas3d(torch):
     problem FAS is the correction scheme: error_linf within 1e-5 and the
     last cycle's residual reduction within 0.15 of each other (the CPU
     counterpart: tests/test_torch_galerkin.py), and each solve launches the
-    f32 3D kernels (FAS's coarse change through prolong_blend's add
-    mode) and no other kernel."""
+    kernels of its plan and no other: the correction scheme the fused
+    subtree (every level is at most 32^3) and the residual norms; FAS the
+    f32 half-sweeps and the transfer kernels on the sub-lane pairs (FAS's
+    coarse change through prolong_blend's add mode)."""
     from pde_multigrid_tpu_torch import (
         CycleConfig,
         MultigridSolver,
@@ -1611,7 +1894,7 @@ def phase_fas3d(torch):
         tag = f"{scheme} {n}^3 V(2, 2) x 5"
         log(f"{tag}: residual history {res.residual_history!r}, error_linf "
             f"{res.error_linf!r}, launches {read_counts()}")
-        _check_solve(torch, tag, res, solver, 50 * h * h, "f32")
+        _check_solve(torch, tag, res, solver, 50 * h * h, f"fas3d_{scheme}")
         out[scheme] = res
     cs, fas = out["cs"], out["fas"]
 
@@ -1862,6 +2145,7 @@ def phase_reference(torch, n: int, solves):
     v64 = res.v
     m = solver.fresh_levels()[0].aux["m_int"]
     err64 = res.error_linf
+    F64_ERR[n] = err64
     log(f"reference {n}^3 float64 (plain tier): error_linf {err64!r}")
     for precision, (summary, v) in solves.items():
         gap = abs(summary["error_linf"] - err64)
@@ -1880,6 +2164,275 @@ def phase_reference(torch, n: int, solves):
             "error of the float64 solve")
 
 
+F64_ERR = {}  # n -> the float64 FMG(2,100,100) error_linf of phase_reference
+
+
+def preset_launches(solver, T: int) -> dict:
+    """The launches one FMG step of the solver's schedule implies, by
+    kernel: every V-cycle (nu0 from each level) launches one subtree
+    kernel, at its root or where it reaches the first fused level; a level
+    above that is visited nu0 (l + 1) times, each visit two relax legs
+    (the wavefront's ceil(nu / T) launches or 2 nu half-sweeps per leg, a
+    split of v and of f and a merge per leg) and one residual_restrict and
+    one prolong_blend ('add') to the level below; the FMG f-cascade
+    restricts once per pair and its upward leg prolongs once per pair
+    ('replace'), the sub-lane pairs counted as rows 23 and 24; the
+    residual norms take 2 residual launches."""
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
+    cyc = solver.config.cycle
+    geoms = solver.geoms
+    fused = solver.program.kernels._sub_v
+    lf = next(l for l, fn in enumerate(fused) if fn is not None)
+    want = {"subtree": cyc.nu0 * len(geoms), "split": 0, "merge": 0,
+            "half_sweep": 0, "timeskew": 0, "residual_restrict": 0,
+            "prolong_blend": 0, "small_restrict": 0,
+            "small_prolong_blend": 0, "residual": 2}
+    for l in range(lf):
+        visits = cyc.nu0 * (l + 1)
+        if R.timeskew_plan(geoms[l]):
+            want["timeskew"] += visits * sum(-(-nu // T)
+                                             for nu in (cyc.nu1, cyc.nu2))
+        else:
+            want["half_sweep"] += visits * 2 * (cyc.nu1 + cyc.nu2)
+        want["split"] += visits * 4
+        want["merge"] += visits * 2
+        want["residual_restrict"] += visits
+        want["prolong_blend"] += visits
+    for gf in geoms[:-1]:
+        small = tuple(gf.padded_shape) in SMALL_PAIR_FINE
+        want["small_restrict" if small else "residual_restrict"] += 1
+        want["small_prolong_blend" if small else "prolong_blend"] += 1
+    return want
+
+
+def phase_preset3d(torch):
+    """The thesis' 3D presets through the CLI, in process, on "cuda":
+    `--preset poisson3d` (129^3) and `--preset poisson3d-cuda` (257^3),
+    FMG(2, 3000, 3000), relaxed down to 2^3.  error_linf < 50 h^2, finite
+    residuals, exactly the launches of the schedule (`preset_launches`:
+    the subtree kernel once per V-cycle, the half-sweeps on 128^3 only,
+    the wavefront on 256^3 only, the transfer kernels on the pairs above
+    the fused roots and, as rows 23 and 24, on the sub-lane pairs of the
+    FMG f-cascade and upward leg) and no other kernel.  Each step timed
+    eager and as one CUDA graph; at 129^3 also the A/B of the fused
+    subtree: two steps eager from fresh levels with the hooks on and off
+    (the same levels relaxed by the half-sweeps), the same solution bit
+    for bit, and the plan with the 64^3-rooted V-cycles unfused and the
+    roots below fused, eager and as one CUDA graph, bitwise the same too.
+    Returns (129^3 launch counts, 257^3 launch counts, summaries)."""
+    from pde_multigrid_tpu_torch import CycleConfig, MultigridSolver
+    from pde_multigrid_tpu_torch import Poisson3D, SolverConfig
+    from pde_multigrid_tpu_torch.__main__ import PRESETS
+    from pde_multigrid_tpu_torch.__main__ import main as cli_main
+    from pde_multigrid_tpu_torch.cycles import CycleProgram
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+    from pde_multigrid_tpu_torch.ops.cuda.dispatch import CudaKernels
+
+    all_counts, summaries = [], []
+    for name in ("poisson3d", "poisson3d-cuda"):
+        p = PRESETS[name]
+        n = p["n"]
+        cyc = CycleConfig("fmg", p["nu0"], p["nu1"], p["nu2"])
+        solver = MultigridSolver(Poisson3D(), n, SolverConfig(cycle=cyc),
+                                 device="cuda")
+        want = preset_launches(solver, R.TIMESKEW_T)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            cli_main(["--preset", name, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        h = 1.0 / (n - 1)
+        tag = f"--preset {name}"
+        log(f"{tag}: {len(solver.geoms)} levels "
+            f"{[g.padded_shape[0] for g in solver.geoms]}, error_linf "
+            f"{out['error_linf']!r} (limit 50 h^2 = {50 * h * h!r}; the "
+            f"float64 FMG(2,100,100) exact-coarsest solve's "
+            f"{F64_ERR.get(n)!r}), residual_l2 {out['residual_l2']!r}, "
+            f"solve {out['wall_time_s']!r} s, command {wall!r} s, launches "
+            f"{counts}")
+        require(out["error_linf"] < 50 * h * h, f"{tag}: error_linf too "
+                "large")
+        require(all(x == x and abs(x) != float("inf")
+                    for x in out["residual_history"]) and not out["diverged"],
+                f"{tag}: non-finite residuals")
+        path = "preset129" if n == 129 else "preset257"
+        _check_counts(tag, path, {k: want[k] for k in PATHS[path]})
+        require(all(counts.get(k, 0) == want[k] for k in want),
+                f"{tag}: launches {counts}, the schedule implies {want}")
+        all_counts.append(counts)
+        summary = {"preset": name, "n": n, "nus": [cyc.nu0, cyc.nu1,
+                                                   cyc.nu2],
+                   "error_linf": out["error_linf"],
+                   "f64_error_linf_fmg100_exact": F64_ERR.get(n),
+                   "residual_l2": out["residual_l2"], "launches": want}
+        levels = solver.fresh_levels()
+        summary.update(time_step(torch, tag, solver, levels, 1, 1))
+        if n == 129:
+            # the A/B: the same steps with the hooks off (a tier without
+            # the cycle has no fused plan), eager, each side from fresh
+            # levels (time_ms: a warm-up step, then the timed one); the two
+            # solutions must agree bit for bit
+            geoms = solver.geoms
+            off = CudaKernels(solver.problem, geoms, torch.float32)
+            prog_off = CycleProgram(solver.problem, geoms, cyc, off,
+                                    device=solver.device)
+            lv_on, lv_off = solver.fresh_levels(), solver.fresh_levels()
+            ms_on = time_ms(torch, lambda: solver.program.solve_step(lv_on),
+                            1)
+            ms_off = time_ms(torch, lambda: prog_off.solve_step(lv_off), 1)
+            require(torch.equal(lv_on[0].v, lv_off[0].v),
+                    f"{tag}: the fused and the unfused steps differ")
+            summary["ab_eager_ms_per_step"] = {"fused": ms_on,
+                                               "unfused": ms_off}
+            log(f"{tag}: two steps from fresh levels with the fused hooks on "
+                f"and off, bitwise the same solution; eager ms per step "
+                f"{ms_on!r} fused, {ms_off!r} unfused")
+            # the plan a redesign of the fused 64^3 level must beat: the
+            # 64^3-rooted V-cycles unfused (the whole card's half-sweeps
+            # on 64^3), the roots 32^3 and below fused; two steps from
+            # fresh levels, bitwise the fused plan's, then as one graph
+            alt = MultigridSolver(Poisson3D(), n, SolverConfig(cycle=cyc),
+                                  device="cuda")
+            l64 = [g.padded_shape[0] for g in geoms].index(64)
+            alt.program.kernels._sub_v[l64] = None
+            lv_alt = alt.fresh_levels()
+            step = lambda: alt.program.solve_step(lv_alt)  # noqa: E731
+            ms_alt = time_ms(torch, step, 1)
+            require(torch.equal(lv_alt[0].v, lv_on[0].v),
+                    f"{tag}: the 64^3-unfused plan changes the solution")
+            graph_alt = device_ms(torch, step, 1)
+            summary["plan_64_unfused_ms_per_step"] = {"eager": ms_alt,
+                                                      "graph": graph_alt}
+            log(f"{tag}: the 64^3-rooted V-cycles unfused, the roots below "
+                f"fused: bitwise the same solution; {ms_alt!r} ms/step "
+                f"eager, {graph_alt!r} as one CUDA graph (the fused plan "
+                f"{summary['graph_ms_per_step']!r})")
+        summaries.append(summary)
+    return all_counts[0], all_counts[1], summaries
+
+
+def phase_subtree_identity(torch):
+    """129^3, FMG(2, 4, 4), coarsest="relax", then two V-cycles, on the
+    card through the fused plan and with the hooks off: the same residual
+    history and the same solution, bit for bit."""
+    from pde_multigrid_tpu_torch import CycleConfig, MultigridSolver
+    from pde_multigrid_tpu_torch import Poisson3D, SolverConfig
+    from pde_multigrid_tpu_torch.cycles import CycleProgram
+    from pde_multigrid_tpu_torch.ops.cuda import subtree as S
+    from pde_multigrid_tpu_torch.ops.cuda.dispatch import CudaKernels
+
+    cfg = SolverConfig(cycle=CycleConfig("fmg", 2, 4, 4), tol=0.0,
+                       max_cycles=3)
+    res = {}
+    for hooks in (True, False):
+        solver = MultigridSolver(Poisson3D(), 129, cfg, device="cuda")
+        if not hooks:
+            solver.program = CycleProgram(
+                solver.problem, solver.geoms, cfg.cycle,
+                CudaKernels(solver.problem, solver.geoms, torch.float32),
+                device=solver.device)
+        S.reset_launches()
+        res[hooks] = solver.solve_to_tolerance()
+        require((S.launches["subtree"] > 0) == hooks,
+                f"hooks {hooks}: {S.launches['subtree']} subtree launches")
+    on, off = res[True], res[False]
+    log(f"identity 129^3 FMG(2,4,4) relax-coarsest: residual history fused "
+        f"{on.residual_history!r}, unfused {off.residual_history!r}; "
+        f"error_linf {on.error_linf!r} / {off.error_linf!r}")
+    require(on.residual_history == off.residual_history
+            and torch.equal(on.v, off.v),
+            "the fused plan changes the 129^3 FMG(2,4,4) solve")
+    return {"check": "fused == unfused, 129^3 FMG(2,4,4) relax coarsest",
+            "residual_history": on.residual_history,
+            "error_linf": on.error_linf}
+
+
+# the sizes of the float32-against-float64 witness of the presets'
+# schedule (`phase_rounding`); the float64 side takes the plain tier, some
+# 1e7 PyTorch operations a size, and runs on the host CPU in a child
+# process (one thread) beside the rest of the script, collected last
+ROUNDING_N = (17, 33, 65)
+
+
+def f64_preset_schedule(n: int) -> None:
+    """Print, as one JSON line, the float64 solve of the presets'
+    schedule, FMG(2, 3000, 3000) relaxed to 2^3, at n^3 on the host CPU
+    (the plain tier, one thread): its error_linf, solution and seconds.
+    `start_rounding_witness` runs it in a child process."""
+    import torch
+
+    from pde_multigrid_tpu_torch import CycleConfig, MultigridSolver
+    from pde_multigrid_tpu_torch import Poisson3D, SolverConfig
+
+    torch.set_num_threads(1)
+    nu = SUBTREE_LONG
+    cfg = SolverConfig(cycle=CycleConfig("fmg", 2, nu, nu), dtype="float64")
+    t0 = time.perf_counter()
+    res = MultigridSolver(Poisson3D(), n, cfg, device="cpu").solve()
+    print(json.dumps({"error_linf": res.error_linf,
+                      "shape": list(res.v.shape),
+                      "v": res.v.flatten().tolist(),
+                      "seconds": time.perf_counter() - t0}))
+
+
+def start_rounding_witness() -> dict:
+    """One child process per size of ROUNDING_N, each running
+    `f64_preset_schedule`; `phase_rounding` collects them."""
+    return {n: subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; chip_smoke.f64_preset_schedule(int(sys.argv[2]))",
+         HERE, str(n)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE)
+        for n in ROUNDING_N}
+
+
+def phase_rounding(torch, procs) -> dict:
+    """The presets' schedule, FMG(2, 3000, 3000) relaxed to 2^3, at the
+    sizes ROUNDING_N: float32 on the card (the fused plan: every V-cycle
+    one subtree launch) against float64 (the plain tier on the host CPU,
+    from the children of `start_rounding_witness`).  Logs each side's
+    error_linf and max|v32 - v64| on the interior: the float32 side's
+    rounding, which the presets' error_linf carries at 129^3 and 257^3.
+    Gate: both solves finite and under 50 h^2."""
+    from pde_multigrid_tpu_torch import CycleConfig, MultigridSolver
+    from pde_multigrid_tpu_torch import Poisson3D, SolverConfig
+
+    nu = SUBTREE_LONG
+    out = {"check": "float32 (card) vs float64 (plain tier), FMG(2,3000,"
+                    "3000) relaxed to 2^3"}
+    for n in ROUNDING_N:
+        text, err = procs[n].communicate(timeout=600)
+        require(procs[n].returncode == 0,
+                f"float64 {n}^3 child failed: {err[-2000:]}")
+        r64 = json.loads(text.strip().splitlines()[-1])
+        solver = MultigridSolver(Poisson3D(), n, SolverConfig(
+            cycle=CycleConfig("fmg", 2, nu, nu)), device="cuda")
+        require(all(fn is not None for fn in solver.program.kernels._sub_v),
+                f"{n}^3: not every root fused")
+        res = solver.solve()
+        v64 = torch.tensor(r64["v"], dtype=torch.float64,
+                           device="cuda").reshape(r64["shape"])
+        m = solver.fresh_levels()[0].aux["m_int"]
+        dv = float(torch.max(torch.abs((res.v.to(torch.float64) - v64) * m)))
+        h = 1.0 / (n - 1)
+        row = {"error_linf_f32": res.error_linf,
+               "error_linf_f64": r64["error_linf"], "max_abs_dv": dv,
+               "f64_seconds": r64["seconds"]}
+        out[f"{n}^3"] = row
+        log(f"rounding {n}^3 FMG(2,{nu},{nu}) relaxed to 2^3: error_linf "
+            f"float32 {res.error_linf!r}, float64 {r64['error_linf']!r} "
+            f"(host CPU, {r64['seconds']!r} s), max|v32 - v64| {dv!r}")
+        require(dv == dv and max(res.error_linf, r64["error_linf"])
+                < 50 * h * h, f"rounding {n}^3: {row}")
+    return out
+
+
 PHASE_S = {}
 
 
@@ -1896,6 +2449,7 @@ def timed(name, fn, *args, **kw):
 
 def main() -> int:
     sys.path.insert(0, HERE)
+    witness = {}
     try:
         import torch
 
@@ -1909,8 +2463,11 @@ def main() -> int:
         )
 
         timed("build", phase_build)
+        witness = start_rounding_witness()
         results = timed("kernels3d", phase_kernels, torch)
         results.update(timed("kernels_timeskew", phase_kernels_timeskew,
+                             torch))
+        results.update(timed("kernels_subtree", phase_kernels_subtree,
                              torch))
         results.update(timed("kernels2d", phase_kernels2d, torch))
         summaries, counts = [], {}
@@ -1925,6 +2482,10 @@ def main() -> int:
             counts.setdefault(row_path(n, "f32"), c32)
             counts.setdefault("mixed", cmx)
             del v32, vmx
+        counts["preset129"], counts["preset257"], spre = timed(
+            "preset3d", phase_preset3d, torch)
+        summaries += [*spre, timed("preset3d", phase_subtree_identity,
+                                   torch)]
         counts["lyapunov"], sly, vly = timed("lyapunov", phase_lyapunov,
                                              torch)
         timed("lyapunov", phase_f64_reference, torch, Lyapunov2D(), LYAP_N,
@@ -1954,10 +2515,17 @@ def main() -> int:
               err64_limit=50 * (1.0 / (VARCOEF_N - 1)) ** 2,
               cycle_kw=VARCOEF_CYCLE, dv_limit=0.0)
         summaries.append(svc)
+        # last: the float64 children have run beside every phase above
+        summaries.append(timed("rounding", phase_rounding, torch, witness))
     except Exception as e:  # report any phase's failure, then fail
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        for proc in witness.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     # launches: each kernel's count from the solve of the path it serves
     # (the 3D kernels' from the 129^3 solves: the bench's default
     # precision, mixed, for the defect trio and the transfers, f32 for the
@@ -1965,10 +2533,12 @@ def main() -> int:
     # 256^3) and the 513^3 one (row 13, 512^3); the 2D kernels' from the
     # 4097^2 Lyapunov solve; relax1d's from the ode1d 8193 solve; slab2d's
     # and resident_hjb's from the hjb2d 513^2 solve; the stencil kernels'
-    # from the varcoef2d 1025^2 solve)
+    # from the varcoef2d 1025^2 solve; the subtree kernel's and rows 23
+    # and 24's from the --preset poisson3d solve)
     def path_of(name):
         return next(p for p in ("ode1d", "lyapunov", "hjb", "varcoef",
-                                "mixed", "f32", "f32_257", "f32_513")
+                                "mixed", "f32", "f32_257", "f32_513",
+                                "preset129")
                     if name in PATHS[p])
 
     kernels = [
@@ -1978,7 +2548,7 @@ def main() -> int:
     ]
     log(json.dumps({"card": card, "main_path": summaries,
                     "barrier_floors": FLOORS, "timeskew_ab": TIMESKEW_AB,
-                    "phase_s": PHASE_S}))
+                    "subtree_ab": SUBTREE_AB, "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

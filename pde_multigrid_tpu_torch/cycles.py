@@ -176,12 +176,31 @@ class CycleProgram:
         cfg = self.config
         if cfg.coarsest == "exact" and l == len(self.geoms) - 1:
             lvl = levels[l]
-            lvl.v = self._coarse_solvers[l](lvl.v, lvl.f, lvl.aux)
+            v = self._fused("fused_vcycle", l, lvl.v, lvl.f)
+            if v is None:
+                lvl.v = self._coarse_solvers[l](lvl.v, lvl.f, lvl.aux)
+            else:
+                lvl.v = v
+                self.kernels.v_written(l)
+            return levels
+        # whole-subtree fused kernels (ops/cuda/subtree.py): the levels
+        # below a fused root are V-cycle temporaries in the correction
+        # scheme, so their stored v and f go stale; every later consumer
+        # re-initializes them (zero_v, restriction) before reading them
+        full = self._fused("fused_vcycle", l, levels[l].v, levels[l].f)
+        if full is not None:
+            levels[l].v = full
+            self.kernels.v_written(l)
             return levels
         fz = f_is_rhs and self._rhs_zero
         levels = self._relax(levels, l, cfg.nu1, f_zero=fz)
         if l != len(self.geoms) - 1:
             fine, coarse = levels[l], levels[l + 1]
+            vc = self._fused("fused_correction", l, fine.v, fine.f)
+            if vc is not None:
+                fine.v = vc
+                self.kernels.v_written(l)
+                return self._relax(levels, l, cfg.nu2, f_zero=fz)
             cf = self._fused(
                 "residual_restrict", l, fine.v, fine.f, fine.aux,
                 coarse.aux, fz,

@@ -84,6 +84,9 @@ SIGNATURES = {
     # pointer to a host struct (stencilop.StencilOpParams)
     "pdemg_stencil_resident": (_P, _P, _P, _I, _I, _I, _P, _P),
     "pdemg_stencil_slab2d": (_P, _P, _P, _P, _I, _P, _P),
+    # the fused subtree V-cycle takes its levels as a pointer to a host
+    # struct (subtree.SubtreeParams)
+    "pdemg_subtree": (_P, _P, _P, _P),
 }
 
 

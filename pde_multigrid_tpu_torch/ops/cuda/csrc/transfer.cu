@@ -11,6 +11,16 @@
 //       r = m_int * (f - L v)
 // where R is 27-point full weighting with injection on the coarse boundary
 // planes and P is trilinear prolongation; fine (X, Y, Z) = 2 (Xc, Yc, Zc).
+// On the sub-lane pairs (fine level of at most 32^3 on the 3D presets) the
+// same kernels replace the TPU's small resident transfer kernels
+//   pde_multigrid_tpu/ops/pallas/subtree.py:make_small_restrict
+//       cf = R(a): the restrict-only mode (with_residual = 0)
+//   pde_multigrid_tpu/ops/pallas/subtree.py:make_small_prolong_blend
+//       both modes
+// which compute the same functions: the TPU needed separate kernels for
+// levels narrower than its 128-lane tile, Hopper has no such tile.  One
+// thread per output point wraps every index modulo its extent, so the
+// 2-point axes of the 4^3 -> 2^3 pair need nothing of their own.
 //
 // What bounds these kernels on the card: device-memory traffic.  The
 // residual moves 12 B per point (v, f in; r out).  Residual + restrict

@@ -24,7 +24,15 @@ with the hand-written kernels.
   * residual + restrict, restrict alone (the FMG f-cascade) and
     prolong + blend in both modes (`ops/cuda/transfer.py`) for every 3D
     wrap level pair with (X, Y, Z) == 2 (Xc, Yc, Zc);
-  * the residual (residual norms) on every 3D wrap level.
+  * the residual (residual norms) on every 3D wrap level;
+  * the fused coarse-subtree V-cycle (`ops/cuda/subtree.py`), when the
+    tier is given the `CycleConfig`: planned once, at construction, by
+    `subtree.plan_fused_cycles` (red-black Gauss-Seidel, the correction
+    scheme, the relaxed coarsest level, float32), and run through the
+    `fused_vcycle` / `fused_correction` hooks, which return None where the
+    plan has no kernel.  On the 3D presets every V-cycle rooted at 64^3
+    or below is one launch.  With `mixed` the fused roots stay fused: the
+    hook is consulted before any relax leg, and the kernel is float32.
 
 2D Lyapunov, padded storage (the JAX plan of `plan_split2d_raw`,
 `plan_relax` and `dispatch.py:56-84`, `:185-284`):
@@ -108,6 +116,7 @@ from pde_multigrid_tpu_torch.ops.cuda import relax1d as relax1d_mod
 from pde_multigrid_tpu_torch.ops.cuda import relax2d as relax2d_mod
 from pde_multigrid_tpu_torch.ops.cuda import resident as resident_mod
 from pde_multigrid_tpu_torch.ops.cuda import slab2d as slab_mod
+from pde_multigrid_tpu_torch.ops.cuda import subtree as subtree_mod
 from pde_multigrid_tpu_torch.ops.cuda import transfer as transfer_mod
 
 # smallest half width (Y // 2) of a persistent-split 2D level: the JAX
@@ -158,7 +167,7 @@ class CudaKernels(TorchKernels):
     """Plain tensor tier with per-level CUDA kernels for every hot op."""
 
     def __init__(self, problem, geoms, dtype, relaxed_levels=None,
-                 mixed=False):
+                 mixed=False, cycle=None):
         super().__init__(problem, geoms)
         if dtype != torch.float32:
             raise _not_planned(f"dtype {dtype}")
@@ -227,6 +236,9 @@ class CudaKernels(TorchKernels):
         self._v_cur = ["dense"] * n  # "dense" | "halves" | "both"
         self._f_ok = [False] * n
         self.conversions = {"split_v": 0, "split_f": 0, "merge": 0}
+        # the fused coarse-subtree V-cycles (no plan without the cycle)
+        self._sub_v, self._sub_c = subtree_mod.plan_fused_cycles(
+            problem, self.geoms, cycle, dtype)
 
     # -- persistent halves -------------------------------------------------
 
@@ -343,6 +355,16 @@ class CudaKernels(TorchKernels):
             "prolongation without a blend (the CUDA tier serves the fused "
             "prolong_blend hook)"
         )
+
+    # -- fused subtree hooks (cycles.CycleProgram consults these) ----------
+
+    def fused_vcycle(self, l, v, f):
+        fn = self._sub_v[l]
+        return None if fn is None else fn(v, f)
+
+    def fused_correction(self, l, v, f):
+        fn = self._sub_c[l]
+        return None if fn is None else fn(v, f)
 
     # -- fused transfer hooks (cycles.CycleProgram consults these) ---------
 

@@ -20,6 +20,8 @@ a CUDA tensor to the plain version.  `launches` counts kernel launches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pde_multigrid_tpu_torch.grid import LevelGeometry
@@ -111,6 +113,25 @@ def _roll(a, ax, off):
     return torch.roll(a, -off, dims=ax)
 
 
+def _cached(fn):
+    """`fn(*shape, device)` cached by its arguments: the plain versions
+    would otherwise rebuild their index masks at every call, which more
+    than doubles their PyTorch operations.  Nothing is cached while a CUDA
+    graph is being captured (the tensors would live in the graph's
+    memory pool)."""
+    cached = functools.lru_cache(maxsize=16)(fn)
+
+    @functools.wraps(fn)
+    def get(*args):
+        dev = torch.device(args[-1])
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return fn(*args)
+        return cached(*args[:-1], dev)
+
+    return get
+
+
+@_cached
 def _qmask(X: int, Z: int, device) -> torch.Tensor:
     """bool (X, 1, Z): q(x, z) = (x + z) % 2 == 1."""
     x = torch.arange(X, device=device)[:, None, None]
@@ -137,6 +158,7 @@ def merge_colors(r: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([v0, v1], dim=2).reshape(X, 2 * Y2, Z)
 
 
+@_cached
 def half_sweep_masks(X: int, Y2: int, Z: int, device):
     """(ok_red, ok_black) bool masks on halves (relax.py:1117-1151):
     x >= 1 and z >= 1; red `j >= 1 or q == 1`, black `j >= 1 or q == 0`."""
@@ -146,6 +168,12 @@ def half_sweep_masks(X: int, Y2: int, Z: int, device):
     q1 = (x + z) % 2 == 1
     ok = (x >= 1) & (z >= 1)
     return ((j >= 1) | q1) & ok, ((j >= 1) | ~q1) & ok
+
+
+@_cached
+def _float_masks(X: int, Y2: int, Z: int, device):
+    return tuple(m.to(torch.float32)
+                 for m in half_sweep_masks(X, Y2, Z, device))
 
 
 def _pairs(w, color: int):
@@ -170,7 +198,7 @@ def half_sweep_plain(u, w, fu, color: int, problem, geom: LevelGeometry):
     sweep body of relax.py:1161-1179 with Poisson.split_update."""
     X, Y2, Z = u.shape
     upd = problem.split_update(_pairs(w, color), fu, geom)
-    m = half_sweep_masks(X, Y2, Z, u.device)[color].to(torch.float32)
+    m = _float_masks(X, Y2, Z, u.device)[color]
     u.add_(m * (upd - u))  # u + m*(upd - u), in place
     return u
 

@@ -8,6 +8,13 @@ kernels are tested against: `stencil.restrict_full_weighting` of the
 residual, `stencil.prolong_linear` (periodic) blended on the interior,
 and `Poisson.kernel_operator` for L v.
 
+The same two transfer kernels serve the sub-lane pairs (fine level of at
+most 32^3 on the 3D presets) for which JAX has its own small resident
+kernels, `pde_multigrid_tpu/ops/pallas/subtree.py` `make_small_restrict`
+(the restrict-only mode here) and `make_small_prolong_blend` (both modes):
+those compute the same functions, so one kernel each replaces both TPU
+kernels.  `launches_by_fine` splits the launches by the fine level.
+
 Each wrapper launches its kernel for CUDA tensors, runs the plain version
 for CPU tensors, and raises for anything else; there is no fallback from
 a CUDA tensor to the plain version.  `launches` counts kernel launches.
@@ -28,11 +35,22 @@ from pde_multigrid_tpu_torch.ops.cuda.relax import (
 )
 
 launches = {"residual": 0, "residual_restrict": 0, "prolong_blend": 0}
+# the same launches of residual_restrict (key "residual_restrict" with the
+# residual, "restrict" without) and prolong_blend by the fine level's
+# shape, counted at the same place as `launches`
+launches_by_fine: dict[tuple[str, tuple[int, ...]], int] = {}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    launches_by_fine.clear()
+
+
+def _count(name: str, key: str, fine_shape) -> None:
+    launches[name] += 1
+    k = (key, tuple(fine_shape))
+    launches_by_fine[k] = launches_by_fine.get(k, 0) + 1
 
 
 def _wrap_m_int(shape, device) -> torch.Tensor:
@@ -136,7 +154,8 @@ def residual_restrict(
         v.data_ptr(), f.data_ptr(), out.data_ptr(), int(with_residual),
         Xc, Yc, Zc, w0, w1, w2, _stream(),
     )
-    launches["residual_restrict"] += 1
+    _count("residual_restrict",
+           "residual_restrict" if with_residual else "restrict", v.shape)
     build.check(rc, "residual_restrict")
     return out
 
@@ -163,6 +182,6 @@ def prolong_blend(
         c.data_ptr(), vb.data_ptr(), out.data_ptr(), X, Y, Z,
         int(mode == "replace"), _stream(),
     )
-    launches["prolong_blend"] += 1
+    _count("prolong_blend", "prolong_blend", vb.shape)
     build.check(rc, "prolong_blend")
     return out

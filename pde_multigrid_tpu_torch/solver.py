@@ -145,7 +145,7 @@ def _pick_kernels(problem, geoms, cycle, dtype, device, precision="f32",
         n = len(geoms)
         relaxed = range(n - 1) if cycle.coarsest == "exact" else range(n)
         return CudaKernels(problem, geoms, dtype, relaxed,
-                           mixed=precision == "mixed")
+                           mixed=precision == "mixed", cycle=cycle)
     # the plain tier ignores precision, as the JAX jnp tier does (the JAX
     # solver passes it to the Pallas tier only)
     return TorchKernels(problem, geoms, cycle.smoother, cycle.omega)
