@@ -136,7 +136,21 @@ Phases, in order; any failure exits non-zero without the final result line:
      sharded-vs-single tolerance); then the same solve split over 2 and 4
      ranks on cuda:0 (gloo, halos through the host; child processes
      started after the build): each rank's launches as the schedule
-     implies and rank 0's solution bitwise the one-rank solve's.
+     implies and rank 0's solution bitwise the one-rank solve's;
+ 13. the sharded 2D Lyapunov solve (after phase 6, whose solution it is
+     held against): the per-shard color slab chunk
+     (color_slab2d_shard.cu) bitwise against its plain version on every
+     shard of 4097^2 over 1, 2 and 4 ranks at t = 1-4, a t = 4 chunk timed
+     beside its plain version and beside the 8 half-sweep launches of the
+     same 4 sweeps; then 4097^2 FMG(2, 500, 500), exact coarsest, f32,
+     `--problem lyapunov2d --mesh 1` through the CLI in process:
+     error_linf < max(10 h, 5e-5), finite residuals, exactly the
+     schedule's launches of the chunk, split2d and merge2d and no other
+     kernel, ms per step eager and as one CUDA graph, the solution within
+     JAX's sharded-vs-single tolerance of phase 6's (max|dv| printed);
+     then FMG(2, 20, 20) over 2 and 4 gloo ranks on cuda:0: every rank's
+     launches as the schedule implies, rank 0's logical solution bitwise
+     the one-rank solve's of that schedule.
 
 Every float64 reference but phase 11's is a `MultigridSolver(...,
 dtype="float64", device="cuda")` solve: the plain tier on the card.  Each phase's seconds
@@ -287,6 +301,11 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/masked_block.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:792",
     ),
+    # the per-shard engine of the sharded 2D Lyapunov solve
+    "color_slab2d_shard": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/color_slab2d_shard.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:2879",
+    ),
 }
 # the levels (halves shapes) whose wavefront launches each record counts
 TIMESKEW_LEVELS = {"timeskew": (256, 128, 256), "timeskew_jb": (512, 256, 512)}
@@ -325,6 +344,10 @@ PATHS = {
     # and merge per leg), the masked block on 128^3; the transfers and
     # residuals are the plain ops (JAX's jnp under GSPMD)
     "sharded257": ("split", "merge", "timeskew_shard", "masked_block"),
+    # 4097^2 Lyapunov split over ranks: every relaxed level by the color
+    # slab chunk, its v and f split and merged once per leg; the transfers
+    # and residuals are the plain ops (JAX's jnp under GSPMD)
+    "sharded_lyap": ("split2d", "merge2d", "color_slab2d_shard"),
 }
 
 # per-sweep barrier floors of the whole-leg kernels, measured on the
@@ -2630,29 +2653,38 @@ def sharded_launches(solver) -> dict:
     sweeps runs nu // T chunks of T sweeps and one of nu % T; on a
     time-skew level each chunk of t sweeps is ceil(t / 2) launches and the
     leg splits v's black half and f and merges once; on a masked-block
-    level each chunk is 2t launches.  The transfers, residuals and the
-    exact coarse solve launch no kernel."""
+    level each chunk is 2t launches; on a split2d level each chunk is one
+    launch and the leg splits v and f and merges once.  The transfers,
+    residuals and the exact coarse solve launch no kernel."""
     from pde_multigrid_tpu_torch.ops.cuda import relax as R
 
     cyc = solver.config.cycle
     kern = solver.program.kernels
-    want = {"split": 0, "merge": 0, "timeskew_shard": 0, "masked_block": 0}
+    want = {}
+
+    def add(name, k):
+        want[name] = want.get(name, 0) + k
+
     for l, engine in enumerate(kern.plan):
         if engine is None:
             continue
-        require(engine in ("timeskew", "masked-block"),
+        require(engine in ("timeskew", "masked-block", "split2d"),
                 f"level {l}: engine {engine}, not a sharded one")
         T = kern._relax[l].T
         legs = 2 * cyc.nu0 * (l + 1)
         for nu in (cyc.nu1, cyc.nu2):
             ts = [T] * (nu // T) + [nu % T] * (nu % T > 0)
             if engine == "timeskew":
-                want["timeskew_shard"] += legs // 2 * sum(
-                    -(-t // R.TIMESKEW_T) for t in ts)
-                want["split"] += legs // 2 * 2
-                want["merge"] += legs // 2
+                add("timeskew_shard",
+                    legs // 2 * sum(-(-t // R.TIMESKEW_T) for t in ts))
+                add("split", legs // 2 * 2)
+                add("merge", legs // 2)
+            elif engine == "split2d":
+                add("color_slab2d_shard", legs // 2 * len(ts))
+                add("split2d", legs // 2 * 2)
+                add("merge2d", legs // 2)
             else:
-                want["masked_block"] += legs // 2 * sum(2 * t for t in ts)
+                add("masked_block", legs // 2 * sum(2 * t for t in ts))
     return want
 
 
@@ -2665,6 +2697,12 @@ def _shard_cfg():
 
 def _sha(v) -> str:
     return hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _sha_logical(v, n: int) -> str:
+    """The SHA-256 of `v`'s first n points on every axis: the logical
+    level (its padded rows differ with the number of ranks)."""
+    return _sha(v[(slice(0, n),) * v.dim()].contiguous())
 
 
 def phase_sharded(torch):
@@ -2723,24 +2761,37 @@ def phase_sharded(torch):
                "error_linf_diff_unsharded": derr,
                "unsharded_graph_ms_per_step": sum_un["graph_ms_per_step"]}
     summary.update(time_step(torch, tag, solver, solver.fresh_levels(), 3, 1))
-    return counts, summary, _sha(res.v)
+    return counts, summary, _sha_logical(res.v, n)
 
 
-def sharded_rank(addr: str, n: int, rank: int) -> None:
-    """One rank of the sharded 257^3 solve over `n` ranks on cuda:0 (gloo):
-    prints one JSON line with its launches, the schedule's, its
-    error_linf, the eager ms of a second step and, on rank 0, the
-    solution's SHA-256.  `phase_sharded_ranks` starts it."""
+def _sharded_row(row: str):
+    """(problem, points per axis, config, error_linf limit) of the rank
+    solves of a sharded row: "poisson3d", the 257^3 FMG(2, 100, 100) row,
+    or "lyapunov2d", 4097^2 at the reduced schedule SHARD2D_RANK_NUS."""
+    from pde_multigrid_tpu_torch import Lyapunov2D, Poisson3D
+
+    if row == "poisson3d":
+        return Poisson3D(), SHARD_N, _shard_cfg(), 50.0 / (SHARD_N - 1) ** 2
+    return (Lyapunov2D(), LYAP_N, _lyap_cfg(SHARD2D_RANK_NUS),
+            max(10.0 / (LYAP_N - 1), 5e-5))
+
+
+def sharded_rank(addr: str, n: int, rank: int, row: str) -> None:
+    """One rank of a sharded row's solve (`_sharded_row`) over `n` ranks on
+    cuda:0 (gloo): prints one JSON line with its launches, the schedule's,
+    its error_linf, the eager ms of a second step and, on rank 0, the
+    logical solution's SHA-256.  `phase_sharded_ranks` starts it."""
     import torch
     import torch.distributed as dist
 
-    from pde_multigrid_tpu_torch import MultigridSolver, Poisson3D
+    from pde_multigrid_tpu_torch import MultigridSolver
     from pde_multigrid_tpu_torch.parallel.mesh import make_mesh
 
+    prob, size, cfg, _ = _sharded_row(row)
     dist.init_process_group("gloo", init_method=f"tcp://{addr}",
                             world_size=n, rank=rank)
-    solver = MultigridSolver(Poisson3D(), SHARD_N, _shard_cfg(),
-                             device="cuda", mesh=make_mesh(n, "gloo"))
+    solver = MultigridSolver(prob, size, cfg, device="cuda",
+                             mesh=make_mesh(n, "gloo"))
     want = sharded_launches(solver)
     levels = solver.fresh_levels()
     torch.cuda.synchronize()
@@ -2757,7 +2808,8 @@ def sharded_rank(addr: str, n: int, rank: int) -> None:
     print(json.dumps({"rank": rank, "n": n, "counts": counts, "want": want,
                       "plan": solver.program.kernels.plan,
                       "error_linf": res.error_linf, "eager_ms": ms,
-                      "sha": _sha(res.v) if rank == 0 else None}))
+                      "sha": (_sha_logical(res.v, size) if rank == 0
+                              else None)}))
     dist.destroy_process_group()
 
 
@@ -2767,13 +2819,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_sharded_ranks(torch, sha1: str) -> dict:
-    """The sharded 257^3 solve over 2 and 4 ranks sharing cuda:0, one
-    child process a rank over gloo (halos staged through the host), both
-    groups at once: every rank's launches exactly `sharded_launches`, and
-    no other kernel, error_linf < 50 h^2, rank 0's solution bitwise the
-    one-rank solve's (its SHA-256 `sha1`).  Eager ms of a step per rank: a
+def phase_sharded_ranks(torch, sha1: str, row: str = "poisson3d") -> dict:
+    """A sharded row's solve (`_sharded_row`) over 2 and 4 ranks sharing
+    cuda:0, one child process a rank over gloo (halos staged through the
+    host), both groups at once: every rank's launches exactly
+    `sharded_launches`, and no other kernel, error_linf under the row's
+    gate, rank 0's logical solution bitwise the one-rank solve's of the
+    same schedule (its SHA-256 `sha1`).  Eager ms of a step per rank: a
     check of exactness, not of speed."""
+    _, size, cfg, limit = _sharded_row(row)
+    nus = (cfg.cycle.nu0, cfg.cycle.nu1, cfg.cycle.nu2)
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
     procs = {}
     for n in SHARD_RANKS:
@@ -2781,42 +2836,43 @@ def phase_sharded_ranks(torch, sha1: str) -> dict:
         procs[n] = [subprocess.Popen(
             [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
              " import chip_smoke; chip_smoke.sharded_rank(sys.argv[2], "
-             "int(sys.argv[3]), int(sys.argv[4]))", HERE, addr, str(n),
-             str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, cwd=HERE, env=env) for r in range(n)]
+             "int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])", HERE, addr,
+             str(n), str(r), row], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=HERE, env=env)
+            for r in range(n)]
     out = {}
-    h = 1.0 / (SHARD_N - 1)
     try:
         for n, group in procs.items():
             rows = []
             for r, p in enumerate(group):
                 text, err = p.communicate(timeout=600)
                 require(p.returncode == 0,
-                        f"sharded rank {r} of {n} failed: {err[-3000:]}")
+                        f"sharded {row} rank {r} of {n} failed: "
+                        f"{err[-3000:]}")
                 rows.append(json.loads(text.strip().splitlines()[-1]))
-            for row in rows:
-                tag = f"sharded {SHARD_N}^3 rank {row['rank']} of {n}"
-                c = row["counts"]
-                require(all(c.get(k, 0) == v for k, v in row["want"].items())
+            for rec in rows:
+                tag = f"sharded {row} {size} rank {rec['rank']} of {n}"
+                c = rec["counts"]
+                require(all(c.get(k, 0) == v for k, v in rec["want"].items())
                         and not [k for k in KERNELS if c.get(k, 0)
-                                 and k not in row["want"]],
+                                 and k not in rec["want"]],
                         f"{tag}: launches {c}, the schedule implies "
-                        f"{row['want']}")
-                require(row["error_linf"] < 50 * h * h,
-                        f"{tag}: error_linf {row['error_linf']!r}")
-            require(rows[0]["sha"] == sha1, f"sharded {SHARD_N}^3 over {n} "
-                    "ranks: rank 0's solution differs from the one-rank "
-                    "solve's")
-            out[f"{n}_ranks"] = {"eager_ms_per_step":
-                                 [row["eager_ms"] for row in rows],
+                        f"{rec['want']}")
+                require(rec["error_linf"] < limit,
+                        f"{tag}: error_linf {rec['error_linf']!r}")
+            require(rows[0]["sha"] == sha1, f"sharded {row} over {n} ranks: "
+                    "rank 0's solution differs from the one-rank solve's")
+            out[f"{n}_ranks"] = {"nus": nus, "eager_ms_per_step":
+                                 [rec["eager_ms"] for rec in rows],
                                  "error_linf": rows[0]["error_linf"],
                                  "launches": rows[0]["want"],
                                  "plan": rows[0]["plan"]}
-            log(f"sharded {SHARD_N}^3 over {n} ranks on cuda:0 (gloo): plan "
-                f"{rows[0]['plan']}, every rank's launches the schedule's "
-                f"{rows[0]['want']}, rank 0's solution bitwise the one-rank "
-                f"solve's, error_linf {rows[0]['error_linf']!r}, eager ms "
-                f"per step by rank {[row['eager_ms'] for row in rows]!r}")
+            log(f"sharded {row} {size} FMG{nus} over {n} ranks on cuda:0 "
+                f"(gloo): plan {rows[0]['plan']}, every rank's launches the "
+                f"schedule's {rows[0]['want']}, rank 0's logical solution "
+                f"bitwise the one-rank solve's, error_linf "
+                f"{rows[0]['error_linf']!r}, eager ms per step by rank "
+                f"{[rec['eager_ms'] for rec in rows]!r}")
     finally:
         for group in procs.values():
             for p in group:
@@ -2824,6 +2880,189 @@ def phase_sharded_ranks(torch, sha1: str) -> dict:
                     p.kill()
                     p.wait()
     return out
+
+
+# the sharded 2D Lyapunov row: the path's schedule on one rank, a reduced
+# one over the gloo ranks (each halo a host round; ~14 000 chunks a step
+# at FMG(2, 500, 500))
+SHARD2D_RANK_NUS = (2, 20, 20)
+# the one-rank 4097^2 chunk (t = 4) beside the 8 half-sweeps it replaces,
+# device ms (printed with the summaries; ROADMAP queue 2 item 27)
+SHARD2D_AB = {}
+
+
+def phase_kernels_shard2d(torch):
+    """The per-shard color slab chunk (`relax2d.color_slab2d_shard`,
+    color_slab2d_shard.cu) against its plain version on the card, bitwise:
+    every shard of 4097^2 over 1, 2 and 4 ranks (the port's padded rows:
+    4097, 4098, 4100), t = 1, 2, 3, 4 sweeps (the engine's T = 4 chunks
+    and its remainder chunks) on random ext halves of x_loc + 2t rows.
+    The one-rank t = 4 chunk timed beside its plain version (P, K, K, P)
+    and beside the 8 half_sweep2d launches of the unsharded path on the
+    whole level (the same 4 sweeps).  Returns the record."""
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.models import Lyapunov2D
+    from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
+
+    dev = torch.device("cuda")
+    prob = Lyapunov2D()
+    gen = torch.Generator(device=dev).manual_seed(2031)
+    n = LYAP_N
+    Y2 = (n + 1) // 2
+    src = [torch.randn((n + 3 + 8, Y2), generator=gen, device=dev)
+           for _ in range(4)]
+    err, checked = 0.0, 0
+    for ranks in (1, 2, 4):
+        g = build_geometries((n, n), prob.domain, 1, pad_axis0_to=ranks)[0]
+        x_loc = g.padded_shape[0] // ranks
+        for t in (1, 2, 3, 4):
+            ins = [a[:x_loc + 2 * t] for a in src]
+            for i in range(ranks):
+                out = tuple(torch.empty((x_loc, Y2), device=dev)
+                            for _ in range(2))
+                R2.color_slab2d_shard(*ins, i * x_loc, t, prob, g, x_loc,
+                                      out)
+                want = R2.color_slab2d_shard_plain(*ins, i * x_loc, t, prob,
+                                                   g, x_loc)
+                e = max(_max_err(torch, o, w) for o, w in zip(out, want))
+                err = max(err, e)
+                checked += 1
+                require(all(torch.equal(o, w) for o, w in zip(out, want)),
+                        f"color_slab2d_shard {n}^2 over {ranks} ranks, shard "
+                        f"{i} (g0 {i * x_loc}), t = {t}: not bitwise, max "
+                        f"diff {e!r}")
+    g = build_geometries((n, n), prob.domain, 1)[0]
+    t, x_loc = 4, n
+    ins = [a[:x_loc + 2 * t] for a in src]
+    out = tuple(torch.empty((x_loc, Y2), device=dev) for _ in range(2))
+    tm = paired_times(
+        torch,
+        lambda: R2.color_slab2d_shard(*ins, 0, t, prob, g, x_loc, out),
+        lambda: R2.color_slab2d_shard_plain(*ins, 0, t, prob, g, x_loc), 1)
+    # reads the four ext halves once, writes the two owned ones; about 20
+    # operations per owned point and sweep (the half_sweep2d count)
+    rec = {"max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+           **bound(sum(a.nbytes for a in ins) + sum(o.nbytes for o in out),
+                   20 * t * 2 * x_loc * Y2),
+           "library_ms": None}
+    # the A/B: the same 4 sweeps as 8 half-sweep launches on the level
+    r, b, fr, fb = (a[:x_loc].clone() for a in src)
+    chain = lambda: R2.relax_halves2d(r, b, fr, fb, t, prob, g)  # noqa: E731
+    kern = lambda: R2.color_slab2d_shard(  # noqa: E731
+        *ins, 0, t, prob, g, x_loc, out)
+    c1 = device_ms(torch, chain, 2)
+    k1 = device_ms(torch, kern, 2)
+    k2 = device_ms(torch, kern, 2)
+    c2 = device_ms(torch, chain, 2)
+    SHARD2D_AB.update(chunk_t4_ms=(k1 + k2) / 2,
+                      half_sweeps_8_ms=(c1 + c2) / 2,
+                      ratio=(k1 + k2) / (c1 + c2))
+    # one t = 4 chunk on each coarser relaxed level of the one-rank path
+    by_level = {n: tm["ms"]}
+    for m in (2049, 1025, 513, 257, 129, 65):
+        gm = build_geometries((m, m), prob.domain, 1)[0]
+        y2 = (m + 1) // 2
+        ins_m = [a[:m + 2 * t, :y2].contiguous() for a in src]
+        out_m = tuple(torch.empty((m, y2), device=dev) for _ in range(2))
+        by_level[m] = device_ms(torch, lambda: R2.color_slab2d_shard(
+            *ins_m, 0, t, prob, gm, m, out_m), 10)
+    SHARD2D_AB["chunk_t4_ms_by_level"] = by_level
+    log(f"kernel color_slab2d_shard: bitwise against its plain version on "
+        f"{checked} shards of {n}^2 over 1, 2, 4 ranks at t = 1-4 (max diff "
+        f"{err!r}); one t = {t} chunk ({x_loc + 2 * t} x {Y2} ext halves): "
+        f"device {tm['ms']!r} ms vs plain {tm['plain_ms']!r} ms (bound "
+        f"{rec['bound_ms']!r} ms by {rec['bound_by']}); eager "
+        f"{tm['eager_ms']!r} ms; A/B against the 8 half_sweep2d launches of "
+        f"the same 4 sweeps (C, K, K, C): {SHARD2D_AB!r}")
+    torch.cuda.synchronize()
+    return {"color_slab2d_shard": rec}
+
+
+def _lyap_cfg(nus):
+    from pde_multigrid_tpu_torch import CycleConfig, SolverConfig
+
+    return SolverConfig(cycle=CycleConfig("fmg", *nus, coarsest="exact"))
+
+
+def phase_sharded2d(torch, sum_un, v_un):
+    """Lyapunov 4097^2 FMG(2, 500, 500), exact coarsest, f32, `--mesh 1`
+    through the CLI in process: error_linf < max(10 h, 5e-5), finite
+    residuals, exactly the schedule's launches of the color slab chunk,
+    split2d and merge2d (`sharded_launches`) and no other kernel (no
+    half_sweep2d, no resident); ms per step eager and as one CUDA graph;
+    the solution against phase 6's unsharded solve `v_un` (summary
+    `sum_un`) within JAX's sharded-vs-single tolerance (rtol 2e-5, atol
+    2e-6; error_linf within 1e-6), max|dv| printed.  Then the one-rank
+    solve of the gloo ranks' reduced schedule.  Returns (launch counts,
+    summary, the reduced solve's logical SHA-256)."""
+    from pde_multigrid_tpu_torch import Lyapunov2D, MultigridSolver
+    from pde_multigrid_tpu_torch.__main__ import main as cli_main
+    from pde_multigrid_tpu_torch.parallel.mesh import make_mesh
+
+    n = LYAP_N
+    args = ["--problem", "lyapunov2d", "--n", str(n), "--nu0",
+            str(LYAP_NUS[0]), "--nu1", str(LYAP_NUS[1]), "--nu2",
+            str(LYAP_NUS[2]), "--coarsest", "exact", "--device", "cuda",
+            "--mesh", "1"]
+    solver = MultigridSolver(Lyapunov2D(), n, _lyap_cfg(LYAP_NUS),
+                             device="cuda", mesh=make_mesh(1))
+    kern = solver.program.kernels
+    require(kern.plan == ["split2d"] * 7 + [None],
+            f"sharded {n}^2 plan {kern.plan}")
+    want = sharded_launches(solver)
+    buf, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        res = cli_main(args)
+    counts = read_counts()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    h = 1.0 / (n - 1)
+    limit = max(10 * h, 5e-5)
+    tag = f"sharded lyapunov {n}^2 --mesh 1"
+    ts = [getattr(fn, "T", None) for fn in kern._relax]
+    log(f"{tag}: plan {kern.plan}, T {ts}, error_linf {out['error_linf']!r}"
+        f" (limit max(10 h, 5e-5) = {limit!r}), residual_l2 "
+        f"{out['residual_l2']!r}, launches {counts}, the schedule's {want}; "
+        f"{err.getvalue().strip().splitlines()[-1]}")
+    _check_solve(torch, tag, res, solver, limit, "sharded_lyap", want)
+    require(out["error_linf"] == res.error_linf and not out["diverged"],
+            f"{tag}: the CLI's summary and its result differ")
+    dv = _max_err(torch, res.v, v_un)
+    derr = abs(res.error_linf - sum_un["error_linf"])
+    ok = bool(torch.all(torch.abs(res.v - v_un)
+                        <= 2e-6 + 2e-5 * torch.abs(v_un)))
+    log(f"{tag}: max|v - v_unsharded| {dv!r} "
+        f"({'bitwise' if dv == 0.0 else 'not bitwise'}), |error_linf - "
+        f"unsharded's| {derr!r} (unsharded {sum_un['error_linf']!r})")
+    require(ok and derr < 1e-6, f"{tag}: not within JAX's tolerance of the "
+            "unsharded solve")
+    summary = {"sharded": n, "problem": "lyapunov2d", "ranks": 1,
+               "plan": kern.plan, "error_linf": res.error_linf,
+               "residual_l2": res.residual_l2, "launches": want,
+               "max_abs_dv_unsharded": dv, "error_linf_diff_unsharded": derr,
+               "unsharded_graph_ms_per_step": sum_un["graph_ms_per_step"],
+               "unsharded_ms_per_step": sum_un["ms_per_step"]}
+    del res
+    summary.update(time_step(torch, tag, solver, solver.fresh_levels(), 2, 1))
+    # the chunks' device ms per step by level: launches (4 (l + 1) legs of
+    # ceil(nu / T) chunks) times phase_kernels_shard2d's t = 4 chunk
+    by_level = SHARD2D_AB.get("chunk_t4_ms_by_level", {})
+    chunks = {g.shape[0]: 4 * (l + 1) * -(-LYAP_NUS[1] // fn.T)
+              for l, (g, fn) in enumerate(zip(solver.geoms, kern._relax))
+              if fn is not None}
+    summary["chunk_ms_per_step_by_level"] = {
+        m: k * by_level[m] for m, k in chunks.items() if m in by_level}
+    log(f"{tag}: chunk launches by level {chunks}, their device ms per step "
+        f"{summary['chunk_ms_per_step_by_level']!r} (sum "
+        f"{sum(summary['chunk_ms_per_step_by_level'].values())!r})")
+    del solver
+    small = MultigridSolver(Lyapunov2D(), n, _lyap_cfg(SHARD2D_RANK_NUS),
+                            device="cuda", mesh=make_mesh(1))
+    r1 = small.solve()
+    summary["reduced"] = {"nus": SHARD2D_RANK_NUS,
+                          "error_linf": r1.error_linf}
+    return counts, summary, _sha_logical(r1.v, n)
 
 
 PHASE_S = {}
@@ -2896,6 +3135,14 @@ def main() -> int:
         timed("lyapunov", phase_f64_reference, torch, Lyapunov2D(), LYAP_N,
               LYAP_NUS, sly, vly, f"lyapunov {LYAP_N}^2")
         summaries.append(sly)
+        results.update(timed("kernels_shard2d", phase_kernels_shard2d,
+                             torch))
+        counts["sharded_lyap"], ssl, sha2 = timed(
+            "sharded2d", phase_sharded2d, torch, sly, vly)
+        del vly
+        ssl["ranks_2_4"] = timed("sharded2d_ranks", phase_sharded_ranks,
+                                 torch, sha2, "lyapunov2d")
+        summaries.append(ssl)
         results.update(timed("kernels1d", phase_kernels1d, torch))
         counts["ode1d"], sod, vod = timed("ode1d", phase_ode1d, torch)
         timed("ode1d", phase_f64_reference, torch, Ode1D(), ODE_N, ODE_NUS,
@@ -2943,11 +3190,13 @@ def main() -> int:
     # 4097^2 Lyapunov solve; relax1d's from the ode1d 8193 solve; slab2d's
     # and resident_hjb's from the hjb2d 513^2 solve; the stencil kernels'
     # from the varcoef2d 1025^2 solve; the subtree kernel's and rows 23
-    # and 24's from the --preset poisson3d solve)
+    # and 24's from the --preset poisson3d solve; the per-shard chunks'
+    # from the sharded solves: rows 6 and 12 the 257^3 one, row 17 the
+    # 4097^2 Lyapunov one, each over one rank)
     def path_of(name):
         return next(p for p in ("ode1d", "lyapunov", "hjb", "varcoef",
                                 "mixed", "f32", "f32_257", "f32_513",
-                                "preset129", "sharded257")
+                                "preset129", "sharded257", "sharded_lyap")
                     if name in PATHS[p])
 
     kernels = [
@@ -2958,7 +3207,8 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"card": card, "main_path": summaries,
                     "barrier_floors": FLOORS, "timeskew_ab": TIMESKEW_AB,
-                    "subtree_ab": SUBTREE_AB, "phase_s": PHASE_S}))
+                    "subtree_ab": SUBTREE_AB, "shard2d_ab": SHARD2D_AB,
+                    "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

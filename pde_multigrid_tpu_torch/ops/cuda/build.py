@@ -77,6 +77,9 @@ SIGNATURES = {
     "pdemg_merge2d": (_P, _P, _P, _I, _I, _P),
     "pdemg_half_sweep2d": (_P, _P, _P, _I, _I, _I, _P, _P),
     "pdemg_resident2d": (_P, _P, _I, _I, _I, _P, _P),
+    "pdemg_color_slab2d_shard": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+    ),
     # the HJB kernels take their fields as a pointer to a host struct
     # (resident.HJB2DParams)
     "pdemg_resident2d_hjb": (_P, _P, _I, _I, _I, _I, _P, _P),

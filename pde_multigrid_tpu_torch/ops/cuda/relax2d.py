@@ -3,8 +3,10 @@ CUDA kernels of `csrc/relax2d.cu` and their plain PyTorch versions.
 
 Replaces the TPU kernels `pde_multigrid_tpu/ops/pallas/relax.py`
 `_pallas_split_2d`, `_pallas_merge_2d` (and the XLA `split_colors_2d` /
-`merge_colors_2d` they stand in for) and `make_split_color_slab_2d` (its
-`raw` halves-in/halves-out form).  Halves layout (`ops/split2d.py`): a
+`merge_colors_2d` they stand in for), `make_split_color_slab_2d` (its
+`raw` halves-in/halves-out form) and, on one shard of a sharded level,
+`make_split_color_slab_2d_shard` (`color_slab2d_shard`,
+csrc/color_slab2d_shard.cu).  Halves layout (`ops/split2d.py`): a
 dense (X, Y) level becomes red/black (X, ceil(Y/2)) arrays; with
 q = x % 2, red sits at y = 2j + q and black at y = 2j + 1 - q.  With an odd
 Y the slot y = Y of each row is inert (split writes 0 there).
@@ -28,7 +30,8 @@ from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _stream
 
 RED, BLACK = 0, 1
 
-launches = {"split2d": 0, "merge2d": 0, "half_sweep2d": 0}
+launches = {"split2d": 0, "merge2d": 0, "half_sweep2d": 0,
+            "color_slab2d_shard": 0}
 
 
 def reset_launches() -> None:
@@ -103,6 +106,34 @@ def half_sweep2d_plain(u, w, fu, color: int, problem, geom: LevelGeometry):
     upd = problem.split_update2d(nbr, fu, pre, geom)
     m = split2d.interior_masks_halves(geom, u.dtype, u.device)[color]
     return u.copy_(torch.where(m > 0, upd, u))
+
+
+def color_slab2d_shard_plain(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
+                             problem, geom: LevelGeometry, x_loc: int):
+    """(r, b): the owned x_loc rows of one shard's ext halves after t
+    red-black sweeps (new tensors).  The ext halves hold XE >= x_loc + 2t
+    rows in the global colour convention, ext row 0 at global row `g0`;
+    coordinates, colours and interior masks come from the global row.
+    Each half-sweep is half_sweep2d_plain's on the ext block, its x and y
+    neighbours rolled within the block as JAX's kernel rolls them
+    (relax.py:2879): the rows a roll corrupts lie past x_loc + 2t - 2s
+    after s sweeps."""
+    lay = split2d.rows_layout(geom, g0, r_ext.shape[0], r_ext.dtype,
+                              r_ext.device)
+    q1 = lay["q1"]
+    cr, cb = lay["coords"]
+    m_r, m_b = (m > 0 for m in lay["masks"])
+    pre_r = problem.kernel_precompute(cr, geom, r_ext.dtype)
+    pre_b = problem.kernel_precompute(cb, geom, r_ext.dtype)
+    r, b = r_ext, b_ext
+    for _ in range(t):
+        upd = problem.split_update2d(split2d._nbr_factory(b, q1), fr_ext,
+                                     pre_r, geom)
+        r = torch.where(m_r, upd, r)
+        upd = problem.split_update2d(split2d._nbr_factory(r, ~q1), fb_ext,
+                                     pre_b, geom)
+        b = torch.where(m_b, upd, b)
+    return r[:x_loc], b[:x_loc]
 
 
 # ------------------------------------------------------------ wrappers
@@ -191,3 +222,50 @@ def relax_halves2d(r, b, fr, fb, nsweeps: int, problem,
         launches["half_sweep2d"] += 1
         build.check(rc, "half_sweep2d")
     return r, b
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when the memory of `a` and `b` (contiguous) overlaps."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.nbytes and b0 < a0 + a.nbytes
+
+
+def color_slab2d_shard(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
+                       problem, geom: LevelGeometry, x_loc: int, out):
+    """One chunk of `t` sweeps on a shard's (XE, Y2) ext halves (global
+    colour convention, ext row 0 at global row `g0`, XE >= x_loc + 2t),
+    the exact owned rows written into `out` = (r, b), two (x_loc, Y2)
+    tensors apart from the inputs; returns `out`.  One launch of
+    csrc/color_slab2d_shard.cu for CUDA tensors, the plain version for
+    CPU tensors."""
+    split2d.check_level(geom)
+    Y2 = split2d.half_width(geom)
+    XE = r_ext.shape[0]
+    ins = (r_ext, b_ext, fr_ext, fb_ext)
+    for a in ins:
+        if tuple(a.shape) != (XE, Y2):
+            raise ValueError(f"ext halves {tuple(a.shape)}, want ({XE}, "
+                             f"{Y2}) for level {geom.padded_shape}")
+    for o in out:
+        if tuple(o.shape) != (x_loc, Y2):
+            raise ValueError(f"output halves {tuple(o.shape)}, want "
+                             f"({x_loc}, {Y2})")
+    if t < 1 or XE < x_loc + 2 * t:
+        raise ValueError(f"{t} sweeps need an ext slab of x_loc + 2t = "
+                         f"{x_loc + 2 * t} rows or more; got {XE}")
+    if any(_overlap(o, a) for o in out for a in ins) or _overlap(*out):
+        raise ValueError("the output halves overlap the inputs or each "
+                         "other")
+    if not _on_cuda(*ins, *out):
+        pr, pb = color_slab2d_shard_plain(*ins, g0, t, problem, geom, x_loc)
+        out[0].copy_(pr)
+        out[1].copy_(pb)
+        return out
+    params = lyap_params(problem, geom)
+    rc = build.load().lib.pdemg_color_slab2d_shard(
+        *(a.data_ptr() for a in (*ins, *out)), XE, x_loc, Y2, g0, t,
+        ctypes.addressof(params), _stream(),
+    )
+    launches["color_slab2d_shard"] += 1
+    build.check(rc, "color_slab2d_shard")
+    return out

@@ -50,9 +50,16 @@ def q1_rows(X: int, device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=32)
 def _layout(geom: LevelGeometry, dtype, device):
-    X, _ = geom.padded_shape
+    return rows_layout(geom, 0, geom.padded_shape[0], dtype, device)
+
+
+def rows_layout(geom: LevelGeometry, g0: int, rows: int, dtype, device):
+    """The half layout of `rows` rows whose first is global row `g0`
+    (of the level or past its ends): coordinates, y indices, interior
+    masks and q1, each from the global row, as `_layout` gives them for
+    the whole level."""
     Y2 = half_width(geom)
-    g = torch.arange(X, device=device)[:, None]
+    g = g0 + torch.arange(rows, device=device)[:, None]
     jj = torch.arange(Y2, device=device)[None, :]
     qi = g % 2
     y_r = 2 * jj + qi
@@ -75,7 +82,7 @@ def _layout(geom: LevelGeometry, dtype, device):
                    (xf, coord(y_b, 1, lo1, hi1))),
         "y": (y_r, y_b),
         "masks": (m_r, m_b),
-        "q1": q1_rows(X, device),
+        "q1": qi == 1,
     }
 
 

@@ -15,22 +15,37 @@ JAX's default for the masked-block engine, the overlap of the exchange
 with interior sweeps, gives the same values and is ROADMAP.md queue 2
 item 41.
 
-Two engines, chosen per level by `plan_engine`, a function of the shapes
-that is the same on either device:
+Three engines, chosen per level by `plan_engine`, a function of the
+shapes that is the same on either device:
 
   * "timeskew" (3D wrap levels with `split_update`, no keep mask, x_loc
     and Y even, a half-plane Y/2 * Z of at least
     `relax.TIMESKEW_MIN_PLANE`): the time-skewed wavefront per chunk on
     the color-split halves (`relax.timeskew_shard`, csrc/timeskew.cu),
     only the black halo exchanged;
+  * "split2d" (padded 2D levels of a problem with `split_update2d` and
+    the one-sided stencil `split2d_x_offsets == (+1,)`, no keep mask:
+    Lyapunov): per leg v and f split into halves (`relax2d.to_halves`),
+    the f halves' 2T-row high halo taken once; per chunk of t sweeps the
+    r and b halos (2t rows, from the right neighbour only) and one launch
+    of the per-shard color slab (`relax2d.color_slab2d_shard`,
+    csrc/color_slab2d_shard.cu), ping-ponging between two ext buffers;
+    one merge at the end (JAX's `local_relax_split2d`, halo.py:326-363).
+    A shard whose first global row is odd holds the global colours
+    swapped in the port's local split, so its halves are swapped at the
+    split and the merge: every exchanged halo is in the global colour
+    convention;
   * "masked-block" (every other level): t dense masked sweeps of the
     problem's `kernel_update` on the halo-extended block
     (`masked_block.masked_block`, csrc/masked_block.cu), masks from the
     global row offset, built once per level and rank.
 
-JAX's TPU gates are left out: the lane alignment (Z % 128, Y/2 % 8) and
-the VMEM budget that sends a block to jnp sweeps (halo.py:233-235); the
-masked-block kernel serves any block (ROADMAP.md queue 3, "Observed").
+JAX's TPU gates are left out: the lane alignment (Z % 128, Y/2 % 8, and
+x_loc % 8 with the 8-row halo rounding of the 2D engine), the VMEM budget
+that sends a block to jnp sweeps (halo.py:233-235), and the 2D engine's
+hardware floor SPLIT2D_MIN_Y2 = 256 (relax.py:3751, a TPU crossover; its
+interpret mode engages at any size); the masked-block and color-slab
+kernels serve any block (ROADMAP.md queue 3, "Observed").
 What a shard computes from its halos is kept apart from how they arrive:
 `mesh` is anything with `rank`, `n` and `exchange(arr, h)`, so the tests
 run every shard of a ring in one process.
@@ -41,8 +56,10 @@ from __future__ import annotations
 import torch
 
 from pde_multigrid_tpu_torch.grid import LevelGeometry
+from pde_multigrid_tpu_torch.ops import split2d
 from pde_multigrid_tpu_torch.ops.cuda import masked_block as MB
 from pde_multigrid_tpu_torch.ops.cuda import relax as R
+from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
 
 
 def coords_and_masks(problem, geom: LevelGeometry, shape, row0: int, dtype,
@@ -83,9 +100,16 @@ def coords_and_masks(problem, geom: LevelGeometry, shape, row0: int, dtype,
 
 
 def plan_engine(problem, geom: LevelGeometry, n: int) -> str:
-    """The engine of a 3D level split over `n` ranks: "timeskew" where
-    JAX's gate holds (halo.py:103-130, without its TPU lane alignment),
-    "masked-block" elsewhere."""
+    """The engine of a level split over `n` ranks: in 3D "timeskew" where
+    JAX's gate holds (halo.py:103-130, without its TPU lane alignment); in
+    2D "split2d" where JAX's holds (halo.py:158-210, without its TPU
+    alignment and size floor); "masked-block" elsewhere."""
+    if geom.ndim == 2:
+        s2 = (not geom.wrap and hasattr(problem, "split_update2d")
+              and hasattr(problem, "kernel_precompute")
+              and not hasattr(problem, "kernel_keep_mask")
+              and tuple(getattr(problem, "split2d_x_offsets", ())) == (1,))
+        return "split2d" if s2 else "masked-block"
     X, Y, Z = geom.padded_shape
     ts = (geom.wrap and hasattr(problem, "split_update")
           and not hasattr(problem, "kernel_keep_mask")
@@ -97,7 +121,7 @@ def plan_engine(problem, geom: LevelGeometry, n: int) -> str:
 def make_sharded_relax(problem, geom: LevelGeometry, mesh,
                        sweeps_per_exchange: int = 1):
     """relax(v_loc, f_loc, nsweeps) -> v_loc on this rank's x_loc planes of
-    a sharded 3D float32 level, in place: T = `sweeps_per_exchange`
+    a sharded float32 level, in place: T = `sweeps_per_exchange`
     sweeps per halo exchange and a remainder chunk of nsweeps % T, through
     the kernels' wrappers (the CUDA kernels on CUDA tensors, their plain
     versions on CPU tensors).  The engine is recorded as
@@ -139,6 +163,42 @@ def make_sharded_relax(problem, geom: LevelGeometry, mesh,
                                  problem, geom, x_loc, b,
                                  r if k == len(ts) - 1 else None)
             return R.merge(r, b, out=v_loc)
+    elif engine == "split2d":
+        odd = i0 % 2 == 1
+        bufs = []  # per level and rank: (r, b) twice and (fr, fb)
+
+        def glob(r, b):
+            """The port's local split of (r, b) rows in the global colour
+            convention, or back: swapped on a shard that starts odd."""
+            return (b, r) if odd else (r, b)
+
+        def take_halo(buf, h):
+            """Rows x_loc .. x_loc + h of an ext buffer: the right
+            neighbour's first h owned rows."""
+            _, right = mesh.exchange(buf[:x_loc], h)
+            buf[x_loc:x_loc + h].copy_(right)
+
+        def relax(v_loc, f_loc, nsweeps: int):
+            if not bufs:
+                shape = (x_loc + halo, split2d.half_width(geom))
+                bufs.extend(torch.empty(shape, dtype=v_loc.dtype,
+                                        device=v_loc.device)
+                            for _ in range(6))
+            cur, nxt, fs = bufs[0:2], bufs[2:4], bufs[4:6]
+            R2.to_halves(f_loc, out=glob(*(a[:x_loc] for a in fs)))
+            for a in fs:
+                take_halo(a, halo)
+            R2.to_halves(v_loc, out=glob(*(a[:x_loc] for a in cur)))
+            for t in chunks(nsweeps):
+                xe = x_loc + 2 * t
+                for a in cur:
+                    take_halo(a, 2 * t)
+                R2.color_slab2d_shard(
+                    *(a[:xe] for a in (*cur, *fs)), i0, t, problem, geom,
+                    x_loc, tuple(a[:x_loc] for a in nxt))
+                cur, nxt = nxt, cur
+            return R2.from_halves(*glob(*(a[:x_loc] for a in cur)),
+                                  out=v_loc)
     else:
         ext_shape = (x_loc + 2 * halo,) + tuple(geom.padded_shape[1:])
         masks = {}

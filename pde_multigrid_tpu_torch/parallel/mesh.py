@@ -9,8 +9,9 @@ partitioning from GSPMD; here each rank holds its own planes as plain
 tensors and `parallel/halo.py` / `parallel/sharded.py` exchange what the
 ops need.
 
-The collectives are methods of `Mesh`: the ring exchange of halo planes
-and the reductions and gathers of the sharded tier.  NCCL takes device
+The collectives are methods of `Mesh`: the ring exchange of halo planes,
+the row window built on it, and the reductions and gathers of the
+sharded tier.  NCCL takes device
 tensors; a gloo group takes CPU tensors, so device tensors pass through
 the host there (several ranks on one card must use gloo: NCCL places one
 rank per GPU).  A one-rank mesh does no collective: its ring exchange is
@@ -96,6 +97,31 @@ class Mesh:
             recv_l = recv_l.to(arr.device)
             recv_r = recv_r.to(arr.device)
         return recv_l, recv_r
+
+    def window(self, arr: torch.Tensor, lo: int, hi: int, depth: int):
+        """Global rows [lo, hi) of a sharded level, of which this rank
+        holds `arr` (x_loc rows from row rank * x_loc), the rows taken
+        modulo the level's n * x_loc (a ring, as `torch.roll` wraps the
+        whole level): the rank's own rows and up to `depth` rows of each
+        ring neighbour.  `depth` sizes the exchange, so it must be the
+        same on every rank (the largest any rank's window needs; 0: no
+        collective).  Raises if the window reaches more than `depth` rows
+        past the rank's own."""
+        x_loc = arr.shape[0]
+        a = lo - self.rank * x_loc  # the window in local rows
+        b = hi - self.rank * x_loc
+        if not (-depth <= a <= b <= x_loc + depth) or depth > x_loc:
+            raise ValueError(
+                f"rows [{lo}, {hi}) reach past the {depth} rows taken from "
+                f"each neighbour of rank {self.rank}'s [{self.rank * x_loc},"
+                f" {(self.rank + 1) * x_loc})")
+        if depth == 0:
+            return arr[a:b]
+        left, right = self.exchange(arr, depth)
+        parts = ([left[depth + a:depth + min(b, 0)]] if a < 0 else []) + [
+            arr[max(a, 0):min(b, x_loc)]] + (
+            [right[max(a - x_loc, 0):b - x_loc]] if b > x_loc else [])
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """`t` (a 0-dim tensor) reduced over the ranks, "sum" or "max"."""

@@ -4,42 +4,52 @@
 Each rank holds its own x-planes of every level `mesh.level_sharding`
 splits and the whole of the others (`mesh.shard_levels`).  In JAX, GSPMD
 partitions every op but relax by itself (sharded.py:1-22); here each op
-of a sharded level takes the halo planes it reads from the ring
-neighbours explicitly and runs on the rank's own planes:
+of a sharded level fetches the rows it reads from the ring neighbours
+explicitly (`Mesh.window`, rows taken modulo the level as `torch.roll`
+wraps it) and runs on the rank's own rows:
 
-  * relax: `halo.make_sharded_relax` (the time-skew or masked-block
-    engine, T = min(sweeps_per_exchange, x_loc // 2) sweeps per exchange,
-    sharded.py:68-73);
-  * residual: the plain op on the block extended by one v plane per side,
-    owned planes kept;
-  * restriction: the plain op on the block extended by the left
-    neighbour's two fine planes (the coarse plane i0 / 2 reads fine plane
-    i0 - 1); into a replicated coarse level each rank restricts its own
-    part and the parts are gathered;
-  * prolongation: the plain op on the coarse block extended by the right
-    neighbour's first coarse plane; from a replicated coarse level the
-    rank takes its planes and the next one (wrapping);
-  * the exact coarsest solve: gather f, solve, keep the owned planes;
+  * relax: `halo.make_sharded_relax` (the time-skew, split2d or
+    masked-block engine, T = min(sweeps_per_exchange, x_loc // 2) sweeps
+    per exchange, sharded.py:68-73);
+  * residual: the plain op on the block extended by one row per side,
+    owned rows kept;
+  * restriction: coarse rows [c0, c1) from the fine window [2 c0 - 1,
+    2 c1); into a replicated coarse level the whole op on the gathered
+    fine level;
+  * prolongation: fine rows [F0, F1) from the coarse window [F0 // 2,
+    (F1 - 1) // 2 + 2) (from the whole coarse level where it is
+    replicated), and on padded levels the zero rows the unsharded op's
+    fit leaves from 2 X_c - 1 on;
+  * the exact coarsest solve: gather v and f, solve with the whole
+    level's aux, keep the owned rows;
   * global reductions (residual norms, the solver's error norms): the
     local sum or max, reduced over the ranks.
 
-The plain ops are what JAX runs here too (jnp under GSPMD).  At 257^3 JAX
-puts the 256^3 -> 128^3 pair on its XLA pick-matrix einsums
-(`SHARDED_XLA3D_MIN_YZ`), which reassociate float32 sums; the plain ops
-compute the jnp function.  Each op computes every owned point with the
-unsharded op's expression on the same values, so a solve is bitwise the
-same on any number of ranks.
+Padded levels' shards do not nest (4097^2 over 4 ranks: 1025 fine rows a
+shard, 513 coarse), so a transfer's window may start or end inside a
+neighbour's rows; the windows make no assumption about it.  The plain
+ops are what JAX runs here too (jnp under GSPMD).  At 257^3 JAX puts the
+256^3 -> 128^3 pair on its XLA pick-matrix einsums
+(`SHARDED_XLA3D_MIN_YZ`), and every 2D pair on the 2D ones
+(`xla_pair_ok_2d`), which reassociate float32 sums; the plain ops compute
+the jnp function.  Each op computes every owned point with the unsharded
+op's expression on the same values, so a solve is bitwise the same on any
+number of ranks (on the logical rows: the padding differs).
 
-On replicated levels relax runs the port's single-device tier: the CUDA
-kernels' plan (`CudaKernels`) for float32 on "cuda", the plain tier
+On replicated 3D levels relax runs the port's single-device tier: the
+CUDA kernels' plan (`CudaKernels`) for float32 on "cuda", the plain tier
 otherwise.  JAX runs jnp there only because GSPMD owns those levels; the
-kernels compute the same function.  The fused hooks return None, as in
+kernels compute the same function.  Replicated 2D levels run the split2d
+engine on a one-rank ring, so every 2D level relaxes in the one
+arithmetic of row 17 on any number of ranks (the resident kernel and the
+plain tier round otherwise).  The fused hooks return None, as in
 JAX's `JnpKernels` base, and there is no defect path: `precision` is
 ignored, as JAX's sharded tier does.
 
-The tier serves red-black Gauss-Seidel on 3D wrap-storage Poisson; any
-other problem, layout or smoother raises at construction, naming its
-ROADMAP.md item.
+The tier serves red-black Gauss-Seidel in the correction scheme on 3D
+wrap-storage Poisson and on padded 2D Lyapunov (FAS also on the 3D wrap
+levels, whose shards nest); any other problem, layout, scheme or smoother
+raises at construction, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -50,33 +60,46 @@ import torch
 
 from pde_multigrid_tpu_torch.cycles import TorchKernels
 from pde_multigrid_tpu_torch.grid import LevelGeometry
+from pde_multigrid_tpu_torch.models.lyapunov2d import Lyapunov2D
 from pde_multigrid_tpu_torch.models.poisson import Poisson
 from pde_multigrid_tpu_torch.ops import stencil
 from pde_multigrid_tpu_torch.parallel import halo
-from pde_multigrid_tpu_torch.parallel.mesh import level_sharding, shard_rows
+from pde_multigrid_tpu_torch.parallel.mesh import (
+    Mesh,
+    level_sharding,
+    shard_rows,
+)
 
 
 def check_sharded(problem, geoms: Sequence[LevelGeometry], smoother: str,
-                  dtype) -> None:
+                  dtype, scheme: str = "cs") -> None:
     """Raise NotImplementedError, naming its ROADMAP.md item, for a mesh
-    solve outside the ported slice: 3D wrap-storage Poisson, RBGS,
-    float32."""
+    solve outside the ported slice: 3D wrap-storage Poisson or padded 2D
+    Lyapunov, RBGS, float32, and FAS only on the wrap levels."""
     g = geoms[0]
     if hasattr(problem, "kernel_keep_mask"):
         raise NotImplementedError(
             f"a mesh solve of {problem.name}: the keep-mask variant of the "
-            "masked-block engine is ROADMAP.md queue 2 item 40")
-    if g.ndim == 2:
+            "masked-block engine and the sharded FAS ops are ROADMAP.md "
+            "queue 2 item 40")
+    if g.ndim == 2 and isinstance(problem, Poisson):
         raise NotImplementedError(
-            f"a mesh solve of {problem.name} in 2D: the sharded 2D engine "
-            "(the per-shard color-split slab, relax.py:2879) is ROADMAP.md "
-            "queue 2 item 21")
-    if not (isinstance(problem, Poisson) and g.ndim == 3 and g.wrap):
+            f"a mesh solve of {problem.name}: 2D Poisson needs a Poisson "
+            "stencil in relax2d.cu and resident.cu; it is ROADMAP.md queue "
+            "1 item 11")
+    ok = ((isinstance(problem, Poisson) and g.ndim == 3 and g.wrap)
+          or (isinstance(problem, Lyapunov2D) and not g.wrap))
+    if not ok:
         raise NotImplementedError(
             f"a mesh solve of {problem.name} ({g.ndim}D, "
             f"{'wrap' if g.wrap else 'padded'} storage): the sharded tier "
-            "serves 3D wrap-storage Poisson; the rest is ROADMAP.md queue 1 "
-            "item 17")
+            "serves 3D wrap-storage Poisson and padded 2D Lyapunov; the "
+            "rest is ROADMAP.md queue 1 item 17")
+    if scheme == "fas" and not g.wrap:
+        raise NotImplementedError(
+            f"scheme='fas' on a mesh with padded levels ({problem.name}): "
+            "injection across shards that do not nest is one of the "
+            "sharded FAS ops of ROADMAP.md queue 2 item 40")
     if smoother != "rbgs":
         raise NotImplementedError(
             f"smoother={smoother!r} on a mesh: the sharded tier relaxes by "
@@ -88,34 +111,53 @@ def check_sharded(problem, geoms: Sequence[LevelGeometry], smoother: str,
             "dtypes are ROADMAP.md queue 1 item 17")
 
 
+def _pad_rows(aux, x_loc: int):
+    """`aux` with every field of the shard's x_loc rows extended by one
+    row at each end (copies of its edge rows), for an op on the block
+    extended by one row per side whose two end rows are dropped."""
+    return {k: torch.cat([a[:1], a, a[-1:]]) if a.dim() and a.shape[0]
+            == x_loc else a for k, a in aux.items()}
+
+
 class ShardedKernels(TorchKernels):
     """The plain tensor tier with halo exchanges on sharded levels."""
 
     def __init__(self, problem, geoms: Sequence[LevelGeometry], mesh,
                  dtype=torch.float32, smoother: str = "rbgs",
                  omega: float = 1.0, sweeps_per_exchange: int = 4,
-                 relaxed_levels=None):
-        check_sharded(problem, geoms, smoother, dtype)
+                 relaxed_levels=None, scheme: str = "cs"):
+        check_sharded(problem, geoms, smoother, dtype, scheme)
         super().__init__(problem, geoms, smoother, omega)
         self.mesh = mesh
         nlev = len(self.geoms)
         self.sharded = [level_sharding(mesh, g) for g in self.geoms]
         self.rows = [shard_rows(mesh, g) for g in self.geoms]
+        # per level: the padded aux of the residual's block, and the whole
+        # level's aux for the coarse solve, each made at its first use
+        self._aux_pad = {}
+        self._aux_whole = {}
         relaxed = range(nlev) if relaxed_levels is None else relaxed_levels
         self._relax = [None] * nlev
-        # per level: the sharded engine, "whole" (a replicated level,
-        # relaxed by the single-device tier) or None (not relaxed)
+        # per level: the engine, "whole" (a replicated level relaxed by
+        # the single-device tier) or None (not relaxed).  A replicated 2D
+        # level runs the split2d engine on a one-rank ring: every level
+        # then relaxes in one arithmetic, whatever the number of ranks
         self.plan = [None] * nlev
+        # (a one-rank Mesh makes no collective call, whatever its backend)
+        one = Mesh(rank=0, n=1, device=mesh.device, backend="gloo")
         for l in relaxed:
-            self.plan[l] = "whole"
-            if self.sharded[l]:
-                x_loc = self.geoms[l].padded_shape[0] // mesh.n
+            g = self.geoms[l]
+            ring = mesh if self.sharded[l] else one
+            if self.sharded[l] or halo.plan_engine(problem, g, 1) == "split2d":
+                x_loc = g.padded_shape[0] // ring.n
                 t_eff = min(sweeps_per_exchange, x_loc // 2)
-                self._relax[l] = halo.make_sharded_relax(
-                    problem, self.geoms[l], mesh, t_eff)
+                self._relax[l] = halo.make_sharded_relax(problem, g, ring,
+                                                         t_eff)
                 self.plan[l] = self._relax[l].engine
-        # relax on replicated levels: the single-device tier
-        whole = [l for l in relaxed if not self.sharded[l]]
+            else:
+                self.plan[l] = "whole"
+        # relax on the other replicated levels: the single-device tier
+        whole = [l for l in relaxed if self.plan[l] == "whole"]
         if mesh.device.type == "cuda":
             from pde_multigrid_tpu_torch.ops.cuda.dispatch import CudaKernels
 
@@ -125,13 +167,15 @@ class ShardedKernels(TorchKernels):
 
     # -- halo helpers ------------------------------------------------------
 
-    def _ext(self, a, lo: int, hi: int):
-        """`a` with `lo` planes of the left neighbour before it and `hi`
-        planes of the right neighbour after it."""
-        left, right = self.mesh.exchange(a, max(lo, hi))
-        parts = ([left[left.shape[0] - lo:]] if lo else []) + [a] + (
-            [right[:hi]] if hi else [])
-        return torch.cat(parts, dim=0)
+    def _window(self, arr, lo_of, hi_of):
+        """Global rows [lo_of(r), hi_of(r)) of a sharded level's field on
+        rank r = this rank (`Mesh.window`), the exchange sized for the
+        widest reach of any rank."""
+        x_loc, n = arr.shape[0], self.mesh.n
+        depth = max(max(r * x_loc - lo_of(r), hi_of(r) - (r + 1) * x_loc, 0)
+                    for r in range(n))
+        r = self.mesh.rank
+        return self.mesh.window(arr, lo_of(r), hi_of(r), depth)
 
     # -- ops -----------------------------------------------------------------
 
@@ -146,48 +190,81 @@ class ShardedKernels(TorchKernels):
     def residual(self, l, v, f, aux):
         if not self.sharded[l]:
             return super().residual(l, v, f, aux)
-        g = self.geoms[l]
-        lv = self.problem.apply_operator(self._ext(v, 1, 1), g, aux)[1:-1]
+        x_loc = v.shape[0]
+        block = self._window(v, lambda r: r * x_loc - 1,
+                             lambda r: (r + 1) * x_loc + 1)
+        key = tuple(a.data_ptr() for a in aux.values())
+        if self._aux_pad.get(l, (None,))[0] != key:
+            self._aux_pad[l] = (key, _pad_rows(aux, x_loc))
+        lv = self.problem.apply_operator(block, self.geoms[l],
+                                         self._aux_pad[l][1])[1:-1]
         return stencil.residual(lambda _: lv, v, f, aux["m_int"])
 
     def restrict(self, l_fine, arr, m_int_coarse, m_log_coarse):
         if not self.sharded[l_fine]:
             return super().restrict(l_fine, arr, m_int_coarse, m_log_coarse)
-        whole = not self.sharded[l_fine + 1]
-        xc = self.geoms[l_fine + 1].padded_shape[0] // self.mesh.n
-        rows = slice(self.mesh.rank * xc, (self.mesh.rank + 1) * xc)
-        # restrict_full_weighting on the block: fine plane 2 of it is the
-        # owned plane 0 (even, so its coarse planes are 1, 2, ...)
-        a = fine = self._ext(arr, 2, 0)
+        if not self.sharded[l_fine + 1]:
+            return stencil.restrict_full_weighting(
+                self.mesh.all_gather(arr), m_int_coarse, m_log_coarse)
+        xc = m_int_coarse.shape[0]
+        # restrict_full_weighting on the window: its rows 1, 3, ... are
+        # the fine rows 2 c0, 2 c0 + 2, ... of the coarse rows [c0, c1)
+        fine = self._window(arr, lambda r: 2 * r * xc - 1,
+                            lambda r: 2 * (r + 1) * xc)
+        a = fine
         for ax in range(a.ndim):
             a = (0.25 * stencil._shift(a, ax, -1) + 0.5 * a
                  + 0.25 * stencil._shift(a, ax, +1))
-        smoothed = stencil._subsample2(a)[1:]
-        injected = stencil._subsample2(fine)[1:]
-        m_int = m_int_coarse[rows] if whole else m_int_coarse
-        out = injected + m_int * (smoothed - injected)
+        cshape = tuple(m_int_coarse.shape)
+        smoothed = stencil._fit(stencil._subsample2(a[1:]), cshape)
+        injected = stencil._fit(stencil._subsample2(fine[1:]), cshape)
+        out = injected + m_int_coarse * (smoothed - injected)
         if m_log_coarse is not None:
-            out = out * (m_log_coarse[rows] if whole else m_log_coarse)
-        return self.mesh.all_gather(out) if whole else out
+            out = out * m_log_coarse
+        return out
 
     def prolong(self, l_fine, arr):
         if not self.sharded[l_fine]:
             return super().prolong(l_fine, arr)
-        x_loc = self.geoms[l_fine].padded_shape[0] // self.mesh.n
+        g = self.geoms[l_fine]
+        x_loc = g.padded_shape[0] // self.mesh.n
+        X_c = self.geoms[l_fine + 1].padded_shape[0]
+
+        def lo_of(r):
+            return r * x_loc // 2
+
+        def hi_of(r):
+            return ((r + 1) * x_loc - 1) // 2 + 2
+
+        r = self.mesh.rank
         if self.sharded[l_fine + 1]:
-            block = self._ext(arr, 0, 1)
+            block = self._window(arr, lo_of, hi_of)
         else:
-            xc = x_loc // 2
-            idx = (self.mesh.rank * xc + torch.arange(
-                xc + 1, device=arr.device)) % arr.shape[0]
+            idx = (lo_of(r) + torch.arange(hi_of(r) - lo_of(r),
+                                           device=arr.device)) % X_c
             block = arr.index_select(0, idx)
-        return stencil.prolong_linear(block, periodic=True)[:x_loc]
+        # prolong_linear on the block: axis 0 first (fine rows [2 lo,
+        # 2 hi - 1)), the owned rows, then the other axes and the fit
+        s = r * x_loc - 2 * lo_of(r)
+        a = stencil._upsample_axis(block, 0)[s:s + x_loc]
+        up = (stencil._upsample_axis_periodic if g.wrap
+              else stencil._upsample_axis)
+        for ax in range(1, a.ndim):
+            a = up(a, ax)
+        a = stencil._fit(a, (x_loc,) + tuple(g.padded_shape[1:]))
+        first_zero = 2 * X_c - 1 - r * x_loc
+        if not g.wrap and first_zero < x_loc:
+            a[max(first_zero, 0):] = 0
+        return a
 
     def coarse_solve(self, l, solve, v, f, aux):
         if not self.sharded[l]:
             return solve(v, f, aux)
-        # the fast-diagonalization solve of wrap Poisson reads f alone
-        full = solve(None, self.mesh.all_gather(f), None)
+        if l not in self._aux_whole:
+            self._aux_whole[l] = self.problem.init_level(
+                self.geoms[l], dtype=v.dtype, device=v.device).aux
+        full = solve(self.mesh.all_gather(v), self.mesh.all_gather(f),
+                     self._aux_whole[l])
         return full[self.rows[l]]
 
     # -- global reductions ---------------------------------------------------

@@ -34,9 +34,10 @@ group) splits every level that is large enough along axis 0 over the
 ranks, as the JAX solver's `mesh=` does: `pad_axis0_to` is multiplied by
 the number of ranks, the solver runs on the mesh's device, the kernel
 tier is `parallel.sharded.ShardedKernels` (halo-exchange relaxation on
-the split levels; 3D wrap-storage Poisson with red-black Gauss-Seidel,
-anything else raises), `fresh_levels` returns this rank's part of each
-level, and `SolveResult.v` is the whole finest level on every rank.
+the split levels; 3D wrap-storage Poisson and padded 2D Lyapunov with
+red-black Gauss-Seidel, anything else raises), `fresh_levels` returns
+this rank's part of each level, and `SolveResult.v` is the whole finest
+level on every rank.
 """
 
 from __future__ import annotations
@@ -146,7 +147,8 @@ def _pick_kernels(problem, geoms, cycle, dtype, device, precision="f32",
         from pde_multigrid_tpu_torch.parallel.sharded import ShardedKernels
 
         return ShardedKernels(problem, geoms, mesh, dtype, cycle.smoother,
-                              cycle.omega, sweeps_per_exchange, relaxed)
+                              cycle.omega, sweeps_per_exchange, relaxed,
+                              cycle.scheme)
     if galerkin_offsets is not None:
         plans = None
         if on_card:

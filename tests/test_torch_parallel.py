@@ -48,6 +48,7 @@ from pde_multigrid_tpu_torch.ops import stencil
 from pde_multigrid_tpu_torch.ops.cuda import relax as R
 from pde_multigrid_tpu_torch.parallel import halo
 from pde_multigrid_tpu_torch.parallel.mesh import (
+    Mesh,
     level_sharding,
     make_mesh,
     shard_rows,
@@ -109,6 +110,8 @@ class _ThreadMesh:
         got = self._swap((arr[-h:].clone(), arr[:h].clone()))
         return got[(self.rank - 1) % self.n][0], got[(self.rank + 1)
                                                      % self.n][1]
+
+    window = Mesh.window  # built on exchange
 
     def all_reduce(self, t, op="sum"):
         got = self._swap(t.clone())
@@ -373,15 +376,16 @@ def test_cli_distributed_prints_on_rank_0_only():
 
 def test_refusals_at_construction():
     """A mesh solve outside the slice raises at construction, naming its
-    ROADMAP item: 2D (row 17's engine), 1D, HJB (the keep-mask engine),
-    Lyapunov, a smoother other than rbgs, float64 (the port's gates are
-    the same on either device, so these are checked on a cpu mesh);
+    ROADMAP item: 2D Poisson (its 2D kernels), 1D, HJB (the keep-mask
+    engine), Lyapunov in the FAS scheme (the sharded FAS ops), a smoother
+    other than rbgs, float64 (the port's gates are the same on either
+    device, so these are checked on a cpu mesh);
     Galerkin is JAX's ValueError; a
     mesh of another size than the process group, or on a device the mesh
     does not run on, raises."""
     mesh = make_mesh(1, device="cpu")
-    cases = [(Poisson(2), 33, {}, "queue 2 item 21"),
-             (Lyapunov2D(), 33, {}, "queue 2 item 21"),
+    cases = [(Poisson(2), 33, {}, "queue 1 item 11"),
+             (Lyapunov2D(), 33, {"scheme": "fas"}, "queue 2 item 40"),
              (Poisson(1), 33, {}, "queue 1 item 17"),
              (HJBMinTime(), 33, {}, "queue 2 item 40"),
              (Poisson3D(), 17, {"smoother": "jacobi"}, "queue 1 item 17")]
