@@ -22,7 +22,13 @@ Phases, in order; any failure exits non-zero without the final result line:
      the root's relax, and at nu = 3000 on the 64^3 and 32^3 roots, timed
      at nu = 3000 on every root (at 64^3 and 32^3 beside the chain); the
      transfer kernels on the sub-lane pairs
-     32^3 -> 16^3 ... 4^3 -> 2^3 (rows 23 and 24) bitwise; then
+     32^3 -> 16^3 ... 4^3 -> 2^3 (rows 23 and 24) bitwise; then the
+     whole-leg 3D resident kernel (resident3d.cu) in its three modes
+     (dense on 64^3, 32^3, 16^3 and on colour halves there: rows 4 and 5;
+     dense on one CTA on 8^3, 4^3, 2^3: row 1's 3D mode) bitwise against
+     its plain versions and the half-sweep chain over nu = 1, 2, 3 and 100,
+     a 100-sweep leg timed beside the chain on every level, and the layout
+     A/B its gate rests on (32^3 on 1 or 8 CTAs, 64^3 on 8 or 16); then
      the 2D Lyapunov kernels, bitwise: split2d, merge2d and half_sweep2d
      (with and without f) at 4097^2, resident over 500-sweep legs at
      257^2 and 65^2 (with and without f);
@@ -48,7 +54,9 @@ Phases, in order; any failure exits non-zero without the final result line:
      V-cycle) and no other kernel, ms per step eager and as one CUDA
      graph, at 129^3 two steps with the fused hooks on and off (the same
      solution bit for bit, eager ms each) and the plan with the 64^3-rooted
-     V-cycles unfused (bitwise the same; eager and graph ms); and 129^3
+     V-cycles unfused (bitwise the same; eager and graph ms, its 64^3 level
+     relaxed by the plan's resident kernel and by the half-sweeps); and
+     129^3
      FMG(2, 4, 4) relaxed to 2^3 with the hooks on and off: the same
      residual history and solution bit for bit;
   6. the 2D Lyapunov path at 4097^2: FMG(2, 500, 500), exact (dense
@@ -97,7 +105,8 @@ Phases, in order; any failure exits non-zero without the final result line:
   9. FAS on 3D Poisson through the CUDA plan: 33^3, V(2, 2) cycles in the
      full approximation scheme and in the correction scheme through
      `MultigridSolver.solve_to_tolerance()` on "cuda", the same residual
-     history and error_linf within 1e-5, the f32 3D kernels launched;
+     history and error_linf within 1e-5, the kernels of each plan launched
+     (FAS: the whole-leg resident kernel on every level);
  10. the Galerkin path: stencil_resident and stencil_slab2d bitwise
      against their plain version at every level of the varcoef2d 1025^2
      hierarchy with its own coefficients (slab on all ten, 1024^2 K = 5
@@ -150,7 +159,22 @@ Phases, in order; any failure exits non-zero without the final result line:
      JAX's sharded-vs-single tolerance of phase 6's (max|dv| printed);
      then FMG(2, 20, 20) over 2 and 4 gloo ranks on cuda:0: every rank's
      launches as the schedule implies, rank 0's logical solution bitwise
-     the one-rank solve's of that schedule.
+     the one-rank solve's of that schedule;
+ 14. the 3D FAS path (after phase 5): 257^3 FMG(2, 100, 100),
+     scheme="fas", coarsest relaxed to 2^3, f32, through
+     `MultigridSolver.solve()` on "cuda" (the wavefront on 256^3, the
+     half-sweeps on 128^3, the resident kernel's merged mode on 64^3 ...
+     16^3 and its one-CTA mode on 8^3 ... 2^3): error_linf < 50 h^2,
+     exactly the schedule's launches (`fas_launches`) and no other kernel,
+     ms per step eager and as one CUDA graph, the same step with the
+     resident kernel's levels (all, or 64^3 alone) on the half-sweeps,
+     bitwise the same, the correction scheme's solve within 1e-5 of its
+     error_linf, and the float64 FAS solve on the plain tier; and, after
+     phase 12, the sharded FAS row (F3): 65^3 FMG(2, 20, 20) relaxed to
+     2^3 on one rank in process and over 2 and 4 gloo ranks (the
+     replicated coarse levels on the resident kernel, the injection into
+     them gathered), rank 0's logical solution bitwise the one-rank
+     solve's.
 
 Every float64 reference but phase 11's is a `MultigridSolver(...,
 dtype="float64", device="cuda")` solve: the plain tier on the card.  Each phase's seconds
@@ -306,6 +330,21 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/color_slab2d_shard.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:2879",
     ),
+    # the whole-leg 3D resident kernel's three modes: dense on the merged
+    # gate's levels (64^3 ... 16^3), colour halves (no plan selects it, as
+    # in JAX), and the 3D Poisson levels of relax.py:143 (8^3 ... 2^3)
+    "merged_resident": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/resident3d.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:595",
+    ),
+    "split_merged": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/resident3d.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:684",
+    ),
+    "resident3d": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/resident3d.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:143",
+    ),
 }
 # the levels (halves shapes) whose wavefront launches each record counts
 TIMESKEW_LEVELS = {"timeskew": (256, 128, 256), "timeskew_jb": (512, 256, 512)}
@@ -335,15 +374,23 @@ PATHS = {
     "preset257": (*F32_3D, "timeskew", "subtree", "small_restrict",
                   "small_prolong_blend"),
     # 33^3 V(2, 2) cycles, relaxed to 2^3: the correction scheme fuses
-    # every V-cycle; FAS (no fused hooks) relaxes every level with the
-    # half-sweeps and transfers on the sub-lane pairs
+    # every V-cycle; FAS (no fused hooks) relaxes 32^3 and 16^3 with the
+    # whole-leg resident kernel's merged mode, 8^3 ... 2^3 with its
+    # one-CTA mode, and transfers on the sub-lane pairs
     "fas3d_cs": ("subtree", "residual"),
-    "fas3d_fas": ("split", "merge", "half_sweep", "residual",
+    "fas3d_fas": ("merged_resident", "resident3d", "residual",
                   "small_restrict", "small_prolong_blend"),
+    # 257^3 FMG(2, 100, 100) in FAS, relaxed to 2^3: the wavefront on
+    # 256^3, the half-sweeps on 128^3, the resident kernel below
+    "fas257": (*F32_3D, "timeskew", "merged_resident", "resident3d",
+               "small_restrict", "small_prolong_blend"),
     # 257^3 split over ranks: the time-skew chunk on 256^3 (with its split
     # and merge per leg), the masked block on 128^3; the transfers and
     # residuals are the plain ops (JAX's jnp under GSPMD)
     "sharded257": ("split", "merge", "timeskew_shard", "masked_block"),
+    # 65^3 FAS split over ranks: the masked block on the sharded levels,
+    # the resident kernel on the replicated ones (none on one rank)
+    "sharded_fas": ("masked_block",),
     # 4097^2 Lyapunov split over ranks: every relaxed level by the color
     # slab chunk, its v and f split and merged once per leg; the transfers
     # and residuals are the plain ops (JAX's jnp under GSPMD)
@@ -832,7 +879,8 @@ def phase_kernels_subtree(torch):
     """The fused subtree V-cycle (csrc/subtree.cu) bitwise against the
     unfused chain of the port's kernels (split, half-sweeps, merge,
     residual_restrict, prolong_blend through `CycleProgram.v_cycle` on a
-    `CudaKernels` without a fused plan) and against its plain version, at
+    `CudaKernels` without a fused plan, every level relaxed by the
+    half-sweeps) and against its plain version, at
     the roots 64^3 ... 2^3 of the 65^3 wrap hierarchy, nu = (1, 1), (1, 0),
     (2, 3), with the root relaxed and without (the correction alone); at
     the 64^3 and 32^3 roots also nu = 3000 (the plain version there only
@@ -853,6 +901,7 @@ def phase_kernels_subtree(torch):
     from pde_multigrid_tpu_torch.cycles import CycleProgram
     from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
     from pde_multigrid_tpu_torch.models import Poisson3D
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
     from pde_multigrid_tpu_torch.ops.cuda import subtree as S
     from pde_multigrid_tpu_torch.ops.cuda import transfer as T
     from pde_multigrid_tpu_torch.ops.cuda.dispatch import CudaKernels
@@ -866,6 +915,10 @@ def phase_kernels_subtree(torch):
     rng = np.random.default_rng(2028)
     chain_tier = CudaKernels(prob, geoms, torch.float32)  # no fused plan
     require(not any(chain_tier._sub_v), "the chain tier has a fused plan")
+    # the chain relaxes every level by the half-sweeps (the plan would give
+    # 64^3 ... 2^3 the whole-leg resident kernel), as when ROADMAP queue 2
+    # item 13's A/B was first measured
+    chain_tier._relax = [R.make_split_relax(prob, g) for g in geoms]
     levels = [prob.init_level(g, torch.float32, dev) for g in geoms]
     out = {}
 
@@ -1014,6 +1067,137 @@ def phase_kernels_subtree(torch):
     log("kernels small_restrict / small_prolong_blend: bitwise against "
         "their plain versions (and the residual mode) on "
         f"{[s[0] for s in SMALL_PAIR_FINE]}^3 -> half")
+    torch.cuda.synchronize()
+    return out
+
+
+# the whole-leg 3D resident kernel: the levels of the 65^3 wrap hierarchy
+# (64^3 ... 2^3), the sweep counts it is held bitwise at, and its 100-sweep
+# leg per level beside the half-sweep chain (row 9), ms (printed with the
+# summaries)
+RESIDENT3D_NUS = (1, 2, 3, 100)
+RESIDENT3D_AB = {}
+
+
+def _resident3d_cost(g, nsweeps: int):
+    """(bytes, operations) of one leg: v read and written and f read once,
+    12 B a stored point; 13 float32 operations an interior point (x, y,
+    z >= 1: the planes 0 are never updated) and sweep (3 pair sums, 3
+    products and 3 sums, the negation, the scale, the blend's difference
+    and sum)."""
+    X, Y, Z = g.padded_shape
+    return 12 * X * Y * Z, 13 * (X - 1) * (Y - 1) * (Z - 1) * nsweeps
+
+
+def phase_kernels_resident3d(torch):
+    """The whole-leg 3D resident kernel (csrc/resident3d.cu) in its three
+    modes, bitwise against its plain versions and against the row-9 chain
+    (split, half-sweeps, merge: `relax.make_split_relax`) on every level
+    of 65^3 (64^3 ... 2^3) at nu = 1, 2, 3 and 100: the dense merged mode
+    (`merged_resident_relax`, row 4) and the halves mode
+    (`split_merged_relax`, row 5; against `relax_halves` on the same
+    halves) on the merged gate's levels 64^3, 32^3, 16^3, the one-CTA
+    dense mode (`resident3d_relax`, row 1) on 8^3, 4^3, 2^3.  A 100-sweep
+    leg timed on every level beside the chain (graph-replayed).  Returns
+    the records of "merged_resident" and
+    "split_merged" (64^3) and "resident3d" (8^3), each per 100-sweep
+    leg."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.models import Poisson3D
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+    from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
+
+    dev = torch.device("cuda")
+    prob = Poisson3D()
+    geoms = build_geometries((65,) * 3, prob.domain, wrap=True)
+    require([g.padded_shape[0] for g in geoms] == [64, 32, 16, 8, 4, 2],
+            f"hierarchy {[g.padded_shape for g in geoms]}")
+    rng = np.random.default_rng(2031)
+    nsw = RESIDENT3D_NUS[-1]
+    out, errs = {}, {"merged_resident": 0.0, "split_merged": 0.0,
+                     "resident3d": 0.0}
+
+    def rand(shape, interior):
+        a = rng.standard_normal(shape).astype(np.float32)
+        if interior:
+            a *= wrap_interior(shape)
+        return torch.tensor(a, device=dev)
+
+    for g in geoms:
+        merged = RS3.merged_gate(g)
+        name = "merged_resident" if merged else "resident3d"
+        dense = (RS3.merged_resident_relax if merged
+                 else RS3.resident3d_relax)
+        v = rand(g.padded_shape, True)
+        f = rand(g.padded_shape, False)
+        fr, fb = R.split(f)
+        row9 = R.make_split_relax(prob, g)
+        tag = f"resident3d {g.padded_shape[0]}^3 ({RS3.layout(g)})"
+        for ns in RESIDENT3D_NUS:
+            k = dense(v.clone(), f, ns, prob, g)
+            c = row9(v.clone(), f, ns)
+            p = RS3.merged_resident_plain(v, f, ns, prob, g)
+            errs[name] = max(errs[name], _max_err(torch, k, c),
+                             _max_err(torch, k, p))
+            require(torch.equal(k, c) and torch.equal(k, p),
+                    f"{tag} {name} nu = {ns}: not bitwise the chain and the "
+                    f"plain version, max diff {errs[name]!r}")
+            if merged:
+                r, b = R.split(v)
+                rc, bc = r.clone(), b.clone()
+                RS3.split_merged_relax(r, b, fr, fb, ns, prob, g)
+                R.relax_halves(rc, bc, fr, fb, ns, prob, g)
+                rp, bp = RS3.split_merged_plain(*R.split(v), fr, fb, ns,
+                                                prob, g)
+                errs["split_merged"] = max(
+                    errs["split_merged"], _max_err(torch, r, rc),
+                    _max_err(torch, b, bc), _max_err(torch, r, rp))
+                require(all(map(torch.equal, (r, b, r, b), (rc, bc, rp, bp)))
+                        and torch.equal(R.merge(r, b), k),
+                        f"{tag} split_merged nu = {ns}: not bitwise the "
+                        f"chain, the plain version and the dense mode")
+            require(bool(torch.isfinite(k).all()), f"{tag}: non-finite")
+        # each leg relaxes its own copy of v in place, again at each call
+        vk, vc = v.clone(), v.clone()
+        ab = RESIDENT3D_AB[f"{g.padded_shape[0]}^3"] = {
+            "kernel_ms": device_ms(torch, lambda: dense(vk, f, nsw, prob,
+                                                        g), 2),
+            "chain_ms": device_ms(torch, lambda: row9(vc, f, nsw), 2),
+            "layout": RS3.layout(g)}
+        log(f"{tag}: {name} bitwise against the row-9 chain and the plain "
+            f"version at nu = {list(RESIDENT3D_NUS)}"
+            f"{' (and split_merged on halves)' if merged else ''}; "
+            f"{nsw}-sweep leg device ms {ab['kernel_ms']!r} vs chain "
+            f"{ab['chain_ms']!r}")
+        records = {"merged_resident": 64, "split_merged": 64,
+                   "resident3d": 8}
+        for rec in [k for k, s in records.items()
+                    if s == g.padded_shape[0] and (merged or k == name)]:
+            if rec == "split_merged":
+                r, b = R.split(v)
+                t = paired_times(
+                    torch, lambda: RS3.split_merged_relax(
+                        r, b, fr, fb, nsw, prob, g),
+                    lambda: RS3.split_merged_plain(r, b, fr, fb, nsw, prob,
+                                                   g), 1)
+            else:
+                vk = v.clone()
+                t = paired_times(
+                    torch, lambda: dense(vk, f, nsw, prob, g),
+                    lambda: RS3.merged_resident_plain(v, f, nsw, prob, g),
+                    1)
+            out[rec] = {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                        **bound(*_resident3d_cost(g, nsw)),
+                        "library_ms": None}
+            log(f"kernel {rec} ({g.padded_shape[0]}^3, one {nsw}-sweep "
+                f"leg): device {t['ms']!r} ms vs plain {t['plain_ms']!r} ms "
+                f"(bound {out[rec]['bound_ms']!r} ms by "
+                f"{out[rec]['bound_by']}); eager {t['eager_ms']!r} ms vs "
+                f"plain {t['eager_plain_ms']!r} ms")
+    for name, err in errs.items():
+        out[name]["max_abs_err"] = err
     torch.cuda.synchronize()
     return out
 
@@ -1229,12 +1413,13 @@ def _counter_modules():
     from pde_multigrid_tpu_torch.ops.cuda import relax1d as R1
     from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
     from pde_multigrid_tpu_torch.ops.cuda import resident as RS
+    from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
     from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
     from pde_multigrid_tpu_torch.ops.cuda import stencilop as SO
     from pde_multigrid_tpu_torch.ops.cuda import subtree as ST
     from pde_multigrid_tpu_torch.ops.cuda import transfer as T
 
-    return (R, T, D, R2, RS, R1, SL, SO, ST, MB)
+    return (R, T, D, R2, RS, R1, SL, SO, ST, MB, RS3)
 
 
 def reset_counts() -> None:
@@ -1928,7 +2113,8 @@ def phase_fas3d(torch):
     counterpart: tests/test_torch_galerkin.py), and each solve launches the
     kernels of its plan and no other: the correction scheme the fused
     subtree (every level is at most 32^3) and the residual norms; FAS the
-    f32 half-sweeps and the transfer kernels on the sub-lane pairs (FAS's
+    whole-leg resident kernel (merged mode on 32^3 and 16^3, one-CTA mode
+    on 8^3 ... 2^3) and the transfer kernels on the sub-lane pairs (FAS's
     coarse change through prolong_blend's add mode)."""
     from pde_multigrid_tpu_torch import (
         CycleConfig,
@@ -1966,6 +2152,151 @@ def phase_fas3d(torch):
             "error_linf": {"cs": cs.error_linf, "fas": fas.error_linf},
             "residual_history": {"cs": cs.residual_history,
                                  "fas": fas.residual_history}}
+
+
+FAS_N = 257
+FAS_NUS = (2, 100, 100)
+# the FAS 257^3 step with the resident kernel's levels relaxed by the
+# half-sweeps instead (all of them, or 64^3 alone), ms per step (printed
+# with the summaries)
+FAS_AB = {}
+
+
+def _fas_cfg(scheme: str = "fas", dtype: str = "float32"):
+    from pde_multigrid_tpu_torch import CycleConfig, SolverConfig
+
+    return SolverConfig(cycle=CycleConfig("fmg", *FAS_NUS, scheme=scheme,
+                                          coarsest="relax"), dtype=dtype)
+
+
+def fas_launches(solver) -> dict:
+    """The launches `solver.solve()` implies on the FAS row: one FMG step,
+    level l visited nu0 (l + 1) times, each visit two relax legs (the
+    coarsest too) of the plan's tier: ceil(nu / T) wavefront launches or
+    2 nu half-sweeps, each leg with a split of v and of f and a merge, or
+    one launch of the resident kernel; each visit of a level above the
+    coarsest restricts its residual (restrict-only mode), takes the
+    residual on the level and on the injected coarse iterate (FAS's coarse
+    right side) and prolongs the coarse change ('add'); the f-cascade
+    restricts once per pair, the upward leg prolongs once per pair
+    ('replace'); the result's residual norms take one residual.  The
+    sub-lane pairs count as rows 23 and 24."""
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
+    cyc = solver.config.cycle
+    geoms = solver.geoms
+    want = dict.fromkeys(PATHS["fas257"], 0)
+    for l, (g, tier) in enumerate(zip(geoms, solver.program.kernels.tiers)):
+        visits = cyc.nu0 * (l + 1)
+        for nu in (cyc.nu1, cyc.nu2):
+            if tier == "timeskew":
+                want[tier] += visits * -(-nu // R.TIMESKEW_T)
+            elif tier == "half_sweep":
+                want[tier] += visits * 2 * nu
+            else:
+                want[tier] += visits
+            if tier in ("timeskew", "half_sweep"):
+                want["split"] += 2 * visits
+                want["merge"] += visits
+        if l + 1 < len(geoms):
+            small = tuple(g.padded_shape) in SMALL_PAIR_FINE
+            want["small_restrict" if small else "residual_restrict"] += (
+                visits + 1)
+            want["small_prolong_blend" if small else "prolong_blend"] += (
+                visits + 1)
+            want["residual"] += 2 * visits
+    want["residual"] += 1
+    return want
+
+
+def phase_fas3d_257(torch):
+    """3D Poisson in the full approximation scheme at 257^3: FMG(2, 100,
+    100), coarsest relaxed (8 levels to 2^3), f32, through
+    `MultigridSolver.solve()` on "cuda".  The plan: the wavefront on
+    256^3, the half-sweeps on 128^3, the whole-leg resident kernel's
+    merged mode on 64^3, 32^3, 16^3 and its one-CTA mode on 8^3, 4^3, 2^3
+    (JAX's plan_relax order).  error_linf < 50 h^2, finite residuals,
+    exactly `fas_launches` and no other kernel; ms per step and
+    DOF-updates/s eager and as one CUDA graph; the same step with the
+    resident kernel's levels on the half-sweeps (all of them, and 64^3
+    alone), bitwise the same solution, eager and graph ms; the
+    correction-scheme solve of the same schedule (fused subtree on the
+    roots of 64^3 and below): |error_linf - FAS's| < 1e-5; and the float64
+    FAS solve on the plain tier (`dtype="float64"`): under 50 h^2, its gap
+    to the f32 solve reported.  Returns (launch counts, summary)."""
+    from pde_multigrid_tpu_torch import MultigridSolver, Poisson3D
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
+    n = FAS_N
+    solver = MultigridSolver(Poisson3D(), n, _fas_cfg(), device="cuda")
+    tiers = solver.program.kernels.tiers
+    plan = ["timeskew", "half_sweep"] + ["merged_resident"] * 3 + [
+        "resident3d"] * 3
+    require(tiers == plan, f"fas {n}^3 plan {tiers}")
+    want = fas_launches(solver)
+    levels = solver.fresh_levels()
+    torch.cuda.synchronize()
+    reset_counts()
+    res = solver.solve(levels)
+    counts = read_counts()
+    h = solver.geoms[0].spacing[0]
+    tag = f"fas {n}^3 FMG{FAS_NUS} relax-coarsest"
+    log(f"{tag}: levels {[g.padded_shape[0] for g in solver.geoms]}, plan "
+        f"{tiers}, error_linf {res.error_linf!r} (limit 50 h^2 = "
+        f"{50 * h * h!r}), residual_l2 {res.residual_l2!r}, launches "
+        f"{counts}, the schedule's {want}")
+    _check_solve(torch, tag, res, solver, 50 * h * h, "fas257", want)
+    summary = {"n": n, "scheme": "fas", "nus": list(FAS_NUS),
+               "coarsest": "relax", "plan": tiers,
+               "error_linf": res.error_linf,
+               "residual_l2": res.residual_l2, "launches": want}
+    summary.update(time_step(torch, tag, solver, levels, 3, 2))
+    # the per-level A/B end to end: the resident kernel's levels relaxed
+    # by the half-sweeps (row 9) instead
+    for name, moved in (("row9_below_128", ("merged_resident",
+                                            "resident3d")),
+                        ("row9_at_64", ())):
+        alt = MultigridSolver(Poisson3D(), n, _fas_cfg(), device="cuda")
+        for l, g in enumerate(alt.geoms):
+            if tiers[l] in moved or (not moved and g.padded_shape[0] == 64):
+                alt.program.kernels._relax[l] = R.make_split_relax(
+                    alt.problem, g)
+        alt_res = alt.solve()
+        require(torch.equal(alt_res.v, res.v),
+                f"{tag}: {name} changes the solution")
+        lv = alt.fresh_levels()
+        step = lambda: alt.program.solve_step(lv)  # noqa: E731
+        FAS_AB[name] = {"eager": time_ms(torch, step, 3),
+                        "graph": device_ms(torch, step, 2)}
+        del alt, lv, alt_res
+    FAS_AB["plan"] = {"eager": summary["ms_per_step"],
+                      "graph": summary["graph_ms_per_step"]}
+    log(f"{tag}: ms per step, plan vs the half-sweeps on the resident "
+        f"kernel's levels (bitwise the same solution): {FAS_AB!r}")
+    cs = MultigridSolver(Poisson3D(), n, _fas_cfg("cs"), device="cuda")
+    res_cs = cs.solve()
+    d_cs = abs(res_cs.error_linf - res.error_linf)
+    log(f"{tag}: the correction scheme's error_linf {res_cs.error_linf!r}, "
+        f"|difference| {d_cs!r} (limit 1e-5)")
+    require(d_cs < 1e-5, f"{tag}: FAS is not the correction scheme")
+    summary["error_linf_cs"] = res_cs.error_linf
+    del cs, res_cs
+    s64 = MultigridSolver(Poisson3D(), n, _fas_cfg(dtype="float64"),
+                          device="cuda")
+    require(type(s64.program.kernels).__name__ == "TorchKernels",
+            f"{tag} float64: not the plain tier")
+    r64 = s64.solve()
+    m = s64.fresh_levels()[0].aux["m_int"]
+    dv = float(torch.max(torch.abs((res.v.to(torch.float64) - r64.v) * m)))
+    log(f"{tag} float64 (plain tier): error_linf {r64.error_linf!r}; the "
+        f"f32 solve's gap {abs(res.error_linf - r64.error_linf)!r}, "
+        f"max|v - v_float64| {dv!r}")
+    require(r64.error_linf < 50 * h * h, f"{tag} float64: error_linf "
+            f"{r64.error_linf!r}")
+    summary.update({"f64_error_linf": r64.error_linf,
+                    "max_abs_dv_vs_f64": dv, "ab_ms_per_step": FAS_AB})
+    del s64, r64
+    return counts, summary
 
 
 VARCOEF_N = 1025
@@ -2273,9 +2604,12 @@ def phase_preset3d(torch):
     FMG f-cascade and upward leg) and no other kernel.  Each step timed
     eager and as one CUDA graph; at 129^3 also the A/B of the fused
     subtree: two steps eager from fresh levels with the hooks on and off
-    (the same levels relaxed by the half-sweeps), the same solution bit
-    for bit, and the plan with the 64^3-rooted V-cycles unfused and the
-    roots below fused, eager and as one CUDA graph, bitwise the same too.
+    (the levels then relaxed by the plan: the half-sweeps on 128^3, the
+    whole-leg resident kernel below), the same solution bit for bit, and
+    the plan with the 64^3-rooted V-cycles unfused and the roots below
+    fused, its 64^3 level relaxed by the plan's kernel and by the
+    half-sweeps (row 9, as ROADMAP queue 2 item 13's baseline was first
+    measured), each eager and as one CUDA graph, bitwise the same too.
     Returns (129^3 launch counts, 257^3 launch counts, summaries)."""
     from pde_multigrid_tpu_torch import CycleConfig, MultigridSolver
     from pde_multigrid_tpu_torch import Poisson3D, SolverConfig
@@ -2363,11 +2697,30 @@ def phase_preset3d(torch):
             require(torch.equal(lv_alt[0].v, lv_on[0].v),
                     f"{tag}: the 64^3-unfused plan changes the solution")
             graph_alt = device_ms(torch, step, 1)
-            summary["plan_64_unfused_ms_per_step"] = {"eager": ms_alt,
-                                                      "graph": graph_alt}
+            # the same with the 64^3 level relaxed by the half-sweeps (row
+            # 9), the baseline's relax when it was first measured; the
+            # plan's kernel there is the whole-leg resident kernel
+            alt9 = MultigridSolver(Poisson3D(), n, SolverConfig(cycle=cyc),
+                                   device="cuda")
+            alt9.program.kernels._sub_v[l64] = None
+            alt9.program.kernels._relax[l64] = R.make_split_relax(
+                alt9.problem, geoms[l64])
+            lv9 = alt9.fresh_levels()
+            step9 = lambda: alt9.program.solve_step(lv9)  # noqa: E731
+            ms9 = time_ms(torch, step9, 1)
+            require(torch.equal(lv9[0].v, lv_on[0].v),
+                    f"{tag}: the 64^3-unfused plan on row 9 changes the "
+                    "solution")
+            graph9 = device_ms(torch, step9, 1)
+            summary["plan_64_unfused_ms_per_step"] = {
+                "eager": ms_alt, "graph": graph_alt,
+                "tier_64": alt.program.kernels.tiers[l64],
+                "row9_eager": ms9, "row9_graph": graph9}
             log(f"{tag}: the 64^3-rooted V-cycles unfused, the roots below "
-                f"fused: bitwise the same solution; {ms_alt!r} ms/step "
-                f"eager, {graph_alt!r} as one CUDA graph (the fused plan "
+                f"fused: bitwise the same solution; 64^3 relaxed by "
+                f"{alt.program.kernels.tiers[l64]}: {ms_alt!r} ms/step "
+                f"eager, {graph_alt!r} as one CUDA graph; by the half-sweeps "
+                f"(row 9): {ms9!r} eager, {graph9!r} graph (the fused plan "
                 f"{summary['graph_ms_per_step']!r})")
         summaries.append(summary)
     return all_counts[0], all_counts[1], summaries
@@ -2492,6 +2845,11 @@ def phase_rounding(torch, procs) -> dict:
 # the sharded solve's row: 257^3 FMG(2, 100, 100), exact coarsest, f32
 SHARD_N = 257
 SHARD_NUS = (2, 100, 100)
+# the sharded FAS row (ROADMAP queue 3 F3): small, so that over 2 and 4
+# ranks the coarse levels are replicated (4^3 and 2^3; 8^3 too over 4) and
+# the injection into them gathers the fine level
+SHARD_FAS_N = 65
+SHARD_FAS_NUS = (2, 20, 20)
 SHARD_RANKS = (2, 4)
 # phase 5's unsharded 257^3 f32 solve: (summary, solution v)
 UNSHARDED = {}
@@ -2654,8 +3012,10 @@ def sharded_launches(solver) -> dict:
     time-skew level each chunk of t sweeps is ceil(t / 2) launches and the
     leg splits v's black half and f and merges once; on a masked-block
     level each chunk is 2t launches; on a split2d level each chunk is one
-    launch and the leg splits v and f and merges once.  The transfers,
-    residuals and the exact coarse solve launch no kernel."""
+    launch and the leg splits v and f and merges once; a replicated 3D
+    level ("whole") relaxes by the single-device plan, here one resident
+    kernel launch a leg.  The transfers, residuals, FAS's injection and
+    the exact coarse solve launch no kernel."""
     from pde_multigrid_tpu_torch.ops.cuda import relax as R
 
     cyc = solver.config.cycle
@@ -2667,6 +3027,12 @@ def sharded_launches(solver) -> dict:
 
     for l, engine in enumerate(kern.plan):
         if engine is None:
+            continue
+        if engine == "whole":
+            tier = kern._whole.tiers[l]
+            require(tier in ("merged_resident", "resident3d"),
+                    f"replicated level {l}: tier {tier}")
+            add(tier, 2 * cyc.nu0 * (l + 1))
             continue
         require(engine in ("timeskew", "masked-block", "split2d"),
                 f"level {l}: engine {engine}, not a sharded one")
@@ -2767,11 +3133,23 @@ def phase_sharded(torch):
 def _sharded_row(row: str):
     """(problem, points per axis, config, error_linf limit) of the rank
     solves of a sharded row: "poisson3d", the 257^3 FMG(2, 100, 100) row,
-    or "lyapunov2d", 4097^2 at the reduced schedule SHARD2D_RANK_NUS."""
-    from pde_multigrid_tpu_torch import Lyapunov2D, Poisson3D
+    "poisson3d-fas", the FAS row SHARD_FAS_N^3 FMG(2, 20, 20) relaxed to
+    2^3, or "lyapunov2d", 4097^2 at the reduced schedule
+    SHARD2D_RANK_NUS."""
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        Lyapunov2D,
+        Poisson3D,
+        SolverConfig,
+    )
 
     if row == "poisson3d":
         return Poisson3D(), SHARD_N, _shard_cfg(), 50.0 / (SHARD_N - 1) ** 2
+    if row == "poisson3d-fas":
+        cfg = SolverConfig(cycle=CycleConfig("fmg", *SHARD_FAS_NUS,
+                                             scheme="fas", coarsest="relax"))
+        return (Poisson3D(), SHARD_FAS_N, cfg,
+                50.0 / (SHARD_FAS_N - 1) ** 2)
     return (Lyapunov2D(), LYAP_N, _lyap_cfg(SHARD2D_RANK_NUS),
             max(10.0 / (LYAP_N - 1), 5e-5))
 
@@ -2880,6 +3258,39 @@ def phase_sharded_ranks(torch, sha1: str, row: str = "poisson3d") -> dict:
                     p.kill()
                     p.wait()
     return out
+
+
+def phase_sharded_fas(torch):
+    """The sharded FAS row (ROADMAP queue 3 F3): SHARD_FAS_N^3 FMG(2, 20,
+    20), scheme="fas", coarsest relaxed, f32, `mesh=make_mesh(1)` in
+    process (every level split, so the masked block relaxes all of them):
+    error_linf < 50 h^2, exactly `sharded_launches` and no other kernel;
+    then over 2 and 4 gloo ranks (`phase_sharded_ranks`), where the
+    replicated coarse levels relax by the resident kernel and the FAS
+    injection into them gathers the fine level: every rank's launches,
+    rank 0's logical solution bitwise the one-rank solve's.  Returns
+    (launch counts, summary)."""
+    from pde_multigrid_tpu_torch import MultigridSolver
+    from pde_multigrid_tpu_torch.parallel.mesh import make_mesh
+
+    prob, n, cfg, limit = _sharded_row("poisson3d-fas")
+    solver = MultigridSolver(prob, n, cfg, device="cuda", mesh=make_mesh(1))
+    kern = solver.program.kernels
+    want = sharded_launches(solver)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = solver.solve()
+    counts = read_counts()
+    tag = f"sharded fas {n}^3 --mesh 1"
+    log(f"{tag}: plan {kern.plan}, error_linf {res.error_linf!r} (limit "
+        f"{limit!r}), launches {counts}, the schedule's {want}")
+    _check_solve(torch, tag, res, solver, limit, "sharded_fas", want)
+    summary = {"sharded": n, "scheme": "fas", "nus": list(SHARD_FAS_NUS),
+               "ranks": 1, "plan": kern.plan, "error_linf": res.error_linf,
+               "launches": want}
+    summary["ranks_2_4"] = phase_sharded_ranks(
+        torch, _sha_logical(res.v, n), "poisson3d-fas")
+    return counts, summary
 
 
 # the sharded 2D Lyapunov row: the path's schedule on one rank, a reduced
@@ -3104,6 +3515,8 @@ def main() -> int:
                              torch))
         results.update(timed("kernels_subtree", phase_kernels_subtree,
                              torch))
+        results.update(timed("kernels_resident3d", phase_kernels_resident3d,
+                             torch))
         results.update(timed("kernels_shard", phase_kernels_shard, torch))
         results.update(timed("kernels2d", phase_kernels2d, torch))
         summaries, counts = [], {}
@@ -3126,10 +3539,15 @@ def main() -> int:
         ssh["ranks_2_4"] = timed("sharded_ranks", phase_sharded_ranks, torch,
                                  sha1)
         summaries.append(ssh)
+        counts["sharded_fas"], ssf = timed("sharded_fas", phase_sharded_fas,
+                                           torch)
+        summaries.append(ssf)
         counts["preset129"], counts["preset257"], spre = timed(
             "preset3d", phase_preset3d, torch)
         summaries += [*spre, timed("preset3d", phase_subtree_identity,
                                    torch)]
+        counts["fas257"], sfas = timed("fas3d_257", phase_fas3d_257, torch)
+        summaries.append(sfas)
         counts["lyapunov"], sly, vly = timed("lyapunov", phase_lyapunov,
                                              torch)
         timed("lyapunov", phase_f64_reference, torch, Lyapunov2D(), LYAP_N,
@@ -3192,12 +3610,17 @@ def main() -> int:
     # from the varcoef2d 1025^2 solve; the subtree kernel's and rows 23
     # and 24's from the --preset poisson3d solve; the per-shard chunks'
     # from the sharded solves: rows 6 and 12 the 257^3 one, row 17 the
-    # 4097^2 Lyapunov one, each over one rank)
+    # 4097^2 Lyapunov one, each over one rank; the whole-leg 3D resident
+    # kernel's from the FAS 257^3 solve, where its halves mode, which no
+    # plan selects (as in JAX), launches 0 times)
+    off_path = {"split_merged": "fas257"}
+
     def path_of(name):
-        return next(p for p in ("ode1d", "lyapunov", "hjb", "varcoef",
-                                "mixed", "f32", "f32_257", "f32_513",
-                                "preset129", "sharded257", "sharded_lyap")
-                    if name in PATHS[p])
+        return off_path.get(name) or next(
+            p for p in ("ode1d", "lyapunov", "hjb", "varcoef", "mixed",
+                        "f32", "f32_257", "f32_513", "preset129", "fas257",
+                        "sharded257", "sharded_lyap")
+            if name in PATHS[p])
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3208,6 +3631,7 @@ def main() -> int:
     log(json.dumps({"card": card, "main_path": summaries,
                     "barrier_floors": FLOORS, "timeskew_ab": TIMESKEW_AB,
                     "subtree_ab": SUBTREE_AB, "shard2d_ab": SHARD2D_AB,
+                    "resident3d_ab": RESIDENT3D_AB, "fas_ab": FAS_AB,
                     "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

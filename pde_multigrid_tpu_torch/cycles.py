@@ -146,6 +146,12 @@ class TorchKernels:
         """Level l's field `arr`, whole."""
         return arr
 
+    def inject(self, l: int, v, coarse_shape):
+        """Level l's iterate injected into level l + 1's points (FAS):
+        `stencil.inject`, a strided view of `v` where no fitting is
+        needed."""
+        return stencil.inject(v, coarse_shape)
+
 
 class CycleProgram:
     """The configured cycles as functions over a level list."""
@@ -266,11 +272,12 @@ class CycleProgram:
             rc = self.kernels.restrict(
                 l, r, coarse.aux["m_int"], coarse.aux["m_log"]
             )
-            # v0c is a strided view of fine.v, which keeps the injected
-            # values through the coarse visit; its contiguous copy (what
-            # the tier's kernels take) becomes the coarse iterate, which
-            # relaxation updates in place
-            v0c = stencil.inject(fine.v, coarse.v.shape)
+            # v0c may be a strided view of fine.v, which keeps the
+            # injected values through the coarse visit; its contiguous copy
+            # (what the tier's kernels take) becomes the coarse iterate,
+            # which relaxation updates in place.  A sharded tier injects
+            # the whole fine level into a replicated coarse one
+            v0c = self.kernels.inject(l, fine.v, coarse.v.shape)
             vc = v0c.clone(memory_format=torch.contiguous_format)
             # f_c = N_c(v0c) + R r on the interior: m_int * N_c(v) is
             # exactly -residual(v, 0)

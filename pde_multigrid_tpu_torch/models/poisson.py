@@ -150,6 +150,17 @@ class Poisson(ProblemBase):
             num = pair if num is None else num + pair
         return num * inv_den
 
+    def merged_update(self, v, f, shift, geom: LevelGeometry):
+        """The local solve of the whole-leg 3D resident kernel (the JAX
+        `Poisson.merged_update`, whose merged-layout kernel passes its
+        layout-aware `shift(a, axis, off)`): kernel_update's arithmetic and
+        operand order, with the shifts delegated to `shift`."""
+        w, inv_den = split_constants(geom)
+        num = -f
+        for ax, wa in enumerate(w):
+            num = num + (shift(v, ax, -1) + shift(v, ax, +1)) * wa
+        return num * inv_den
+
     def split_update(self, pairs, f, geom: LevelGeometry):
         """Local solve on color-split storage: `pairs[ax]` is the
         (v_minus + v_plus) neighbor pair sum along axis `ax`, gathered

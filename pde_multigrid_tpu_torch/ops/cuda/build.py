@@ -95,6 +95,9 @@ SIGNATURES = {
     # the fused subtree V-cycle takes its levels as a pointer to a host
     # struct (subtree.SubtreeParams)
     "pdemg_subtree": (_P, _P, _P, _P),
+    # the whole-leg 3D resident kernel: v (or its halves r, b), f (or fr,
+    # fb) and a pointer to a host struct (resident3d.Resident3DParams)
+    "pdemg_resident3d": (_P, _P, _P, _P, _P, _P),
 }
 
 

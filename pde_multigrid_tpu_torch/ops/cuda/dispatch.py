@@ -6,13 +6,26 @@ with the hand-written kernels.
 
 3D Poisson, wrap storage:
 
-  * relax: the color-split red-black sweep (`ops/cuda/relax.py`) on every
-    3D wrap level with even extents that the cycle relaxes: the
-    time-skewed wavefront (`relax.TIMESKEW_T` sweeps per launch) on the
-    levels JAX's `timeskew_plan` gives it (`relax.timeskew_plan`: a
-    half-plane of at least 16384 points, so 256^3 and 512^3), one launch
-    per half-sweep below (128^3 and smaller, where JAX keeps its slab
-    kernel).  With
+  * relax: every 3D wrap level with even extents that the cycle relaxes,
+    in the order of JAX's `plan_relax` (relax.py:3889-3990):
+      - the whole-leg resident kernel (`ops/cuda/resident3d.py`, one
+        launch per leg) on the levels of JAX's merged gate (Z < 128,
+        Y Z % 128 == 0: 64^3, 32^3, 16^3) that it holds, as
+        `make_merged_resident_relax` (row 4);
+      - the same kernel's one-CTA mode on the other levels one CTA holds
+        (8^3, 4^3, 2^3), as `make_resident_relax` (row 1), whose resident
+        tier JAX tries before the wavefront;
+      - the time-skewed wavefront (`relax.TIMESKEW_T` sweeps per launch)
+        on the levels JAX's `timeskew_plan` gives it
+        (`relax.timeskew_plan`: a half-plane of at least 16384 points, so
+        256^3 and 512^3);
+      - the color-split half-sweeps (`ops/cuda/relax.py`, one launch per
+        half-sweep) on the rest (128^3, where JAX keeps its slab kernel,
+        and any even level the other tiers do not hold).
+    In the correction scheme the fused subtree (below) claims the V-cycles
+    rooted at 64^3 and below before any of their legs, so the resident
+    kernel relaxes them only where no subtree is planned: the FAS scheme,
+    the exact coarsest, or a tier built without the cycle.  With
     `mixed` (precision="mixed"), legs of at least `min_sweeps` sweeps take
     the bf16 defect correction (`ops/cuda/defect.py`) instead on every
     level, shorter legs the level's float32 relax, as the JAX
@@ -115,6 +128,7 @@ from pde_multigrid_tpu_torch.ops.cuda import relax as relax_mod
 from pde_multigrid_tpu_torch.ops.cuda import relax1d as relax1d_mod
 from pde_multigrid_tpu_torch.ops.cuda import relax2d as relax2d_mod
 from pde_multigrid_tpu_torch.ops.cuda import resident as resident_mod
+from pde_multigrid_tpu_torch.ops.cuda import resident3d as resident3d_mod
 from pde_multigrid_tpu_torch.ops.cuda import slab2d as slab_mod
 from pde_multigrid_tpu_torch.ops.cuda import subtree as subtree_mod
 from pde_multigrid_tpu_torch.ops.cuda import transfer as transfer_mod
@@ -155,6 +169,25 @@ def _split2d_ok(g) -> bool:
             and g.padded_shape[1] // 2 >= SPLIT2D_MIN_Y2)
 
 
+def _relax3d(problem, g):
+    """(tier, relax(v, f, nsweeps) -> v) of a 3D wrap level with even
+    extents, in the order of JAX's `plan_relax` (relax.py:3889-3990);
+    the tier is the name of the kernel's launch counter."""
+    if resident3d_mod.merged_gate(g) and resident3d_mod.fits(g):
+        fn, tier = resident3d_mod.merged_resident_relax, "merged_resident"
+    elif resident3d_mod.one_cta(g):
+        fn, tier = resident3d_mod.resident3d_relax, "resident3d"
+    elif relax_mod.timeskew_plan(g):
+        return "timeskew", relax_mod.make_timeskew_relax(problem, g)
+    else:
+        return "half_sweep", relax_mod.make_split_relax(problem, g)
+
+    def relax(v, f, nsweeps):
+        return fn(v, f, nsweeps, problem, g)
+
+    return tier, relax
+
+
 def _not_planned(what: str, item: str = "queue 2") -> NotImplementedError:
     return NotImplementedError(
         f"{what}: the CUDA tier serves 3D wrap-storage Poisson, padded 2D "
@@ -183,6 +216,9 @@ class CudaKernels(TorchKernels):
         n = len(self.geoms)
         relaxed = range(n) if relaxed_levels is None else relaxed_levels
         self._relax = [None] * n
+        # per relaxed 3D level, the launch counter of the kernel that
+        # relaxes it in float32 (the plan the tests pin)
+        self.tiers = [None] * n
         self._defect = [None] * n
         self._split = [False] * n
         for l in relaxed:
@@ -204,10 +240,7 @@ class CudaKernels(TorchKernels):
                                   if resident_mod.hjb_ctas(g)
                                   else self._relax_slab)
             elif not lyap and _level_ok(g):
-                self._relax[l] = (
-                    relax_mod.make_timeskew_relax(problem, g)
-                    if relax_mod.timeskew_plan(g)
-                    else relax_mod.make_split_relax(problem, g))
+                self.tiers[l], self._relax[l] = _relax3d(problem, g)
             else:
                 raise _not_planned(f"relax on level {g}")
             if mixed:

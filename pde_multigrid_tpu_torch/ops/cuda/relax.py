@@ -204,6 +204,16 @@ def half_sweep_plain(u, w, fu, color: int, problem, geom: LevelGeometry):
     return u
 
 
+def relax_halves_plain(r, b, fr, fb, nsweeps: int, problem,
+                       geom: LevelGeometry):
+    """`nsweeps` red-then-black `half_sweep_plain` sweeps, in place on r
+    and b: relax_halves' plain version, on any device."""
+    for _ in range(nsweeps):
+        half_sweep_plain(r, b, fr, RED, problem, geom)
+        half_sweep_plain(b, r, fb, BLACK, problem, geom)
+    return r, b
+
+
 def error_half_sweep_plain(eu, ew, ru, color: int, problem,
                            geom: LevelGeometry, v_zero: bool = False):
     """One half-sweep of the error equation A e = r, written into `eu`:
@@ -321,10 +331,7 @@ def relax_halves(r, b, fr, fb, nsweeps: int, problem, geom: LevelGeometry):
     2*nsweeps launches, the operands checked once."""
     _check_sweep_args(b, r, fb, geom)
     if not _check_sweep_args(r, b, fr, geom):
-        for _ in range(nsweeps):
-            half_sweep_plain(r, b, fr, RED, problem, geom)
-            half_sweep_plain(b, r, fb, BLACK, problem, geom)
-        return r, b
+        return relax_halves_plain(r, b, fr, fb, nsweeps, problem, geom)
     _check_poisson(problem)
     X, Y2, Z = r.shape
     (w0, w1, w2), inv_den = split_constants(geom)

@@ -16,6 +16,8 @@ wraps it) and runs on the rank's own rows:
   * restriction: coarse rows [c0, c1) from the fine window [2 c0 - 1,
     2 c1); into a replicated coarse level the whole op on the gathered
     fine level;
+  * FAS injection: the rank's own planes into a sharded coarse level
+    (wrap shards nest); into a replicated one, the gathered fine level;
   * prolongation: fine rows [F0, F1) from the coarse window [F0 // 2,
     (F1 - 1) // 2 + 2) (from the whole coarse level where it is
     replicated), and on padded levels the zero rows the unsharded op's
@@ -222,6 +224,14 @@ class ShardedKernels(TorchKernels):
         if m_log_coarse is not None:
             out = out * m_log_coarse
         return out
+
+    def inject(self, l, v, coarse_shape):
+        # shards of wrap levels nest (x_loc even): a sharded coarse level
+        # takes the injection of the rank's own planes; a replicated one
+        # the whole fine level's, gathered first as `restrict` does
+        if self.sharded[l] and not self.sharded[l + 1]:
+            v = self.mesh.all_gather(v)
+        return super().inject(l, v, coarse_shape)
 
     def prolong(self, l_fine, arr):
         if not self.sharded[l_fine]:

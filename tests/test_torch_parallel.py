@@ -12,9 +12,9 @@ unsharded solve, on the CPU.
     the masked block; full chunks and a remainder chunk;
   * whole FMG solves over 1, 2, 4 and 8 shards in one process, bitwise
     the port's unsharded plain solve (correction scheme, relaxed and exact
-    coarsest);
+    coarsest; FAS, relaxed coarsest);
   * whole solves over 2 and 4 gloo processes (each importing torch and the
-    port only) against JAX's sharded solve on its 8-device CPU mesh (rtol
+    port only), in the correction scheme and in FAS, each against JAX's sharded solve on its 8-device CPU mesh (rtol
     2e-5, atol 2e-6 and error_linf within 1e-6, as
     tests/test_parallel.py:185-203) and bitwise against the port's
     one-rank solve; the CLI over `--distributed`, where rank 0 alone
@@ -60,6 +60,8 @@ DOM = ((0.0, 1.0),) * 3
 FMG = SolverConfig(cycle=CycleConfig("fmg", 1, 2, 2), max_cycles=2, tol=0.0)
 EXACT = SolverConfig(cycle=CycleConfig("fmg", 2, 5, 5, coarsest="exact"),
                      max_cycles=2, tol=0.0)
+FAS = SolverConfig(cycle=CycleConfig("fmg", 1, 2, 2, scheme="fas"),
+                   max_cycles=2, tol=0.0)
 
 
 class Ring:
@@ -242,11 +244,15 @@ def test_masked_block_engine_composes_bitwise(size, n, T):
 # ---------------------------------------------------------- whole solves
 
 
-@pytest.mark.parametrize("cfg", [FMG, EXACT], ids=["relax", "exact"])
+@pytest.mark.parametrize("cfg", [FMG, EXACT, FAS],
+                         ids=["relax", "exact", "fas"])
 def test_solves_over_shards_equal_the_unsharded_solve(cfg):
     """FMG over 1, 2, 4 and 8 shards in one process: v (gathered), the
     residual history to float32 rounding of the summed norms, and
-    error_linf exactly as the unsharded plain solve's; v bitwise."""
+    error_linf exactly as the unsharded plain solve's; v bitwise.  In
+    the FAS scheme the injection into a replicated coarse level takes the
+    whole fine level (ROADMAP queue 3 F3: each rank injected its own
+    planes only)."""
     single = MultigridSolver(Poisson3D(), 33, cfg,
                              device="cpu").solve_to_tolerance()
     for n in (1, 2, 4, 8):
@@ -270,9 +276,11 @@ from pde_multigrid_tpu_torch import CycleConfig, MultigridSolver, SolverConfig
 from pde_multigrid_tpu_torch.models import Poisson3D
 from pde_multigrid_tpu_torch.parallel.mesh import make_mesh
 addr, n, rank, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+scheme = sys.argv[5]
 dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=n,
                         rank=rank)
-cfg = SolverConfig(cycle=CycleConfig("fmg", 1, 2, 2), max_cycles=2, tol=0.0)
+cfg = SolverConfig(cycle=CycleConfig("fmg", 1, 2, 2, scheme=scheme),
+                   max_cycles=2, tol=0.0)
 s = MultigridSolver(Poisson3D(), 33, cfg, device="cpu",
                     mesh=make_mesh(n, device="cpu"))
 r = s.solve_to_tolerance()
@@ -299,23 +307,38 @@ def test_gloo_ranks_match_jax_and_the_one_rank_solve(tmp_path, monkeypatch):
     does at this size (the half-plane gate); its interpret mode would
     otherwise drop its hardware gate and take the time-skew engine
     (PDE_MG_SHARD_TIMESKEW, parallel/halo.py:103-130)."""
+    _gloo_case(tmp_path, monkeypatch, FMG)
+
+
+def test_gloo_fas_ranks_match_jax_and_the_one_rank_solve(tmp_path,
+                                                         monkeypatch):
+    """The same in FAS (ROADMAP queue 3 F3): the injection into the
+    replicated coarse levels (5^3 and 3^3 over 2 ranks, 9^3 too over 4)
+    takes the gathered fine level, so rank 0's v is bitwise the one-rank
+    solve's, and within JAX's tolerance of its sharded FAS solve."""
+    _gloo_case(tmp_path, monkeypatch, FAS)
+
+
+def _gloo_case(tmp_path, monkeypatch, cfg):
     monkeypatch.setenv("PDE_MG_SHARD_TIMESKEW", "0")
     procs = {}
     for n in (2, 4):
         addr = f"localhost:{_free_port()}"
         procs[n] = [subprocess.Popen(
             [sys.executable, "-c", _RANK, addr, str(n), str(r),
-             str(tmp_path / f"v{n}.npy")], stdout=subprocess.PIPE,
+             str(tmp_path / f"v{n}.npy"), cfg.cycle.scheme],
+            stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, env=_env()) for r in range(n)]
     try:
-        one = MultigridSolver(Poisson3D(), 33, FMG, device="cpu",
+        one = MultigridSolver(Poisson3D(), 33, cfg, device="cpu",
                               mesh=make_mesh(1, device="cpu"))
         r1 = one.solve_to_tolerance()
-        single = MultigridSolver(Poisson3D(), 33, FMG,
+        single = MultigridSolver(Poisson3D(), 33, cfg,
                                  device="cpu").solve_to_tolerance()
         assert torch.equal(r1.v, single.v)
         jax_res = {n: J.MultigridSolver(J.Poisson(3), 33, J.SolverConfig(
-            cycle=J.CycleConfig("fmg", 1, 2, 2), max_cycles=2, tol=0.0),
+            cycle=J.CycleConfig("fmg", 1, 2, 2, scheme=cfg.cycle.scheme),
+            max_cycles=2, tol=0.0),
             mesh=jmesh.make_mesh(n)).solve_to_tolerance() for n in procs}
         for n, group in procs.items():
             rows = []

@@ -35,6 +35,7 @@ from pde_multigrid_tpu_torch.grid import to_logical
 from pde_multigrid_tpu_torch.models import Poisson as TPoisson
 from pde_multigrid_tpu_torch.ops.cuda import defect as D
 from pde_multigrid_tpu_torch.ops.cuda import relax as R
+from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
 from pde_multigrid_tpu_torch.ops.cuda.dispatch import CudaKernels
 from pde_multigrid_tpu_torch.utils.convert import levels_from_numpy
 
@@ -321,13 +322,16 @@ def test_mixed_plan_keeps_the_defect_path():
 def test_fmg_slice_through_the_wavefront_matches_jax(monkeypatch):
     """FMG(1,4,4), exact coarsest, at 33^3 through CudaKernels on CPU
     tensors, with the gate lowered so that the 32^3 level takes the
-    wavefront (its plain version: both of the level's legs), against
+    wavefront (its plain version: both of the level's legs; the whole-leg
+    resident kernel, which JAX's plan order puts first, given no shared
+    memory so that it holds no level), against
     JAX's backend="jnp" solve from the same levels.  Tolerances: the
     logical solution within 1e-5 of max|v| (a few float32 ulp: the where
     form and the blend form round differently), error_linf to 1e-4
     relative, the residual history to 1e-3 relative (the float32 exact
     coarse solve sums in another order, tests/test_torch_solver.py)."""
     monkeypatch.setattr(R, "TIMESKEW_MIN_PLANE", 16 * 32)
+    monkeypatch.setattr(RS3, "MAX_SMEM_BYTES", 0)
     calls = []
     plain = R.timeskew_sweeps_plain
 
