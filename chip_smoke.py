@@ -175,6 +175,28 @@ Phases, in order; any failure exits non-zero without the final result line:
      replicated coarse levels on the resident kernel, the injection into
      them gathered), rank 0's logical solution bitwise the one-rank
      solve's.
+ 15. the two kernels JAX plans only behind a switch, each on its path
+     (the switch set for the phase and restored after it): after the 3D
+     resident kernel, the blocked 3D kernel (blocked3d.cu, row 19)
+     bitwise against row 9's half-sweep chain and its plain version on
+     small and odd-tiled wrap levels at T = 1-4 and over 100-sweep legs
+     at 256^3 (T = 1, 2, 4) and 512^3 (T = 1), a T = 1 launch timed
+     beside its plain version and the legs beside row 9's chain and the
+     wavefront; after the 257^3 f32 main path, the same solve with
+     PDE_MG_TIMESKEW=0: error_linf < 50 h^2, exactly the schedule's
+     launches (row 19 on 256^3, the half-sweeps on 128^3, no wavefront),
+     against the wavefront solve (bitwise, or error_linf within 1 %),
+     eager and graph ms per step; after the 2D kernels, the reduced-system
+     kernel (reduced2d.cu, row 18) bitwise its plain version at 33^2,
+     65^2, 513^2 (T = 16, 5) and at 4097^2 and 2049^2 in chunks of
+     T = 8, 1, 3 with and without f, bitwise its plain version and within
+     JAX's test tolerance of row 16's chain, the T = 8 chunk timed beside
+     its plain version and row 16's 16 half-sweeps; after phase 6, the
+     4097^2 Lyapunov solve with the reduced opt-in on
+     (dispatch.SPLIT2D_REDUCED): the bench's gate, error_linf within 1 %
+     of phase 6's and max|v - v_row16| under 10 % of it, exactly the
+     schedule's launches (`reduced_launches`; no half_sweep2d), eager and
+     graph ms per step.
 
 Every float64 reference but phase 11's is a `MultigridSolver(...,
 dtype="float64", device="cuda")` solve: the plain tier on the card.  Each phase's seconds
@@ -345,6 +367,17 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/resident3d.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:143",
     ),
+    # the two kernels JAX plans only behind a switch: the reduced-system
+    # kernel under PDE_MG_SPLIT2D_REDUCED=1 (2D Lyapunov), the blocked 3D
+    # kernel under PDE_MG_TIMESKEW=0 (256^3, 512^3)
+    "reduced2d": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/reduced2d.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:3137",
+    ),
+    "blocked3d": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/blocked3d.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:3439",
+    ),
 }
 # the levels (halves shapes) whose wavefront launches each record counts
 TIMESKEW_LEVELS = {"timeskew": (256, 128, 256), "timeskew_jb": (512, 256, 512)}
@@ -395,6 +428,12 @@ PATHS = {
     # slab chunk, its v and f split and merged once per leg; the transfers
     # and residuals are the plain ops (JAX's jnp under GSPMD)
     "sharded_lyap": ("split2d", "merge2d", "color_slab2d_shard"),
+    # 4097^2 Lyapunov with the reduced opt-in: row 18 on 4097^2 ... 513^2,
+    # each leg's v (and f) split and merged, the resident kernel below
+    "lyapunov_reduced": ("split2d", "merge2d", "reduced2d", "resident"),
+    # 257^3 f32 with the wavefront off: row 19 on 256^3, the half-sweeps on
+    # 128^3
+    "f32_257_blocked": (*F32_3D, "blocked3d"),
 }
 
 # per-sweep barrier floors of the whole-leg kernels, measured on the
@@ -468,6 +507,14 @@ def bound(nbytes: float, ops: float) -> dict:
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def updated_points(shape) -> int:
+    """The points a red-black sweep of a 3D wrap level (or of a shard's
+    owned planes, x = 0 first) updates: x, y, z >= 1 (the planes 0 are the
+    boundary, never updated)."""
+    X, Y, Z = shape
+    return (X - 1) * (Y - 1) * (Z - 1)
 
 
 def take_index(torch, fn, *shapes):
@@ -630,11 +677,11 @@ def phase_kernels(torch):
         torch, lambda: R.relax_halves(t_r, t_b, fr, fb, 1, prob, gf),
         plain_sweep, 25,
     )
-    # per half-sweep: u read and written, w and fu read; 13 operations a
-    # point (3 pair sums, 3 products and 3 sums, the negation, the scale,
-    # the blend's difference and sum)
+    # per half-sweep: u read and written, w and fu read; 13 operations an
+    # updated point of the colour (3 pair sums, 3 products and 3 sums, the
+    # negation, the scale, the blend's difference and sum)
     record("half_sweep", err, {k: x / 2 for k, x in t.items()},
-           4 * r.nbytes, 13 * r.numel())
+           4 * r.nbytes, 13 * updated_points(gf.padded_shape) / 2)
 
     # residual: bitwise
     k = T.residual(v, f, prob, gf)
@@ -817,12 +864,13 @@ def phase_kernels_timeskew(torch):
             "half_sweeps": R.make_split_relax(prob, g),
             "defect": D.plan_defect_relax(prob, g, torch.float32)})
         # the leg reads b, fr and fb once and writes r and b once; per
-        # sweep and halves point 2 updates of 13 operations (3 pair sums,
-        # 3 products and 3 sums, the negation, the scale, the select)
+        # sweep and updated point 13 operations (3 pair sums, 3 products
+        # and 3 sums, the negation, the scale, the select)
         nl = -(-nsw // T)
         out[name] = {"max_abs_err": err, "ms": t["ms"],
                      "plain_ms": t["plain_ms"],
-                     **bound(5 * fr.nbytes, nsw * 2 * 13 * fr.numel()),
+                     **bound(5 * fr.nbytes,
+                             nsw * 13 * updated_points(g.padded_shape)),
                      "library_ms": None}
         TIMESKEW_AB[f"{n - 1}^3"] = dense
         log(f"kernel {name} ({n - 1}^3, one {nsw}-sweep leg on halves, "
@@ -861,15 +909,17 @@ SUBTREE_AB = {}
 
 def _subtree_cost(geoms, nu1, nu2, with_root_relax):
     """(bytes, operations) of one fused call: the root's v read and
-    written and its f read; per point and sweep 13 operations (3 pair
-    sums, 3 products and 3 sums, the negation, the scale, the blend's
-    difference and sum) on every relaxed level, nu1 + nu2 sweeps each;
+    written and its f read; per updated point (x, y, z >= 1) and sweep 13
+    operations (3 pair sums, 3 products and 3 sums, the negation, the
+    scale, the blend's difference and sum) on every relaxed level,
+    nu1 + nu2 sweeps each;
     per fine point of each pair the residual (14: 2 c, per axis a
     difference, a sum and a product, 2 sums, f - L v, the mask) and the
     prolongation (10), per coarse point the weighting (53)."""
     pts = [g.padded_shape[0] * g.padded_shape[1] * g.padded_shape[2]
            for g in geoms]
-    relaxed = pts if with_root_relax else pts[1:]
+    upd = [updated_points(g.padded_shape) for g in geoms]
+    relaxed = upd if with_root_relax else upd[1:]
     ops = 13 * (nu1 + nu2) * sum(relaxed)
     ops += sum(24 * f + 53 * c for f, c in zip(pts, pts[1:]))
     return 3 * 4 * pts[0], ops
@@ -1407,8 +1457,10 @@ def phase_kernels1d(torch):
 
 
 def _counter_modules():
+    from pde_multigrid_tpu_torch.ops.cuda import blocked3d as BL
     from pde_multigrid_tpu_torch.ops.cuda import defect as D
     from pde_multigrid_tpu_torch.ops.cuda import masked_block as MB
+    from pde_multigrid_tpu_torch.ops.cuda import reduced2d as RD
     from pde_multigrid_tpu_torch.ops.cuda import relax as R
     from pde_multigrid_tpu_torch.ops.cuda import relax1d as R1
     from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
@@ -1419,7 +1471,7 @@ def _counter_modules():
     from pde_multigrid_tpu_torch.ops.cuda import subtree as ST
     from pde_multigrid_tpu_torch.ops.cuda import transfer as T
 
-    return (R, T, D, R2, RS, R1, SL, SO, ST, MB, RS3)
+    return (R, T, D, R2, RS, R1, SL, SO, ST, MB, RS3, RD, BL)
 
 
 def reset_counts() -> None:
@@ -1632,6 +1684,363 @@ def phase_lyapunov(torch):
     v = res.v.clone()
     summary.update(time_step(torch, tag, solver, levels, 2, 1))
     return counts, summary, v
+
+
+# the reduced-system kernel (row 18) against its plain version and row
+# 16's chain; the blocked 3D kernel (row 19) against row 9's chain (ms,
+# printed with the summaries)
+REDUCED_AB = {}
+BLOCKED_AB = {}
+# JAX's test tolerance of the reduced kernel against dense red-black
+# sweeps (tests/test_pallas.py:791-815): the precomputed coefficient
+# products reassociate the arithmetic
+REDUCED_RTOL, REDUCED_ATOL = 2e-5, 2e-6
+
+
+def phase_kernels_reduced2d(torch):
+    """The reduced-system kernel (csrc/reduced2d.cu) bitwise against its
+    plain version on random halves of 33^2, 65^2 and 513^2 at T = 16 and 5
+    (tiles past the level), then at 4097^2 and 2049^2,
+    on halves of random dense levels: chunks of T = 8 (the path's T at both
+    levels), 1 and 3 (a remainder), each with and without f, bitwise
+    against its plain version and within JAX's test tolerance of row 16's
+    half-sweep chain over the same sweeps.  At 4097^2 the f-less T = 8
+    chunk is timed beside its plain version and beside the 16 half-sweep
+    launches of the same 8 sweeps.  Returns {"reduced2d": that chunk's
+    record}."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.models import Lyapunov2D
+    from pde_multigrid_tpu_torch.ops.cuda import reduced2d as RD
+    from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
+
+    dev = torch.device("cuda")
+    prob = Lyapunov2D()
+    rng = np.random.default_rng(2031)
+    out = {}
+    small = (33, 65, 513)
+    for n in small:  # tiles past the level's rows and slots, T = 16 and 5
+        g = build_geometries((n, n), prob.domain, 1)[0]
+        r, b, fr, fb = (torch.tensor(rng.standard_normal(
+            (n, (n + 1) // 2)).astype(np.float32), device=dev)
+            for _ in range(4))
+        ko = (torch.empty_like(r), torch.empty_like(b))
+        for T in (16, 5):
+            for hf in ((fr, fb), (None, None)):
+                RD.reduced_chunk(r, b, *hf, T, prob, g, ko)
+                p = RD.reduced_slab2d_plain(r, b, *hf, T, prob, g)
+                require(all(map(torch.equal, ko, p)),
+                        f"reduced2d {n}^2 T={T} with f: {hf[0] is not None}"
+                        " not bitwise")
+    log(f"kernel reduced2d ({small} squared, random halves, T = 16, 5, with "
+        "and without f): bitwise against its plain version")
+    for n in (4097, 2049):
+        g = build_geometries((n, n), prob.domain, 1)[0]
+        require(RD.chunk_sweeps(g) == 8, f"{n}^2: JAX's ladder gives T = "
+                f"{RD.chunk_sweeps(g)}, not 8")
+        v, f = (torch.tensor(rng.standard_normal((n, n)).astype(np.float32),
+                             device=dev) for _ in range(2))
+        r, b = R2.to_halves(v)
+        fr, fb = R2.to_halves(f)
+        ko = (torch.empty_like(r), torch.empty_like(b))
+        errs, rels = [], []
+        for T in (8, 1, 3):
+            for hf in ((fr, fb), (None, None)):
+                RD.reduced_chunk(r, b, *hf, T, prob, g, ko)
+                p = RD.reduced_slab2d_plain(r, b, *hf, T, prob, g)
+                err = max(_max_err(torch, a, c) for a, c in zip(ko, p))
+                require(all(map(torch.equal, ko, p)),
+                        f"reduced2d {n}^2 T={T} with f: {hf[0] is not None}"
+                        f" not bitwise: max diff {err!r}")
+                cr, cb = r.clone(), b.clone()
+                R2.relax_halves2d(cr, cb, *hf, T, prob, g)
+                for a, c in zip(ko, (cr, cb)):
+                    excess = torch.abs(a - c) - (
+                        REDUCED_ATOL + REDUCED_RTOL * torch.abs(c))
+                    rels.append(float(torch.max(excess)))
+                errs.append(err)
+        require(max(rels) <= 0.0, f"reduced2d {n}^2: outside rtol "
+                f"{REDUCED_RTOL} / atol {REDUCED_ATOL} of row 16's chain "
+                f"(max excess {max(rels)!r})")
+        log(f"kernel reduced2d ({n}^2, chunks of T = 8, 1, 3, with and "
+            f"without f): bitwise against its plain version; within rtol "
+            f"{REDUCED_RTOL} / atol {REDUCED_ATOL} of row 16's half-sweep "
+            f"chain (largest |diff| - tol: {max(rels)!r})")
+        if n != 4097:
+            continue
+        t = paired_times(
+            torch, lambda: RD.reduced_chunk(r, b, None, None, 8, prob, g, ko),
+            lambda: RD.reduced_slab2d_plain(r, b, None, None, 8, prob, g), 3)
+        cr, cb = r.clone(), b.clone()
+        chain = device_ms(
+            torch, lambda: R2.relax_halves2d(cr, cb, None, None, 8, prob, g),
+            3)
+        # r and b read once and written once (f-less); per interior black
+        # point and sweep 3 products, 3 sums and the mask fold (8), per
+        # interior black point and chunk about 80 for its fields and its
+        # red neighbour's rebuild (three coefficient evaluations, one
+        # division each)
+        out["reduced2d"] = {"max_abs_err": max(errs), "ms": t["ms"],
+                            "plain_ms": t["plain_ms"],
+                            **bound(4 * r.nbytes,
+                                    (8 * 8 + 80) * (n - 2) ** 2 / 2),
+                            "library_ms": None}
+        REDUCED_AB.update(chunk_t8_ms=t["ms"], half_sweep2d_8_sweeps_ms=chain,
+                          plain_ms=t["plain_ms"])
+        log(f"kernel reduced2d ({n}^2, one f-less T = 8 chunk): device "
+            f"{t['ms']!r} ms vs plain {t['plain_ms']!r} ms vs row 16's 16 "
+            f"half-sweeps {chain!r} ms (bound {out['reduced2d']['bound_ms']!r}"
+            f" ms by {out['reduced2d']['bound_by']}); eager {t['eager_ms']!r}"
+            f" ms vs plain {t['eager_plain_ms']!r} ms")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_kernels_blocked3d(torch):
+    """The blocked 3D kernel (csrc/blocked3d.cu) against row 9's
+    half-sweep chain (csrc/relax.cu), bitwise: on small and odd-tiled wrap
+    levels (halves (8, 4, 8), (10, 6, 14), (48, 40, 72), 64^3) over
+    nu = 5 at T = 1-4 (partial tiles, tiles holding a point twice, a
+    remainder launch); at 256^3 a 100-sweep leg at T = 1, 2, 4, also
+    bitwise its plain version; at 512^3 a 100-sweep leg at T = 1 (the
+    plain version on a 4-sweep leg).  Timed: one T = 1 launch at 256^3
+    beside its plain version, and the 100-sweep legs on halves at 256^3
+    and 512^3 beside row 9's chain and the wavefront's.  Returns
+    {"blocked3d": the 256^3 launch's record}."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.models import Poisson3D
+    from pde_multigrid_tpu_torch.ops.cuda import blocked3d as BL
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
+    dev = torch.device("cuda")
+    prob = Poisson3D()
+    rng = np.random.default_rng(2033)
+    out = {}
+
+    def halves(g):
+        X, Y, Z = g.padded_shape
+        return [torch.tensor(rng.standard_normal((X, Y // 2, Z)).astype(
+            np.float32), device=dev) for _ in range(4)]
+
+    def check(g, hv, ns, T, plain=True):
+        k = BL.blocked_relax_halves(*hv, ns, prob, g, T=T)
+        c = [a.clone() for a in hv[:2]]
+        R.relax_halves(*c, *hv[2:], ns, prob, g)
+        err = max(_max_err(torch, a, e) for a, e in zip(k, c))
+        require(all(map(torch.equal, k, c)),
+                f"blocked3d {tuple(hv[0].shape)} nu={ns} T={T} not bitwise "
+                f"row 9's chain: max diff {err!r}")
+        if plain:
+            p = [a.clone() for a in hv[:2]]
+            for s in range(0, ns, T):
+                p = BL.blocked_slab3d_plain(*p, *hv[2:], min(T, ns - s),
+                                            prob, g)
+            require(all(map(torch.equal, k, p)),
+                    f"blocked3d {tuple(hv[0].shape)} nu={ns} T={T} not "
+                    "bitwise its plain version")
+        return err
+
+    small = ((9, 9, 9), (11, 13, 15), (49, 81, 73), (65, 65, 65))
+    for shape in small:
+        g = build_geometries(shape, prob.domain, 1, wrap=True)[0]
+        hv = halves(g)
+        for T in (1, 2, 3, 4):
+            check(g, hv, 5, T)
+    log(f"kernel blocked3d: bitwise against row 9's chain and its plain "
+        f"version at nu = 5, T = 1-4, on the halves levels "
+        f"{[(s[0] - 1, (s[1] - 1) // 2, s[2] - 1) for s in small]}")
+    nsw = 100
+    for n in (257, 513):
+        g = build_geometries((n,) * 3, prob.domain, 1, wrap=True)[0]
+        require(BL.use_blocked(g), f"{n - 1}^3: not a row-19 level")
+        hv = halves(g)
+        ts = (1, 2, 4) if n == 257 else (1,)
+        err = max(check(g, hv, nsw, T, plain=n == 257) for T in ts)
+        if n == 513:
+            err = max(err, check(g, hv, 4, 1))
+        legs = {f"blocked_T{T}": device_ms(
+            torch, lambda T=T: BL.blocked_relax_halves(*hv, nsw, prob, g,
+                                                       T=T), 1) for T in ts}
+        c = [a.clone() for a in hv[:2]]
+        legs["half_sweeps"] = device_ms(
+            torch, lambda: R.relax_halves(*c, *hv[2:], nsw, prob, g), 1)
+        legs["wavefront"] = device_ms(
+            torch, lambda: R.timeskew_relax_halves(hv[1], *hv[2:], nsw, prob,
+                                                   g), 1)
+        BLOCKED_AB[f"{n - 1}^3"] = legs
+        log(f"kernel blocked3d ({n - 1}^3): bitwise row 9's chain over "
+            f"{nsw} sweeps at T = {ts}; {nsw}-sweep leg on halves, device "
+            f"ms: {legs!r}")
+        if n != 257:
+            continue
+        ko = (torch.empty_like(hv[0]), torch.empty_like(hv[1]))
+        t = paired_times(
+            torch, lambda: BL.blocked_chunk(*hv, 1, prob, g, ko),
+            lambda: BL.blocked_slab3d_plain(*hv, 1, prob, g), 10)
+        # r, b, fr and fb read once, r and b written once; 13 operations
+        # an updated point
+        out["blocked3d"] = {"max_abs_err": err, "ms": t["ms"],
+                            "plain_ms": t["plain_ms"],
+                            **bound(6 * hv[0].nbytes,
+                                    13 * updated_points(g.padded_shape)),
+                            "library_ms": None}
+        log(f"kernel blocked3d ({n - 1}^3, one T = 1 launch): device "
+            f"{t['ms']!r} ms vs plain {t['plain_ms']!r} ms (bound "
+            f"{out['blocked3d']['bound_ms']!r} ms by "
+            f"{out['blocked3d']['bound_by']}); eager {t['eager_ms']!r} ms vs "
+            f"plain {t['eager_plain_ms']!r} ms")
+        del hv, c, ko
+    torch.cuda.synchronize()
+    return out
+
+
+
+def reduced_launches(solver) -> dict:
+    """The launches of one FMG step with the reduced opt-in on, for the
+    kernels of the reduced levels: FMG(nu0, nu1, nu2) with the exact
+    coarsest level gives level l 2 nu0 (l + 1) legs (nu0 V-cycles from each
+    of the l + 1 levels at or above it, two legs each), of which the 2 nu0
+    of the V-cycles rooted at l read the cascaded zero RHS (f-less: no
+    split of f).  Each leg splits v (and f), runs nu // T chunks of T and
+    one of nu % T, and merges."""
+    kern = solver.program.kernels
+    cyc = solver.config.cycle
+    want = {"reduced2d": 0, "split2d": 0, "merge2d": 0}
+    for l, T in enumerate(kern._reduced_t):
+        if T is None:
+            continue
+        cycles = cyc.nu0 * (l + 1)  # one nu1 leg and one nu2 leg each
+        want["reduced2d"] += cycles * (-(-cyc.nu1 // T) - (-cyc.nu2 // T))
+        want["split2d"] += 2 * cycles + 2 * cyc.nu0 * l
+        want["merge2d"] += 2 * cycles
+    return want
+
+
+def phase_lyapunov_reduced(torch, sly, vly, counts_ly):
+    """The 2D Lyapunov path of phase 6 with the reduced-system opt-in on
+    (dispatch.SPLIT2D_REDUCED, JAX's PDE_MG_SPLIT2D_REDUCED=1; restored
+    after): 4097^2 FMG(2, 500, 500), exact coarsest level, mixed.  The
+    bench's gate, error_linf within 1 % of phase 6's solve (`sly`, `vly`:
+    the same schedule on row 16), max|v - v_row16| under 10 % of that
+    error (the chunk reassociates: tolerance-level, not bitwise), finite
+    residuals; exactly the schedule's launches: row 18 on 4097^2 ... 513^2
+    (T = 8, 8, 16, 16: JAX's ladder), split2d / merge2d per leg, the
+    resident kernel below as in phase 6 (`counts_ly`), no half-sweep;
+    then ms per step eager and as one CUDA graph."""
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        Lyapunov2D,
+        MultigridSolver,
+        SolverConfig,
+    )
+    from pde_multigrid_tpu_torch.ops.cuda import dispatch
+
+    tag = f"lyapunov {LYAP_N}^2 mixed, reduced"
+    saved = dispatch.SPLIT2D_REDUCED
+    try:
+        dispatch.SPLIT2D_REDUCED = True
+        cfg = SolverConfig(
+            cycle=CycleConfig("fmg", *LYAP_NUS, coarsest="exact"),
+            precision="mixed")
+        solver = MultigridSolver(Lyapunov2D(), LYAP_N, cfg, device="cuda")
+    finally:
+        dispatch.SPLIT2D_REDUCED = saved
+    kern = solver.program.kernels
+    require(kern._reduced_t[:5] == [8, 8, 16, 16, None]
+            and not any(kern._split),
+            f"{tag}: reduced levels {kern._reduced_t}, split {kern._split}")
+    levels = solver.fresh_levels()
+    torch.cuda.synchronize()
+    reset_counts()
+    res = solver.solve(levels)
+    counts = read_counts()
+    h = solver.geoms[0].spacing[0]
+    limit = max(10 * h, 5e-5)
+    want = {**reduced_launches(solver), "resident": counts_ly["resident"]}
+    dv = float(torch.max(torch.abs(res.v - vly)))
+    gap = res.error_linf - sly["error_linf"]
+    log(f"{tag}: T per level {kern._reduced_t}, error_linf "
+        f"{res.error_linf!r} (limit {limit!r}; row 16's {sly['error_linf']!r}"
+        f", gap {gap!r} = {100 * gap / sly['error_linf']!r} %), max|v - "
+        f"v_row16| = {dv!r}, residual_l2 {res.residual_l2!r}, launches "
+        f"{counts} (the schedule: {want})")
+    _check_solve(torch, tag, res, solver, limit, "lyapunov_reduced", want)
+    require(abs(gap) <= 0.01 * sly["error_linf"],
+            f"{tag}: error_linf not within 1 % of row 16's solve")
+    require(dv <= 0.1 * sly["error_linf"],
+            f"{tag}: max|v - v_row16| {dv!r} not under 10 % of its error")
+    summary = {"n": LYAP_N, "problem": "lyapunov2d", "precision": "mixed",
+               "reduced": True, "chunk_t": kern._reduced_t,
+               "error_linf": res.error_linf, "residual_l2": res.residual_l2,
+               "max_abs_dv_vs_row16": dv,
+               "launches_per_step": {k: counts[k] for k in want}}
+    summary.update(time_step(torch, tag, solver, levels, 2, 1))
+    return counts, summary
+
+
+def phase_f32_257_blocked(torch, s32, v32):
+    """257^3 f32 FMG(2, 100, 100), exact coarsest (fastdiag 64^3), with the
+    wavefront off (PDE_MG_TIMESKEW=0, restored after): 256^3 relaxed by row
+    19 (csrc/blocked3d.cu, T = 1), 128^3 by the half-sweeps.  error_linf
+    < 50 h^2, finite residuals, exactly the schedule's launches (4 legs of
+    100 launches on 256^3, 8 of 200 half-sweeps on 128^3) and no wavefront;
+    against phase 5's wavefront solve (`s32`, `v32`): bitwise if it is,
+    else max|dv| reported and error_linf within 1 %; ms per step eager and
+    as one CUDA graph."""
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        MultigridSolver,
+        Poisson3D,
+        SolverConfig,
+    )
+    from pde_multigrid_tpu_torch.ops.cuda import blocked3d as BL
+
+    n, nus = 257, (2, 100, 100)
+    tag = f"f32 {n}^3, wavefront off"
+    saved = os.environ.get("PDE_MG_TIMESKEW")
+    os.environ["PDE_MG_TIMESKEW"] = "0"
+    try:
+        cfg = SolverConfig(cycle=CycleConfig("fmg", *nus, coarsest="exact"),
+                           precision="f32")
+        solver = MultigridSolver(Poisson3D(), n, cfg, device="cuda")
+        kern = solver.program.kernels
+        require(kern.tiers[:2] == ["blocked3d", "half_sweep"],
+                f"{tag}: plan {kern.tiers}")
+        levels = solver.fresh_levels()
+        torch.cuda.synchronize()
+        reset_counts()
+        res = solver.solve(levels)
+        counts = read_counts()
+        h = solver.geoms[0].spacing[0]
+        want = {"blocked3d": 4 * -(-nus[1] // BL.BLOCKED_T),
+                "half_sweep": 8 * 2 * nus[1]}
+        dv = float(torch.max(torch.abs(res.v - v32)))
+        gap = res.error_linf - s32["error_linf"]
+        log(f"{tag}: plan {kern.tiers}, error_linf {res.error_linf!r} "
+            f"(limit {50 * h * h!r}; the wavefront's {s32['error_linf']!r}, "
+            f"gap {gap!r}), max|v - v_wavefront| = {dv!r} "
+            f"({'bitwise' if dv == 0 else 'not bitwise'}), launches {counts}"
+            f" (the schedule: {want})")
+        _check_solve(torch, tag, res, solver, 50 * h * h, "f32_257_blocked")
+        require(all(counts[k] == w for k, w in want.items()),
+                f"{tag}: launches {counts}, the schedule implies {want}")
+        require(dv == 0 or abs(gap) <= 0.01 * s32["error_linf"],
+                f"{tag}: error_linf not within 1 % of the wavefront solve's")
+        summary = {"n": n, "precision": "f32", "timeskew": False,
+                   "error_linf": res.error_linf,
+                   "residual_l2": res.residual_l2,
+                   "max_abs_dv_vs_wavefront": dv,
+                   "launches_per_step": want}
+        summary.update(time_step(torch, tag, solver, levels, 5, 2))
+    finally:
+        if saved is None:
+            os.environ.pop("PDE_MG_TIMESKEW", None)
+        else:
+            os.environ["PDE_MG_TIMESKEW"] = saved
+    return counts, summary
 
 
 def phase_f64_reference(torch, prob, n: int, nus, summary, v, tag: str,
@@ -2948,11 +3357,12 @@ def phase_kernels_shard(torch):
         lambda: R.timeskew_shard_plain(b, fr, fb, -2 * t, t, prob, g256,
                                        x_loc), 1)
     # the chunk reads b, fr and fb once and writes r and b once; 13
-    # float32 operations per owned point and sweep, as the other rows
+    # float32 operations per updated owned point and sweep (the one rank
+    # owns x = 0 ... X - 1), as the other rows
     out["timeskew_shard"] = {"max_abs_err": err, "ms": tm["ms"],
                              "plain_ms": tm["plain_ms"],
                              **bound(3 * b.nbytes + 2 * bo.nbytes,
-                                     13 * t * x_loc * Y * Z),
+                                     13 * t * updated_points((x_loc, Y, Z))),
                              "library_ms": None}
     log(f"kernel timeskew_shard: bitwise against its plain version on every "
         f"shard of 256^3 over 1, 2, 4 ranks at t = 1, 2, 4, on {small}, and "
@@ -2990,10 +3400,11 @@ def phase_kernels_shard(torch):
         torch, lambda: MB.masked_block(v, f, pre, mr, mb, t, prob, g128),
         lambda: MB.masked_block_plain(v, f, pre, mr, mb, t, prob, g128), 1)
     # reads v, f and both masks once, writes v once; 13 operations per
-    # owned point and sweep
+    # updated owned point and sweep (the one rank owns x = 0 ... X - 1)
     out["masked_block"] = {"max_abs_err": err, "ms": tm["ms"],
                            "plain_ms": tm["plain_ms"],
-                           **bound(5 * v.nbytes, 13 * t * x_loc * Y * Z),
+                           **bound(5 * v.nbytes,
+                                   13 * t * updated_points((x_loc, Y, Z))),
                            "library_ms": None}
     log(f"kernel masked_block: bitwise against its plain version on every "
         f"shard's extended block of 128^3 over 1, 2, 4 ranks at t = 1 and "
@@ -3517,8 +3928,12 @@ def main() -> int:
                              torch))
         results.update(timed("kernels_resident3d", phase_kernels_resident3d,
                              torch))
+        results.update(timed("kernels_blocked3d", phase_kernels_blocked3d,
+                             torch))
         results.update(timed("kernels_shard", phase_kernels_shard, torch))
         results.update(timed("kernels2d", phase_kernels2d, torch))
+        results.update(timed("kernels_reduced2d", phase_kernels_reduced2d,
+                             torch))
         summaries, counts = [], {}
         for n in (129, 257, 513):
             c32, s32, v32 = timed("poisson3d", phase_main_path, torch, n,
@@ -3532,6 +3947,9 @@ def main() -> int:
             counts.setdefault("mixed", cmx)
             if n == SHARD_N:
                 UNSHARDED["f32"] = (s32, v32)
+                counts["f32_257_blocked"], sbl = timed(
+                    "f32_257_blocked", phase_f32_257_blocked, torch, s32, v32)
+                summaries.append(sbl)
             del v32, vmx
         counts["sharded257"], ssh, sha1 = timed("sharded", phase_sharded,
                                                 torch)
@@ -3553,6 +3971,10 @@ def main() -> int:
         timed("lyapunov", phase_f64_reference, torch, Lyapunov2D(), LYAP_N,
               LYAP_NUS, sly, vly, f"lyapunov {LYAP_N}^2")
         summaries.append(sly)
+        counts["lyapunov_reduced"], slr = timed(
+            "lyapunov_reduced", phase_lyapunov_reduced, torch, sly, vly,
+            counts["lyapunov"])
+        summaries.append(slr)
         results.update(timed("kernels_shard2d", phase_kernels_shard2d,
                              torch))
         counts["sharded_lyap"], ssl, sha2 = timed(
@@ -3619,7 +4041,8 @@ def main() -> int:
         return off_path.get(name) or next(
             p for p in ("ode1d", "lyapunov", "hjb", "varcoef", "mixed",
                         "f32", "f32_257", "f32_513", "preset129", "fas257",
-                        "sharded257", "sharded_lyap")
+                        "sharded257", "sharded_lyap", "lyapunov_reduced",
+                        "f32_257_blocked")
             if name in PATHS[p])
 
     kernels = [
@@ -3632,6 +4055,7 @@ def main() -> int:
                     "barrier_floors": FLOORS, "timeskew_ab": TIMESKEW_AB,
                     "subtree_ab": SUBTREE_AB, "shard2d_ab": SHARD2D_AB,
                     "resident3d_ab": RESIDENT3D_AB, "fas_ab": FAS_AB,
+                    "reduced_ab": REDUCED_AB, "blocked_ab": BLOCKED_AB,
                     "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -38,8 +38,9 @@ class Lyapunov2D(ProblemBase):
     rhs_is_zero = True
     # the one-sided stencil reads only the +x neighbor
     split2d_x_offsets = (+1,)
-    # one-sided => the red-black system is bipartite-reducible (the JAX
-    # package's reduced-system kernel; not ported)
+    # one-sided => the red-black system is bipartite-reducible: the fields
+    # of kernel_precompute that the reduced-system kernel reads
+    # (ops/cuda/reduced2d.py; opt-in, ops/cuda/dispatch.SPLIT2D_REDUCED)
     reduced2d_fields = ("a_e", "a_s", "a_f")
     # split_update2d / kernel_update take f=None (RHS term dropped)
     split_update2d_f_optional = True

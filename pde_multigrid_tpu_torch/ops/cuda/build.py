@@ -64,6 +64,9 @@ SIGNATURES = {
         _F, _P,
     ),
     "pdemg_masked_block": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
+    "pdemg_blocked3d": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+    ),
     "pdemg_residual_split": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     "pdemg_merge_fold": (_P, _P, _P, _I, _I, _I, _P),
     "pdemg_residual": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
@@ -80,6 +83,7 @@ SIGNATURES = {
     "pdemg_color_slab2d_shard": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
     ),
+    "pdemg_reduced2d": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # the HJB kernels take their fields as a pointer to a host struct
     # (resident.HJB2DParams)
     "pdemg_resident2d_hjb": (_P, _P, _I, _I, _I, _I, _P, _P),

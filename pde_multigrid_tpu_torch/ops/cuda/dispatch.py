@@ -18,7 +18,12 @@ with the hand-written kernels.
       - the time-skewed wavefront (`relax.TIMESKEW_T` sweeps per launch)
         on the levels JAX's `timeskew_plan` gives it
         (`relax.timeskew_plan`: a half-plane of at least 16384 points, so
-        256^3 and 512^3);
+        256^3 and 512^3), unless `PDE_MG_TIMESKEW` is not "1" (read at
+        every call, as JAX reads it);
+      - the blocked kernel (`ops/cuda/blocked3d.py`, row 19, T = 1 sweep
+        per launch) on the levels whose half-plane busts JAX's row-9 slab
+        budget (`blocked3d.use_blocked`: 256^3 and 512^3 once the
+        wavefront is off), as JAX's `plan_relax` orders them;
       - the color-split half-sweeps (`ops/cuda/relax.py`, one launch per
         half-sweep) on the rest (128^3, where JAX keeps its slab kernel,
         and any even level the other tiers do not hold).
@@ -57,6 +62,13 @@ with the hand-written kernels.
     and `ops/split2d.py`'s residual + restrict and prolong + blend on the
     halves.  Conversions (the split2d / merge2d kernels) run only where a
     dense array is needed; see "Persistent halves" below;
+  * with `SPLIT2D_REDUCED` (JAX's opt-in `PDE_MG_SPLIT2D_REDUCED=1`,
+    read at import), the split levels are reduced levels instead: each
+    leg splits v (and f, unless the leg is f-less), runs the
+    reduced-system kernel (`ops/cuda/reduced2d.py`, row 18) in chunks of
+    JAX's T, and merges back; no persistent halves (JAX's
+    `plan_split2d_raw` returns None there), so the level's transfers are
+    the plain ops below;
   * other relaxed levels: the whole-leg resident kernel
     (`ops/cuda/resident.py`);
   * pairs whose fine level is not a split level, and the residual norms:
@@ -115,6 +127,8 @@ takes the coarse array dense); `conversions` counts them.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from pde_multigrid_tpu_torch.cycles import TorchKernels
@@ -123,7 +137,9 @@ from pde_multigrid_tpu_torch.models.lyapunov2d import Lyapunov2D
 from pde_multigrid_tpu_torch.models.ode1d import Ode1D
 from pde_multigrid_tpu_torch.models.poisson import Poisson
 from pde_multigrid_tpu_torch.ops import split2d
+from pde_multigrid_tpu_torch.ops.cuda import blocked3d as blocked_mod
 from pde_multigrid_tpu_torch.ops.cuda import defect as defect_mod
+from pde_multigrid_tpu_torch.ops.cuda import reduced2d as reduced_mod
 from pde_multigrid_tpu_torch.ops.cuda import relax as relax_mod
 from pde_multigrid_tpu_torch.ops.cuda import relax1d as relax1d_mod
 from pde_multigrid_tpu_torch.ops.cuda import relax2d as relax2d_mod
@@ -136,6 +152,9 @@ from pde_multigrid_tpu_torch.ops.cuda import transfer as transfer_mod
 # smallest half width (Y // 2) of a persistent-split 2D level: the JAX
 # package's SPLIT2D_MIN_Y2 (relax.py:3751), so the same levels split
 SPLIT2D_MIN_Y2 = 256
+# the reduced-system kernel for one-sided 2D stencils (row 18), off by
+# default: JAX's opt-in, read as it reads it, at import (relax.py:3756)
+SPLIT2D_REDUCED = os.environ.get("PDE_MG_SPLIT2D_REDUCED", "0") == "1"
 
 
 def _level_ok(g) -> bool:
@@ -169,6 +188,18 @@ def _split2d_ok(g) -> bool:
             and g.padded_shape[1] // 2 >= SPLIT2D_MIN_Y2)
 
 
+def _reduced_t(problem, g):
+    """T of the reduced-system kernel on a level that passes `_split2d_ok`,
+    or None where JAX's plan keeps the color-split tier: the opt-in is off,
+    or the problem is not eligible (relax.py:4052-4056: it names its
+    `reduced2d_fields` and its stencil reads +x only), or JAX's block
+    ladder finds no block (then the level keeps the split tier here)."""
+    if not (SPLIT2D_REDUCED and hasattr(problem, "reduced2d_fields")
+            and tuple(getattr(problem, "split2d_x_offsets", ())) == (1,)):
+        return None
+    return reduced_mod.chunk_sweeps(g)
+
+
 def _relax3d(problem, g):
     """(tier, relax(v, f, nsweeps) -> v) of a 3D wrap level with even
     extents, in the order of JAX's `plan_relax` (relax.py:3889-3990);
@@ -179,6 +210,8 @@ def _relax3d(problem, g):
         fn, tier = resident3d_mod.resident3d_relax, "resident3d"
     elif relax_mod.timeskew_plan(g):
         return "timeskew", relax_mod.make_timeskew_relax(problem, g)
+    elif blocked_mod.use_blocked(g):
+        return "blocked3d", blocked_mod.make_blocked_relax(problem, g)
     else:
         return "half_sweep", relax_mod.make_split_relax(problem, g)
 
@@ -221,6 +254,8 @@ class CudaKernels(TorchKernels):
         self.tiers = [None] * n
         self._defect = [None] * n
         self._split = [False] * n
+        # T per chunk of the reduced levels (None: not reduced)
+        self._reduced_t = [None] * n
         for l in relaxed:
             g = self.geoms[l]
             if g.ndim == 1:
@@ -231,8 +266,10 @@ class CudaKernels(TorchKernels):
                         "points at most)", "queue 2 item 29")
                 self._relax[l] = self._relax_1d
             elif lyap and _split2d_ok(g):
-                self._split[l] = True
-                self._relax[l] = self._relax_split
+                self._reduced_t[l] = _reduced_t(problem, g)
+                self._split[l] = self._reduced_t[l] is None
+                self._relax[l] = (self._relax_split if self._split[l]
+                                  else self._relax_reduced)
             elif lyap and resident_mod.fits(g):
                 self._relax[l] = self._relax_resident
             elif hjb and _padded_2d(g):
@@ -334,6 +371,12 @@ class CudaKernels(TorchKernels):
                                    self.geoms[l])
         self._v_cur[l] = "halves"
         return v
+
+    def _relax_reduced(self, l, v, f, nsweeps, f_zero):
+        # no persistent halves: each leg splits and merges, as JAX's
+        # reduced `relax` does
+        return reduced_mod.reduced_relax(v, f, nsweeps, self._reduced_t[l],
+                                         self.problem, self.geoms[l], f_zero)
 
     def _relax_1d(self, l, v, f, nsweeps, f_zero):
         # f_zero never holds here (neither 1D problem has rhs_is_zero);

@@ -1,6 +1,7 @@
 """Color-split red-black Gauss-Seidel on 3D wrap levels: the CUDA kernels
 of `csrc/relax.cu` and `csrc/timeskew.cu` and their plain PyTorch
-versions.
+versions (the blocked kernel that serves the large levels with the
+wavefront off, row 19, is `ops/cuda/blocked3d.py`).
 
 Replaces the TPU kernels `pde_multigrid_tpu/ops/pallas/relax.py`
 `_pallas_split`, `_pallas_merge`, `make_split_slab_relax` (float32
@@ -22,6 +23,7 @@ a CUDA tensor to the plain version.  `launches` counts kernel launches.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -537,9 +539,12 @@ def timeskew_shard(b_ext, fr_w, fb_w, g0: int, t: int, problem,
 def timeskew_plan(geom: LevelGeometry) -> bool:
     """Whether the wavefront relaxes this level: JAX's gate
     (`timeskew_plan`, relax.py:3833-3855) without its TPU-only conditions
-    (Z % 128, Y/2 % 8 and the VMEM ladder): a 3D wrap level with even
-    extents, X >= 8, and a half-plane of at least TIMESKEW_MIN_PLANE
-    points."""
+    (Z % 128, Y/2 % 8 and the VMEM ladder): the switch
+    `PDE_MG_TIMESKEW` is "1" (the default; read at every call, as JAX
+    reads it), and a 3D wrap level with even extents, X >= 8, and a
+    half-plane of at least TIMESKEW_MIN_PLANE points."""
+    if os.environ.get("PDE_MG_TIMESKEW", "1") != "1":
+        return False
     if not (geom.wrap and geom.ndim == 3):
         return False
     X, Y, Z = geom.padded_shape
