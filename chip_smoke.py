@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      unfused chain of the port's kernels and against its plain version at
      the roots 64^3 ... 2^3, nu = (1, 1), (1, 0), (2, 3), with and without
      the root's relax, and at nu = 3000 on the 64^3 and 32^3 roots, timed
-     at nu = 3000 on every root (at 64^3 and 32^3 beside the chain); the
+     at nu = 3000 on every root (at 64^3 and 32^3 beside the chain), the
+     64^3 level alone, the 32^3 root on 8 and on 16 CTAs; the
      transfer kernels on the sub-lane pairs
      32^3 -> 16^3 ... 4^3 -> 2^3 (rows 23 and 24) bitwise; then the
      whole-leg 3D resident kernel (resident3d.cu) in its three modes
@@ -939,7 +940,11 @@ def phase_kernels_subtree(torch):
     the stored planes 0), f random everywhere.  The V-cycle at nu = 3000
     is timed at every root, the kernel graph-replayed, at 64^3 and 32^3
     beside the chain (graph-replayed) and the plain version (eager, one
-    call: some 2e6 PyTorch operations, too many to capture).
+    call: some 2e6 PyTorch operations, too many to capture); from these
+    the 64^3 level alone (the 64^3-rooted call less the 32^3-rooted one,
+    and per 64^3 half-sweep).  The 32^3 root on a cluster of 8 and of 16
+    CTAs (the layout's choice), each bitwise the default call at every nu
+    in both variants, timed at nu = 3000 in turns.
     Then the transfer kernels on the
     sub-lane pairs 32^3 -> 16^3 ... 4^3 -> 2^3 (rows 23 and 24: restrict
     alone, and prolong + blend in both modes) bitwise against their plain
@@ -1064,6 +1069,40 @@ def phase_kernels_subtree(torch):
                 "variants and the plain version (eager, one call)"
                 if l < 2 else "")
         log(f"kernel subtree ({root}^3 root, nu = {nu}): ms {ab}{what}")
+    # the 64^3 level alone: the 64^3-rooted call less the 32^3-rooted one,
+    # and per 64^3 half-sweep (2 (nu1 + nu2) of them, nu1 = nu2 = nu)
+    lvl = (SUBTREE_AB[f"64^3 nu={nu}"]["kernel_ms"]
+           - SUBTREE_AB[f"32^3 nu={nu}"]["kernel_ms"])
+    SUBTREE_AB["64^3 level"] = {"ms": lvl, "us_per_half_sweep":
+                                lvl * 1e3 / (4 * nu)}
+    log(f"kernel subtree: the 64^3 level {lvl!r} ms a call, "
+        f"{lvl * 1e3 / (4 * nu)!r} us a half-sweep")
+    # the 32^3 root's cluster (subtree.layout's `ctas`): 8 or 16 CTAs, each
+    # bitwise the default layout's call, timed at nu = 3000 in turns
+    sub = tuple(geoms[1:])
+    v = rand(sub[0].padded_shape, True)
+    f = rand(sub[0].padded_shape, False)
+    for nu1, nu2 in (*SUBTREE_NUS, (nu, nu)):
+        for wr in (True, False):
+            want = kernel(1, v, f, nu1, nu2, wr)
+            for ctas in (8, 16):
+                got = v.clone()
+                S._launch(got, f, S._params(sub, nu1, nu2, wr, S.CAPACITY,
+                                            ctas))
+                require(torch.equal(got, want), f"subtree root 32^3 on "
+                        f"{ctas} CTAs, nu = ({nu1}, {nu2}) with_root_relax="
+                        f"{wr}: not bitwise the default layout's call")
+    by_ctas = {8: [], 16: []}
+    for ctas in (8, 16, 16, 8):
+        params = S._params(sub, nu, nu, True, S.CAPACITY, ctas)
+        vk = v.clone()
+        by_ctas[ctas].append(device_ms(
+            torch, lambda: S._launch(vk, f, params), 1))
+    SUBTREE_AB[f"32^3 nu={nu} by cluster"] = {
+        str(c): sum(t) / len(t) for c, t in by_ctas.items()}
+    log(f"kernel subtree (32^3 root, nu = {nu}) on 8 / 16 CTAs, bitwise: "
+        f"{SUBTREE_AB[f'32^3 nu={nu} by cluster']} ms (layout's choice: "
+        f"{S.layout(sub, True)['nctas']})")
 
     # rows 23, 24: the transfer kernels on the sub-lane pairs
     errs = {"small_restrict": 0.0, "small_prolong_blend": 0.0}

@@ -24,40 +24,56 @@
 // interpolation, then the blend) keep the order of transfer.cu's kernels.
 // Built with --fmad=false, the kernel equals the unfused chain of those
 // kernels bit for bit, and so the plain version (ops/cuda/subtree.py).
+// Red-black Gauss-Seidel lets any split of a half-sweep's points, in any
+// order, give the same bits: a point of one colour reads only the other.
 //
-// Design.  One launch per V-cycle: one thread-block cluster of 8 CTAs
-// (512 threads each) when the root has more than 16^3 points, else one
-// CTA.  A level of more than 16^3 points is cut into x-slabs, one per CTA;
-// a level of at most 16^3 points lives whole on CTA 0, whose sweeps then
-// take block barriers while the other CTAs wait at one cluster barrier for
-// the whole small subtree.  Every level's v lives in shared memory as its
-// colour halves (relax.cu's layout: a half-sweep reads the other half
-// with consecutive threads on consecutive z, free of bank conflicts), and
-// every deeper level's f (written by the restriction).  The root's f is
-// read from device memory, served by the L2 (at a 64^3 root it would not
-// fit beside the v: 128 KB of v per CTA, the levels below 33 KB on each CTA
-// and 37 KB more on CTA 0).  The correction-only variant keeps the root's v
-// in device memory too: it reads it once (residual) and writes it once
-// (prolongation).  The layout
-// (which levels are split, each array's offset) is decided by the caller
-// (ops/cuda/subtree.py `layout`) and passed in SubtreeParams.  A point's
-// x +- 1 neighbour plane lies in the neighbouring CTA at a slab edge and
-// is read through distributed shared memory (cluster.map_shared_rank).
-// One barrier ends each half-sweep, each transfer and the load.  The root
-// is split into halves as it is loaded and merged as it is stored.  The
-// level views, the half-sweep and the root's copies are halves3d.cuh's,
-// shared with the whole-leg resident kernel (resident3d.cu).
+// Design.  One launch per V-cycle: one non-portable thread-block cluster
+// of 16 CTAs when the root has more than 8^3 points (a 32^3 root runs
+// faster on 16 than on 8: chip_smoke.py times both), else one CTA.  A
+// level of more than 8^3 points is cut into x-slabs, one per CTA (64^3: 4
+// planes a CTA, 32^3: 2, 16^3: 1); a level of at most 8^3 points lives
+// whole on CTA 0, whose sweeps then take block barriers while the other
+// CTAs wait at one cluster barrier for the whole small subtree.  Every
+// level's v and f live in shared memory as colour halves (relax.cu's
+// layout: a half-sweep reads the other half with consecutive threads on
+// consecutive z, free of bank conflicts), the root's f loaded once beside
+// its v: at a 64^3 root 64 KB of v and 64 KB of f a CTA, 8 + 8 KB of 32^3,
+// 1 + 1 KB of 16^3, 32 KB of halo planes, and on CTA 0 the levels 8^3 ...
+// 2^3, 4.6 KB more (182.6 KB of the 227).  The correction-only variant
+// holds the root's v too and reads its f once, from device memory, in the
+// residual.  The layout (which levels are split, each array's offset) is
+// decided by the caller (ops/cuda/subtree.py `layout`) and passed in
+// SubtreeParams.
+//
+// A half-sweep: each thread walks a run of up to four z-pairs along x
+// (the CTA's slab, or a four-plane chunk of a level on CTA 0), keeping
+// the run's x-neighbours of the other colour in registers: six 8-byte
+// loads serve the x-pairs, the own-plane y-term and the inner z-term of
+// eight points, then four 4-byte loads a pair (the other y-terms, the
+// outer z-terms) and an 8-byte load of f and of the old values, and one
+// 8-byte store; all from this CTA's shared memory, the level's constants
+// in registers, no branch (a point off the updated ones keeps its old
+// value).  A split level's slab ends read the neighbours' planes from
+// halo planes that the neighbours copy in after each half-sweep (Halo: a
+// bulk copy of one plane of one colour per neighbour, completing on the
+// receiver's mbarrier), so the half-sweeps of a split level synchronise
+// with the two x-neighbours only and read no distributed shared memory.
+// Full cluster barriers remain where a phase reads more than the adjacent
+// planes or changes level: after the load, after each split level's relax
+// leg, after each transfer, and around CTA 0's small levels.  The level
+// views, the transfers' addressing and the root's copies are halves3d.cuh's
+// (shared with resident3d.cu, unchanged).
 //
 // Bytes and operations per V-cycle: the root's v read and written and its
 // f read, 12 B per root point (3 MB at 64^3) from device memory; 13 float
-// operations per point and sweep on every level (3 pair sums, 3 products
-// and 3 sums, the negation, the scale, the blend's difference and sum),
-// (nu1 + nu2) sweeps (the coarsest level's too), about 8/7 of the root's
-// count in all: 2.3e10 at a 64^3 root with nu = 3000.  What bounds it on the card is not bytes: the
-// barriers (two per sweep and level, cluster-wide on the split levels) and
-// the instruction rate of 8 of the card's 132 SMs (shared-memory loads:
-// seven per updated point).
-//
+// operations per updated point and sweep on every level (3 pair sums, 3
+// products and 3 sums, the negation, the scale, the blend's difference and
+// sum), (nu1 + nu2) sweeps (the coarsest level's too), about 8/7 of the
+// root's count in all: 2.2e10 at a 64^3 root with nu = 3000 (0.33 ms at
+// 67 TFLOP/s).  What bounds it on the card is neither: each half-sweep
+// waits for the one before it, on 16 of the card's 132 SMs, then for its
+// halos (or a block barrier on CTA 0), 12 000 times a level at nu = 3000.
+
 // Wrap storage: indices wrap modulo the extent (all extents are powers of
 // two, so a mask does it); plane 0 of each axis is the zero boundary that
 // both ends share, and the masks (x, y, z >= 1) never update it.
@@ -65,23 +81,31 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "halves3d.cuh"  // SubLevel, View, half_sweep, relax, root_copy
+#include <cstdint>
+
+#include "halves3d.cuh"  // SubLevel, View, view_of, plane_of, root_copy
 
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kCtas = 8;  // the portable cluster size
 constexpr int kThreads = 512;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most one CTA may hold
+// the halo exchange's two mbarriers (static shared memory); the dynamic
+// shared memory gets the rest (ops/cuda/subtree.py MAX_SMEM_BYTES)
+constexpr int kSyncBytes = 16;
+constexpr int kMaxDynSmem = kMaxSmem - kSyncBytes;
+constexpr int kRun = 4;  // the longest run of z-pairs a thread walks along x
 
 // ops/cuda/subtree.py SubtreeParams
 struct SubtreeParams {
   int nlev;
   int nu1, nu2;
   int with_root_relax;
-  int nctas;       // CTAs of the launch: kCtas (one cluster) or 1
+  int nctas;       // CTAs of the launch: one cluster of 8 or 16, or 1
   int threads;     // threads per CTA
   int smem_bytes;  // dynamic shared memory per CTA
+  int halo_off;    // a split root: float offset of the halo planes, 2
+  int halo_plane;  // colours x 2 sides of halo_plane floats each
   SubLevel lev[kMaxLevels];
 };
 
@@ -206,22 +230,284 @@ __device__ __forceinline__ void prolong_add(const View& F, const View& C,
     }
     const float up = lerp_pair(ay[0], ay[1], pz);
     const float m = (x >= 1 && y >= 1 && z >= 1) ? 1.0f : 0.0f;
-    const int idx = own_at(F.vdev, lx, y, z, F);
+    const int idx = own_at(false, lx, y, z, F);
     const float base = F.v[idx];
     F.v[idx] = base + m * up;
+  }
+}
+
+// A level's half-sweep constants on this CTA, hoisted out of the sweeps.
+struct Sweep {
+  float w0, w1, w2, inv_den;  // the level's split_update constants
+  int lp, lz;                 // log2 of a half's plane, log2 Z
+  int zmask, jmask;           // Z - 1, Y / 2 - 1
+  int x0;                     // this CTA's first plane
+  int runs, items;            // runs of NX planes; (run, z-pair) items
+};
+
+// One point's update from its pair sums and f: the new value, or the old
+// one off the updated points (the boundary planes x, y, z = 0).
+__device__ __forceinline__ float update(float p0, float p1, float p2,
+                                        float f, float old, bool keep,
+                                        const Sweep& q) {
+  const float upd = split_update(p0, p1, p2, f, q.w0, q.w1, q.w2, q.inv_den);
+  return keep ? old + (upd - old) : old;  // m = 1: v + m (upd - v)
+}
+
+// The run of NX x 2 points of colour c at the z-pair (z0, z0 + 1) of row
+// j (col = j Z + z0 in a half's plane, Y / 2 x Z) of the planes [lx0, lx0
+// + NX) from x0, in the halves u (this colour), o (the other) and fu (f of
+// this colour) in shared memory; ep / en: the other colour at the pair of
+// the planes before and after the run.  Every point off the boundary
+// planes becomes old + (upd - old), relax.cu's half_sweep_kernel on the
+// halves: its pair sums in its order.  The pair's loads and its store are
+// 8 bytes wide; a point y = 2 j + s has its other y-neighbour in row j + 1
+// (s = 1) or j - 1, and s alternates along z.
+template <int NX>
+__device__ __forceinline__ void sweep_run(float* __restrict__ u,
+                                          const float* __restrict__ o,
+                                          const float* __restrict__ fu,
+                                          int lx0, int col, float2 ep,
+                                          float2 en, int c, const Sweep& q) {
+  const int z0 = col & q.zmask;
+  const int j = col >> q.lz;
+  const int row = j << q.lz;
+  const int zm = row + ((z0 - 1) & q.zmask);  // z0 - 1, wrapped
+  const int zp = row + ((z0 + 2) & q.zmask);  // z0 + 2, wrapped
+  const int jm = (((j - 1) & q.jmask) << q.lz) + z0;
+  const int jp = (((j + 1) & q.jmask) << q.lz) + z0;
+  const int x = q.x0 + lx0;
+  const int s0 = (x + z0 + c) & 1;  // the run's first point at z0: y = 2j + s0
+  // the other colour at the pair of rows x from the run's first plane - 1
+  // to its last + 1: the x-pairs, each point's own-plane y-term and its
+  // z-neighbour inside the pair
+  float2 a[NX + 2];
+  a[0] = ep;
+#pragma unroll
+  for (int t = 0; t < NX; ++t) {
+    a[t + 1] = *reinterpret_cast<const float2*>(o + ((lx0 + t) << q.lp) + col);
+  }
+  a[NX + 1] = en;
+#pragma unroll
+  for (int t = 0; t < NX; ++t) {
+    const int s = s0 ^ (t & 1);  // at z0; 1 - s at z0 + 1
+    const int pb = (lx0 + t) << q.lp;
+    const float2 fv = *reinterpret_cast<const float2*>(fu + pb + col);
+    const float2 old = *reinterpret_cast<const float2*>(u + pb + col);
+    // neighbour pair sums in relax.cu's order: x, y, z (minus, plus)
+    const float p0x = a[t].x + a[t + 2].x;
+    const float p1x = a[t + 1].x + o[pb + (s ? jp : jm)];
+    const float p2x = o[pb + zm] + a[t + 1].y;
+    const float p0y = a[t].y + a[t + 2].y;
+    const float p1y = a[t + 1].y + o[pb + 1 + (s ? jm : jp)];
+    const float p2y = a[t + 1].x + o[pb + zp];
+    const bool xin = x + t != 0;
+    float2 out;
+    out.x = update(p0x, p1x, p2x, fv.x, old.x,
+                   xin && z0 != 0 && (j != 0 || s != 0), q);
+    out.y = update(p0y, p1y, p2y, fv.y, old.y, xin && (j != 0 || s == 0), q);
+    *reinterpret_cast<float2*>(u + pb + col) = out;
+  }
+}
+
+// One half-sweep of colour c on this CTA's planes of a level in shared
+// memory (halves at u, o, fu): runs of NX planes along x, a thread per
+// (run, z-pair).  hprev / hnext: the other colour's planes beside this
+// CTA's first and last: the halo planes of a split level, the level's own
+// last and first plane (wrapped) on CTA 0.
+template <int NX>
+__device__ __forceinline__ void half_sweep_runs(float* __restrict__ u,
+                                                const float* __restrict__ o,
+                                                const float* __restrict__ fu,
+                                                const float* hprev,
+                                                const float* hnext, int c,
+                                                const Sweep& q) {
+  const int pmask = (1 << (q.lp - 1)) - 1;  // z-pairs of a half's plane
+  for (int i = threadIdx.x; i < q.items; i += blockDim.x) {
+    const int col = 2 * (i & pmask), r = i >> (q.lp - 1);
+    const float* pe = r == 0 ? hprev : o + ((r * NX - 1) << q.lp);
+    const float* pn = r + 1 == q.runs ? hnext : o + ((r * NX + NX) << q.lp);
+    sweep_run<NX>(u, o, fu, r * NX, col,
+                  *reinterpret_cast<const float2*>(pe + col),
+                  *reinterpret_cast<const float2*>(pn + col), c, q);
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The address of this CTA's shared `p` in CTA `cta` of the cluster.
+__device__ __forceinline__ unsigned remote_addr(const void* p, int cta) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a)
+               : "r"(smem_addr(p)), "r"(cta));
+  return a;
+}
+
+// This thread's writes to shared memory (the generic proxy) ordered
+// before the bulk copies (the async proxy) that read them.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The halo exchange of a split level's half-sweeps (Hopper's bulk copies
+// between the shared memories of a cluster, completion on an mbarrier).
+// After a half-sweep of colour c each CTA copies its first plane of colour
+// c into the x - 1 neighbour's `next` halo and its last into the x + 1
+// neighbour's `prev` halo, each copy completing on the receiver's bar[c];
+// before a half-sweep of colour c a CTA waits on bar[1 - c] for its two
+// halo planes of colour 1 - c.  The copies are the only signal: a CTA
+// copies after its half-sweep, which read its halos of the other colour,
+// so a neighbour's next copy of that colour lands after the reads; and it
+// overwrites a plane it copied only after a half-sweep that waited for
+// its neighbours' copies, each issued once its copy had landed.
+struct Halo {
+  float* buf;        // [colour][prev, next][plane] floats
+  int plane;         // floats per halo plane
+  uint64_t* bar;     // bar[c]: the two halo planes of colour c landed
+  unsigned parity;   // bit c: the parity of bar[c]'s phase to wait for
+  int left, right;   // the CTAs holding x0 - 1 and x0 + nx
+
+  __device__ __forceinline__ float* at(int c, int side) const {
+    return buf + (2 * c + side) * plane;
+  }
+
+  // Thread 0, after every thread's fence_async and a block barrier: this
+  // CTA's first and last planes of colour c (at `first`, `last`, hp floats
+  // each) to the neighbours; expects theirs on bar[c].
+  __device__ __forceinline__ void send(int c, const float* first,
+                                       const float* last, int hp) const {
+    const unsigned bytes = 4u * (unsigned)hp;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :
+                 : "r"(smem_addr(bar + c)), "r"(2 * bytes)
+                 : "memory");
+    const float* src[2] = {first, last};
+    const int cta[2] = {left, right};
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      // the first plane is the left CTA's `next`, the last the right's
+      // `prev`
+      asm volatile(
+          "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx"
+          "::bytes [%0], [%1], %2, [%3];"
+          :
+          : "r"(remote_addr(at(c, 1 - d), cta[d])), "r"(smem_addr(src[d])),
+            "r"(bytes), "r"(remote_addr(bar + c, cta[d]))
+          : "memory");
+    }
+  }
+
+  // Every thread: wait until the halo planes of colour c have landed.
+  __device__ __forceinline__ void wait(int c) {
+    const unsigned ph = (parity >> c) & 1u;
+    unsigned done = 0;
+    while (!done) {
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done)
+          : "r"(smem_addr(bar + c)), "r"(ph)
+          : "memory");
+    }
+    parity ^= 1u << c;
+  }
+};
+
+// `nsweeps` red-then-black sweeps of this CTA's planes of a level (v and
+// f in shared memory).  A level on CTA 0 ends each half-sweep with a block
+// barrier.  A split level sends its black edge planes first, then waits
+// for its halos before each half-sweep and sends the new edge planes after
+// each but the last (Halo); the leg ends with a cluster barrier, as every
+// phase after it reads more than the adjacent planes.
+__device__ __forceinline__ void relax_level(float* smem, const View& w,
+                                            const SubLevel& L, int nsweeps,
+                                            Halo& halo) {
+  if (w.nx == 0 || nsweeps == 0) return;
+  const bool split = w.nctas > 1;
+  const int nx = w.nx < kRun ? w.nx : kRun;
+  Sweep q;
+  q.w0 = L.w0;
+  q.w1 = L.w1;
+  q.w2 = L.w2;
+  q.inv_den = L.inv_den;
+  q.lp = w.lyz - 1;
+  q.lz = w.lz;
+  q.zmask = w.Z - 1;
+  q.jmask = (w.Y >> 1) - 1;
+  q.x0 = w.x0;
+  q.runs = w.nx / nx;
+  q.items = q.runs << (q.lp - 1);
+  const int hp = 1 << q.lp;
+  float* const v = smem + L.v_off;
+  const float* const f = smem + L.f_off;
+  const float* last = v + ((w.nx - 1) << q.lp);  // of the red half
+  if (split) {
+    fence_async();
+    __syncthreads();
+    if (threadIdx.x == 0) halo.send(1, v + w.hs, last + w.hs, hp);
+  }
+  for (int h = 0; h < 2 * nsweeps; ++h) {
+    const int c = h & 1;
+    float* u = v + c * w.hs;
+    const float* o = v + (1 - c) * w.hs;
+    const float* fu = f + c * w.hs;
+    const float* hprev = o + ((w.nx - 1) << q.lp);
+    const float* hnext = o;
+    if (split) {
+      halo.wait(1 - c);
+      hprev = halo.at(1 - c, 0);
+      hnext = halo.at(1 - c, 1);
+    }
+    if (nx == 4) {
+      half_sweep_runs<4>(u, o, fu, hprev, hnext, c, q);
+    } else if (nx == 2) {
+      half_sweep_runs<2>(u, o, fu, hprev, hnext, c, q);
+    } else {
+      half_sweep_runs<1>(u, o, fu, hprev, hnext, c, q);
+    }
+    if (!split) {
+      __syncthreads();
+    } else if (h + 1 < 2 * nsweeps) {
+      fence_async();
+      __syncthreads();  // this CTA's half-sweep written
+      if (threadIdx.x == 0) halo.send(c, u, last + c * w.hs, hp);
+    } else {
+      cg::this_cluster().sync();
+    }
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
     subtree_kernel(float* vg, const float* fg,
                    const __grid_constant__ SubtreeParams p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t bar[2];  // Halo::bar
   const int rank = p.nctas > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  Halo halo = {smem + p.halo_off, p.halo_plane, bar, 0u,
+               (rank + p.nctas - 1) % p.nctas, (rank + 1) % p.nctas};
+  if (p.nctas > 1 && threadIdx.x == 0) {
+    for (int c = 0; c < 2; ++c) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :
+                   : "r"(smem_addr(bar + c))
+                   : "memory");
+    }
+    // the initialised barriers seen by the cluster's bulk copies
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   const int K = p.nlev;
   const View root = view_of(p.lev[0], rank, smem, vg, fg);
-  float* vg_own = vg + ((long long)root.x0 << root.lyz);
-  if (!root.vdev) root_copy(root, root.v, vg_own, true);
-  // every CTA loaded (and running) before any reads another's planes
+  const long long at0 = (long long)root.x0 << root.lyz;
+  root_copy(root, root.v, vg + at0, true);
+  if (!root.fdev) {
+    root_copy(root, root.f, const_cast<float*>(fg) + at0, true);
+  }
+  // every CTA loaded (and running, its barriers initialised) before any
+  // reads another's planes
   level_sync(p.nctas);
 
   // down: relax nu1 (the coarsest: nu1 + nu2), restrict the residual
@@ -230,7 +516,7 @@ __global__ void __launch_bounds__(kThreads)
     if (L.nctas == 1 && rank != 0) break;  // CTA 0 alone from here down
     const View w = view_of(L, rank, smem, vg, fg);
     if (k > 0 || p.with_root_relax) {
-      relax(w, L, k + 1 == K ? p.nu1 + p.nu2 : p.nu1, rank);
+      relax_level(smem, w, L, k + 1 == K ? p.nu1 + p.nu2 : p.nu1, halo);
     }
     if (k + 1 < K) {
       const SubLevel& LC = p.lev[k + 1];
@@ -247,63 +533,111 @@ __global__ void __launch_bounds__(kThreads)
     const View w = view_of(L, rank, smem, vg, fg);
     prolong_add(w, view_of(p.lev[k + 1], rank, smem, vg, fg), rank);
     level_sync(L.nctas);
-    if (k > 0 || p.with_root_relax) relax(w, L, p.nu2, rank);
+    if (k > 0 || p.with_root_relax) {
+      relax_level(smem, w, L, p.nu2, halo);
+    }
   }
-  if (!root.vdev) root_copy(root, root.v, vg_own, false);
-  // no CTA leaves while another may still read its shared memory
-  if (p.nctas > 1) cg::this_cluster().sync();
+  // each phase above ended with the level's barrier (a cluster barrier on
+  // a split root): no CTA reads another's shared memory from here on, so
+  // each stores its own planes and leaves
+  root_copy(root, root.v, vg + at0, false);
 }
 
 bool valid(const SubtreeParams& p) {
   if (p.nlev < 1 || p.nlev > kMaxLevels) return false;
-  if (p.nctas != 1 && p.nctas != kCtas) return false;
+  if (p.nctas != 1 && p.nctas != 8 && p.nctas != 16) return false;
   if (p.threads < 32 || p.threads > kThreads || p.threads % 32) return false;
-  if (p.smem_bytes < 0 || p.smem_bytes > kMaxSmem) return false;
+  if (p.smem_bytes < 0 || p.smem_bytes > kMaxDynSmem) return false;
   if (p.nu1 < 0 || p.nu2 < 0) return false;
+  if (p.with_root_relax != 0 && p.with_root_relax != 1) return false;
+  if (p.lev[0].nctas != p.nctas) return false;  // a split root, or one CTA
+  const int lc = p.nctas == 16 ? 4 : (p.nctas == 8 ? 3 : 0);
   const long long floats = p.smem_bytes / (long long)sizeof(float);
+  // the halo planes, 16-byte aligned for the bulk copies
+  if (p.nctas > 1 && (p.halo_off < 0 || p.halo_off % 4 ||
+                      p.halo_plane < 4 || p.halo_plane % 4 ||
+                      p.halo_off + 4LL * p.halo_plane > floats)) {
+    return false;
+  }
   for (int k = 0; k < p.nlev; ++k) {
     const SubLevel& L = p.lev[k];
     if (L.lx < 1 || L.ly < 1 || L.lz < 1 || L.lx + L.ly + L.lz > 24) {
       return false;
     }
     if (L.nctas != 1 && L.nctas != p.nctas) return false;
-    if (L.nctas > 1 && L.lx < 3) return false;
-    if ((L.v_off < 0 || L.f_off < 0) && k > 0) return false;
-    if (k == 0 && L.f_off >= 0) return false;  // the root's f: device memory
+    // the split levels come first, each at least one plane a CTA
+    if (L.nctas > 1 && (L.lx < lc || (k > 0 && p.lev[k - 1].nctas == 1))) {
+      return false;
+    }
+    // a split level's planes are copied whole into the halos
+    if (L.nctas > 1 && (L.v_off % 4 || L.ly + L.lz < 3 ||
+                        (1 << (L.ly + L.lz - 1)) > p.halo_plane)) {
+      return false;
+    }
+    // v in shared memory; f too, but the correction variant's root's;
+    // 8-byte aligned for the sweeps' z-pairs
+    if (L.v_off < 0 || L.v_off % 2 || (L.f_off >= 0 && L.f_off % 2)) {
+      return false;
+    }
+    if (L.f_off < 0 && (k > 0 || p.with_root_relax)) return false;
     // this CTA's planes of v and f inside the dynamic shared memory
-    const long long n = 1LL << (L.lx - (L.nctas > 1 ? 3 : 0) + L.ly + L.lz);
-    if (L.v_off >= 0 && L.v_off + n > floats) return false;
+    const long long n = 1LL << (L.lx - (L.nctas > 1 ? lc : 0) + L.ly + L.lz);
+    if (L.v_off + n > floats) return false;
     if (L.f_off >= 0 && L.f_off + n > floats) return false;
   }
   return true;
 }
 
+// The kernel's attributes: the shared memory it may take, and clusters
+// past the portable 8 CTAs.  Once per process, outside any capture.
+cudaError_t opt_in() {
+  static const cudaError_t status = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        subtree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxDynSmem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        subtree_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  return status;
+}
+
+struct Launch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+
+  Launch(const SubtreeParams& p, cudaStream_t stream) {
+    cfg.gridDim = dim3(p.nctas, 1, 1);
+    cfg.blockDim = dim3(p.threads, 1, 1);
+    cfg.dynamicSmemBytes = p.smem_bytes;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.nctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = p.nctas > 1 ? 1 : 0;
+  }
+};
+
 int launch_subtree(float* v, const float* f, const SubtreeParams* p,
                    cudaStream_t stream) {
   if (!valid(*p)) return (int)cudaErrorInvalidValue;
-  static bool opted_in = false;  // once per process, outside any capture
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        subtree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p->nctas, 1, 1);
-  cfg.blockDim = dim3(p->threads, 1, 1);
-  cfg.dynamicSmemBytes = p->smem_bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p->nctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = p->nctas > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, subtree_kernel, v, f, *p);
+  cudaError_t e = opt_in();
+  if (e != cudaSuccess) return (int)e;
+  Launch l(*p, stream);
+  e = cudaLaunchKernelEx(&l.cfg, subtree_kernel, v, f, *p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+int max_clusters(const SubtreeParams* p, int* clusters) {
+  if (!valid(*p)) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = opt_in();
+  if (e != cudaSuccess) return (int)e;
+  Launch l(*p, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, subtree_kernel,
+                                             &l.cfg);
 }
 
 }  // namespace
@@ -317,6 +651,13 @@ extern "C" {
 __attribute__((visibility("default"))) int pdemg_subtree(
     float* v, const float* f, const SubtreeParams* p, void* stream) {
   return launch_subtree(v, f, p, (cudaStream_t)stream);
+}
+
+// How many clusters of the launch `p` the card can hold at once (0: it
+// refuses the cluster), into *clusters; a CUDA error code.
+__attribute__((visibility("default"))) int pdemg_subtree_clusters(
+    const SubtreeParams* p, int* clusters) {
+  return max_clusters(p, clusters);
 }
 
 }  // extern "C"

@@ -22,9 +22,14 @@ a CUDA tensor to the plain version.  It updates v in place on both
 devices.  `launches` counts kernel launches.
 
 The TPU's VMEM budgets have no Hopper counterpart.  The plan's gate is
-the kernel's capacity, `CAPACITY`: the shared memory of one 8-CTA
-cluster.  `layout` places a subtree in it (the kernel's only layout) or
-says it does not fit.
+the kernel's capacity, `CAPACITY`: the shared memory of one 16-CTA
+cluster (non-portable: the launch raises where the card refuses it,
+never falls back to a smaller one).  `layout` places a subtree in it
+(the kernel's only layout: every level's v and f in shared memory, but
+the correction-only variant's root f) or says it does not fit.  The
+variant's root v counts, so the capacity decides what JAX's budgets do:
+roots up to 64^3 fused, the correction-only variant nowhere (a 128^3
+root's v alone would take 512 KB a CTA).
 """
 
 from __future__ import annotations
@@ -47,16 +52,20 @@ from pde_multigrid_tpu_torch.ops.cuda.relax import (
 
 launches = {"subtree": 0}
 
-# the kernel's cluster: CTAs, and the shared memory each may hold
-CLUSTER_CTAS = 8
-MAX_SMEM_BYTES = 232448
+# the kernel's cluster: CTAs, and the dynamic shared memory each may hold
+# (227 KB less the 16 B of csrc/subtree.cu's two halo mbarriers)
+CLUSTER_CTAS = 16
+MAX_SMEM_BYTES = 232448 - 16
 # the plan's gate: a subtree fits when its layout needs at most
 # CAPACITY / CLUSTER_CTAS bytes on each CTA
 CAPACITY = CLUSTER_CTAS * MAX_SMEM_BYTES
 # a level of at most this many points lives whole on CTA 0 (block
-# barriers); larger levels are cut into x-slabs over the cluster
-LOCAL_MAX_POINTS = 16**3
+# barriers); larger levels are cut into x-slabs over the cluster (16^3 one
+# plane a CTA: faster on the card than whole on CTA 0)
+LOCAL_MAX_POINTS = 8**3
 THREADS = 512
+# the longest run of z-pairs a thread of a half-sweep walks along x
+RUN = 4
 MAX_LEVELS = 8
 
 
@@ -73,7 +82,7 @@ class SubtreeParams(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in
                 ("nlev", "nu1", "nu2", "with_root_relax", "nctas", "threads",
-                 "smem_bytes")]
+                 "smem_bytes", "halo_off", "halo_plane")]
     _fields_ += [("lev", SubLevelParams * MAX_LEVELS)]
 
 
@@ -105,48 +114,58 @@ def _points(g: LevelGeometry) -> int:
     return X * Y * Z
 
 
-def _split(g: LevelGeometry) -> bool:
-    """Whether the level is cut into x-slabs over the cluster."""
-    return g.padded_shape[0] >= CLUSTER_CTAS and _points(g) > LOCAL_MAX_POINTS
+def _split(g: LevelGeometry, ctas: int) -> bool:
+    """Whether the level is cut into x-slabs over a cluster of `ctas`."""
+    return g.padded_shape[0] >= ctas and _points(g) > LOCAL_MAX_POINTS
 
 
-def layout(geoms, with_root_relax: bool, capacity: int | None = None):
+def layout(geoms, with_root_relax: bool, capacity: int | None = None,
+           ctas: int = CLUSTER_CTAS):
     """The kernel's layout of the subtree `geoms` (root first), or None
     when it does not fit `capacity` (default CAPACITY): a dict with the
     launch's CTAs and threads, the shared memory per CTA, and per level
-    its CTAs (CLUSTER_CTAS: x-slabs; 1: whole on CTA 0) and the float
-    offsets of its v and f in shared memory (-1: device memory).  Every
-    level's v and every deeper level's f are in shared memory; the root's
-    f stays in device memory (served by the L2), and the correction-only
-    variant reads the root's v there too."""
+    its CTAs (the cluster's: x-slabs; 1: whole on CTA 0) and the float
+    offsets of its v and f in shared memory (-1: device memory), and
+    "halo": the float offset and the plane size of the halo planes a split
+    level's half-sweeps exchange (2 colours x 2 sides; (0, 0) on one CTA).
+    A split root takes a cluster of `ctas` (16: at the 32^3 root faster
+    than 8 on the card, `chip_smoke.py` times both; a 64^3 root's v and f
+    fit 16 only).  Every level's v and f are in shared
+    memory, the root's loaded once, but for the correction-only variant's
+    root f, which the residual reads once from device memory."""
     geoms = tuple(geoms)
     limit = (CAPACITY if capacity is None else capacity) // CLUSTER_CTAS
-    cluster = _split(geoms[0])
-    nctas = [CLUSTER_CTAS if cluster and _split(g) else 1 for g in geoms]
+    cluster = _split(geoms[0], ctas)
+    nctas = [ctas if cluster and _split(g, ctas) else 1 for g in geoms]
     held = [_points(g) // n for g, n in zip(geoms, nctas)]
     offs, off = [], 0
     for k, n in enumerate(held):
-        v_off = f_off = -1
+        v_off, off = off, off + n
+        f_off = -1
         if k or with_root_relax:
-            v_off, off = off, off + n
-        if k:
             f_off, off = off, off + n
         offs.append((v_off, f_off))
+    halo = (0, 0)
+    if cluster:  # 4 halo planes, each a half's plane of the root
+        halo = (off, _points(geoms[0]) // geoms[0].padded_shape[0] // 2)
+        off += 4 * halo[1]
     if 4 * off > limit:
         return None
-    # enough threads for one point of each colour a thread, at most
-    # THREADS: the small levels' barriers then span few warps
-    per = max(n // 2 for n in held)
+    # a thread per run of up to RUN x 2 points (along x, a z-pair) of each
+    # colour, at most THREADS: the small levels' barriers then span few
+    # warps
+    per = max(n // (4 * min(RUN, g.padded_shape[0] // c))
+              for n, g, c in zip(held, geoms, nctas))
     threads = min(THREADS, max(32, -(-per // 32) * 32))
-    return {"nctas": CLUSTER_CTAS if cluster else 1, "threads": threads,
-            "smem_bytes": 4 * off,
+    return {"nctas": ctas if cluster else 1, "threads": threads,
+            "smem_bytes": 4 * off, "halo": halo,
             "levels": [(n, v, f) for n, (v, f) in zip(nctas, offs)]}
 
 
 @functools.lru_cache(maxsize=None)
 def _params(geoms, nu1: int, nu2: int, with_root_relax: bool,
-            capacity: int) -> SubtreeParams:
-    lay = layout(geoms, with_root_relax, capacity)
+            capacity: int, ctas: int = CLUSTER_CTAS) -> SubtreeParams:
+    lay = layout(geoms, with_root_relax, capacity, ctas)
     if lay is None:
         raise ValueError(
             f"the subtree rooted at {geoms[0].padded_shape} does not fit "
@@ -155,13 +174,49 @@ def _params(geoms, nu1: int, nu2: int, with_root_relax: bool,
     p = SubtreeParams(nlev=len(geoms), nu1=nu1, nu2=nu2,
                       with_root_relax=int(with_root_relax),
                       nctas=lay["nctas"], threads=lay["threads"],
-                      smem_bytes=lay["smem_bytes"])
+                      smem_bytes=lay["smem_bytes"], halo_off=lay["halo"][0],
+                      halo_plane=lay["halo"][1])
     for k, (g, (nct, v_off, f_off)) in enumerate(zip(geoms, lay["levels"])):
         (w0, w1, w2), inv_den = split_constants(g)
         lx, ly, lz = (n.bit_length() - 1 for n in g.padded_shape)
         p.lev[k] = SubLevelParams(lx, ly, lz, nct, v_off, f_off, w0, w1, w2,
                                   inv_den)
     return p
+
+
+# the launch shapes (CTAs, threads, shared memory) the card runs a cluster of
+_CLUSTERS_OK: set = set()
+
+
+def _check_cluster(params: SubtreeParams) -> None:
+    """Raise unless the card runs a cluster of this launch: asked once per
+    launch shape (cudaOccupancyMaxActiveClusters), at its first call."""
+    shape = (params.nctas, params.threads, params.smem_bytes)
+    if shape in _CLUSTERS_OK:
+        return
+    fn = build.load().lib.pdemg_subtree_clusters
+    fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
+    fn.restype = ctypes.c_int
+    clusters = ctypes.c_int(0)
+    build.check(fn(ctypes.byref(params), ctypes.byref(clusters)),
+                "subtree (cudaOccupancyMaxActiveClusters)")
+    if clusters.value < 1:
+        raise RuntimeError(
+            f"the card runs no cluster of {shape[0]} CTAs of {shape[1]} "
+            f"threads and {shape[2]} B of shared memory each (the subtree "
+            "kernel's launch); there is no smaller layout to fall back to")
+    _CLUSTERS_OK.add(shape)
+
+
+def _launch(v, f, params: SubtreeParams) -> None:
+    """One launch of the kernel on the root's dense v (updated in place)
+    and f, CUDA tensors the wrapper checked."""
+    if params.nctas > 1:
+        _check_cluster(params)
+    rc = build.load().lib.pdemg_subtree(v.data_ptr(), f.data_ptr(),
+                                        ctypes.byref(params), _stream())
+    launches["subtree"] += 1
+    build.check(rc, "subtree")
 
 
 # ------------------------------------------------------ plain version
@@ -238,11 +293,7 @@ def subtree_vcycle(v, f, problem, geoms, nu1: int, nu2: int,
         return v.copy_(subtree_vcycle_plain(v, f, problem, geoms, nu1, nu2,
                                             with_root_relax))
     _check_poisson(problem)
-    params = _params(geoms, nu1, nu2, bool(with_root_relax), CAPACITY)
-    rc = build.load().lib.pdemg_subtree(v.data_ptr(), f.data_ptr(),
-                                        ctypes.byref(params), _stream())
-    launches["subtree"] += 1
-    build.check(rc, "subtree")
+    _launch(v, f, _params(geoms, nu1, nu2, bool(with_root_relax), CAPACITY))
     return v
 
 

@@ -278,8 +278,8 @@ def test_presets_plan_at_their_real_sizes():
     """The 3D presets (129^3 and 257^3, FMG(2, 3000, 3000), relaxed to
     2^3) on CPU tensors' geometry: every root of 64^3 and below fused,
     the 128^3 level by the half-sweeps, 256^3 by the wavefront; the 64^3
-    root's layout holds its v (and not its f) in shared memory, within
-    one CTA's 227 KB."""
+    root's layout holds its v and its f in shared memory, 64^3, 32^3 and
+    16^3 cut over one 16-CTA cluster, within one CTA's 227 KB."""
     for name, top in (("poisson3d", [False]), ("poisson3d-cuda",
                                                [False, False])):
         p = PRESETS[name]
@@ -292,10 +292,11 @@ def test_presets_plan_at_their_real_sizes():
         wave = [R.timeskew_plan(g) for g in tg[:len(top)]]
         assert wave == ([False] if p["n"] == 129 else [True, False])
     lay = S.layout(tuple(tg[2:]), True)
-    assert lay["nctas"] == S.CLUSTER_CTAS and lay["threads"] == S.THREADS
-    assert lay["levels"][0][1] >= 0 and lay["levels"][0][2] == -1
+    assert lay["nctas"] == S.CLUSTER_CTAS == 16
+    assert lay["threads"] == S.THREADS
+    assert lay["levels"][0][1] >= 0 and lay["levels"][0][2] >= 0
     assert lay["smem_bytes"] <= S.MAX_SMEM_BYTES
-    assert [n for n, _, _ in lay["levels"]] == [8, 8, 1, 1, 1, 1]
+    assert [n for n, _, _ in lay["levels"]] == [16, 16, 16, 1, 1, 1]
 
 
 # ---------------------------------------------------------- (e) wrapper
@@ -374,22 +375,145 @@ def test_fmg_through_the_hooks_matches_jax_pallas():
 
 def test_layout_reads_the_root_f_from_device_memory():
     """At every root of the 129^3 preset hierarchy, 64^3 ... 2^3, the
-    kernel's layout reads the root's f from device memory (offset -1) and
-    holds the root's v and every deeper level's v and f in shared memory,
-    the arrays packed without overlap; the correction-only variant reads
-    the root's v from device memory too and needs less."""
+    kernel's layout holds every level's v and f in shared memory, the
+    root's f loaded beside its v, each level's v then f, packed without
+    overlap; the correction-only variant reads the root's f from device
+    memory (offset -1) and needs that much less."""
     tg = TG.build_geometries((129,) * 3, DOM, wrap=True)
     for l in range(1, len(tg)):
         sub = tuple(tg[l:])
         full = S.layout(sub, True)
-        assert full["levels"][0][1:] == (0, -1)
-        offs = [o for _, v, f in full["levels"] for o in (v, f) if o >= 0]
         held = [int(np.prod(g.padded_shape)) // n
                 for g, (n, _, _) in zip(sub, full["levels"])]
+        offs = [o for _, v, f in full["levels"] for o in (v, f)]
         assert offs == [0] + list(np.cumsum(
-            [held[0]] + [h for h in held[1:] for _ in (0, 1)])[:-1])
-        assert full["smem_bytes"] == 4 * (held[0] + 2 * sum(held[1:]))
+            [h for h in held for _ in (0, 1)])[:-1])
+        # a split root's halo planes after the levels: 4 of a half's plane
+        off, plane = full["halo"]
+        g = sub[0].padded_shape
+        split = full["nctas"] > 1
+        assert (off, plane) == ((2 * sum(held), g[1] * g[2] // 2) if split
+                                else (0, 0))
+        assert full["smem_bytes"] == 4 * (2 * sum(held) + 4 * plane)
         if len(sub) > 1:
             corr = S.layout(sub, False)
-            assert corr["levels"][0][1:] == (-1, -1)
+            assert corr["levels"][0][1:] == (0, -1)
+            assert corr["levels"][1:] == [
+                (n, v - held[0], f - held[0])
+                for n, v, f in full["levels"][1:]]
+            assert corr["halo"] == ((off - held[0], plane) if split
+                                    else (0, 0))
             assert corr["smem_bytes"] == full["smem_bytes"] - 4 * held[0]
+
+
+def _roots():
+    """(root, with_root_relax) of the 65^3 wrap hierarchy: every root of
+    64^3 ... 2^3 whole, and the correction where a coarser level exists."""
+    return [(l, wr) for l in range(6) for wr in (True, False)
+            if wr or l < 5]
+
+
+def _owned_planes(lay, sub):
+    """Per level, the x-planes each CTA of the launch holds, as the kernel
+    cuts them (csrc/halves3d.cuh view_of: CTA r of n the planes
+    [r X / n, (r + 1) X / n); a level on CTA 0 whole there)."""
+    out = []
+    for g, (n, _, _) in zip(sub, lay["levels"]):
+        X = g.padded_shape[0]
+        out.append([list(range(r * X // n, (r + 1) * X // n))
+                    for r in range(n)])
+    return out
+
+
+@pytest.mark.parametrize("l,with_root_relax", _roots())
+def test_layout_fits_every_root(l, with_root_relax):
+    """Every root 64^3 ... 2^3 in both variants fits one CTA's shared
+    memory; a split level's x-planes are held exactly once over the
+    cluster, each CTA's slab a whole number of the kernel's runs, and its
+    arrays sized to that slab; the root's f lies in shared memory exactly
+    when the root is relaxed; a split root's halo planes, one per colour
+    and side, hold a half's plane of every split level and lie past every
+    level's arrays, 16-byte aligned."""
+    _, tg = _hier(65)
+    sub = tuple(tg[l:])
+    lay = S.layout(sub, with_root_relax)
+    assert lay is not None and 0 < lay["smem_bytes"] <= S.MAX_SMEM_BYTES
+    assert (lay["levels"][0][2] >= 0) == with_root_relax
+    assert 32 <= lay["threads"] <= S.THREADS and lay["threads"] % 32 == 0
+    cut = False
+    for g, (n, v, f), planes in zip(sub, lay["levels"],
+                                    _owned_planes(lay, sub)):
+        X, Y, Z = g.padded_shape
+        assert n in (1, lay["nctas"])
+        assert sorted(x for p in planes for x in p) == list(range(X))
+        slab = X // n
+        assert slab % S.RUN == 0 or slab in (1, 2)
+        assert 4 * (v + slab * Y * Z) <= lay["smem_bytes"]
+        assert f < 0 or 4 * (f + slab * Y * Z) <= lay["smem_bytes"]
+        if n > 1:
+            assert not cut  # the split levels come first
+            off, plane = lay["halo"]
+            assert Y * Z // 2 <= plane and v % 4 == 0
+            assert max(v, f) + slab * Y * Z <= off and off % 4 == 0
+            assert 4 * (off + 4 * plane) <= lay["smem_bytes"]
+        cut = cut or n == 1
+    assert lay["nctas"] == (16 if sub[0].padded_shape[0] > 8 else 1)
+
+
+@pytest.mark.parametrize("root,ctas,fits", [(64, 16, True), (64, 8, False),
+                                            (32, 16, True), (32, 8, True)])
+def test_layout_cluster_per_root(root, ctas, fits):
+    """A split root's cluster: 16 CTAs hold a 64^3 root's v and f (8 do
+    not: 256 KB a CTA), the 32^3 root runs on either; the layout takes 16
+    by default, and a level below on CTA 0 keeps its arrays whole whatever
+    the cluster."""
+    _, tg = _hier(65)
+    sub = tuple(tg[[g.padded_shape[0] for g in tg].index(root):])
+    lay = S.layout(sub, True, ctas=ctas)
+    assert (lay is not None) == fits
+    if fits:
+        assert lay["nctas"] == ctas
+        assert [n for n, _, _ in lay["levels"]] == [
+            ctas if g.padded_shape[0] >= 16 else 1 for g in sub]
+        for g, (n, _, _), planes in zip(sub, lay["levels"],
+                                        _owned_planes(lay, sub)):
+            assert [len(p) for p in planes] == [g.padded_shape[0] // n] * n
+    default = S.layout(sub, True)
+    assert default["nctas"] == S.CLUSTER_CTAS
+
+
+@pytest.mark.parametrize("n", [129, 257])
+def test_no_correction_fits_at_128(n):
+    """At the kernel's capacity (16 CTAs of 227 KB) neither variant rooted
+    at 128^3 fits: the correction-only variant holds the root's v, 512 KB
+    a CTA.  So the plan fuses nothing above 64^3, as JAX's budgets do."""
+    _, tg = _hier(n)
+    l128 = [g.padded_shape[0] for g in tg].index(128)
+    for wr in (True, False):
+        assert S.layout(tuple(tg[l128:]), wr) is None
+    assert S.layout(tuple(tg[l128 + 1:]), True) is not None
+    assert S.CAPACITY == 16 * S.MAX_SMEM_BYTES
+
+
+def test_refused_cluster_raises(monkeypatch):
+    """Where the card runs no cluster of the launch
+    (cudaOccupancyMaxActiveClusters 0), the launch raises before any
+    kernel is launched: no fallback to a smaller cluster or to the plain
+    version.  The card is asked once per launch shape."""
+    asked = []
+
+    def clusters(params, out):
+        asked.append(params._obj.nctas)
+        out._obj.value = 0
+        return 0
+
+    lib = type("Lib", (), {"pdemg_subtree_clusters": staticmethod(clusters)})
+    monkeypatch.setattr(S.build, "load", lambda: type("L", (), {"lib": lib}))
+    _, tg = _hier(65)
+    params = S._params(tuple(tg), 1, 1, True, S.CAPACITY)
+    assert params.nctas == 16
+    v, f = (torch.tensor(a) for a in _vf(tg[0].padded_shape, seed=5))
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="no cluster of 16 CTAs"):
+            S._launch(v, f, params)
+    assert asked == [16, 16]  # a refusal is not remembered
