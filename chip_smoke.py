@@ -11,11 +11,13 @@ Phases, in order; any failure exits non-zero without the final result line:
      card, at the 129^3 main path's shapes (128^3 fine, 64^3 coarse), and
      each one's time beside the plain version's (CUDA events); the bf16
      defect trio (residual_split, error_sweep, merge_fold) included; then
-     the time-skewed wavefront (timeskew.cu, T = 2 sweeps per launch),
-     bitwise on small and odd-tiled levels and at 256^3 and 512^3 over 1,
-     T, 2T + 1 and 100 sweeps, a 100-sweep leg timed beside its plain
-     version, and (dense in and out) beside the half-sweep chain and the
-     bf16 defect leg, and at 128^3 and 64^3 beside the half-sweeps; then
+     the time-skewed wavefront (timeskew.cu, T = 4 sweeps per launch on
+     a 16-CTA cluster), bitwise on small and odd-tiled levels and at
+     256^3 and 512^3 over 1 ... 2T + 1 and 100 sweeps, with and without
+     v_zero, a 100-sweep leg timed beside its plain version and at every
+     T the kernel is built for, and (dense in and out) beside the
+     half-sweep chain and the bf16 defect leg, and at 128^3 and 64^3
+     beside the half-sweeps; then
      the fused coarse-subtree V-cycle (subtree.cu) bitwise against the
      unfused chain of the port's kernels and against its plain version at
      the roots 64^3 ... 2^3, nu = (1, 1), (1, 0), (2, 3), with and without
@@ -133,7 +135,8 @@ Phases, in order; any failure exits non-zero without the final result line:
  12. the sharded solve (`parallel/`): the per-shard kernels bitwise
      against their plain versions, the time-skew chunk (timeskew.cu's
      shard mode) on every shard of the 256^3 level split over 1, 2 and 4
-     ranks at t = 1, 2, 4 sweeps and on odd-tiled small levels, the
+     ranks at t = 1, 2, 4 and 2T + 1 sweeps and on odd-tiled small
+     levels, the
      shards' owned windows composed against the single-chip wavefront, the
      masked block (masked_block.cu) on the 128^3 level's extended blocks
      over 1, 2 and 4 ranks at t = 1 and 4, each chunk timed beside its
@@ -781,17 +784,28 @@ def phase_kernels(torch):
     return out
 
 
+def timeskew_leg_bytes(shape, nsweeps: int, T: int) -> int:
+    """The HBM bytes a wavefront leg moves at T sweeps a launch on halves
+    `shape`: every launch reads b, fr and fb once and writes b once, the
+    last one also r (relax.timeskew_relax_halves)."""
+    X, Y2, Z = shape
+    n = X * Y2 * Z * 4
+    return -(-nsweeps // T) * 4 * n + n
+
+
 def phase_kernels_timeskew(torch):
     """The wavefront kernel (csrc/timeskew.cu) against its plain version,
     bitwise: on small and odd-tiled wrap levels (16^3, 32^3, 64^3, a
-    (10, 13, 38) and a (64, 65, 100) halves level, neither j nor z a
-    multiple of the window's owned columns) over nu = 1, T, 2T + 1 (a
-    remainder launch alone, one launch of T sweeps, a chain with a
-    remainder), with and without v_zero; then at the 256^3 and 512^3
-    levels over nu = 1, T, 2T + 1 and 100.  On those two levels a 100-sweep
-    leg on halves is timed beside the plain version, and the dense
-    100-sweep leg (black-only split of v, split of f, sweeps, merge) of the
-    wavefront beside the two chains it replaces or stands beside: the f32
+    (10, 13, 38) and a (64, 65, 100) halves level: clusters of 8 and 16
+    CTAs, one CTA of 13 rows, bands with recomputed halos, 2 z points a
+    thread where Z % 4 != 0) and at the 256^3 and 512^3 levels, over
+    nu = 1 ... 2T + 1 (every remainder launch, one launch of T, chains
+    with each remainder) and 100, with and without v_zero.  On 256^3 and
+    512^3 a 100-sweep leg on halves timed beside the plain version at
+    T = TIMESKEW_T (the record, with its HBM traffic over its time), and
+    at every T the kernel is built for; the dense 100-sweep leg
+    (black-only split of v, split of f, sweeps, merge) of the wavefront
+    beside the two chains it replaces or stands beside: the f32
     half-sweeps (one launch each, `make_split_relax`) and the bf16 defect
     leg (the mixed plan's choice on these levels).  On 128^3 and 64^3,
     below the gate, the dense leg of the wavefront beside the half-sweeps
@@ -809,6 +823,7 @@ def phase_kernels_timeskew(torch):
     rng = np.random.default_rng(2027)
     T = R.TIMESKEW_T
     nsw = 100
+    nus = (*range(1, 2 * T + 2), nsw)
     out = {}
 
     def rand(shape):
@@ -829,6 +844,10 @@ def phase_kernels_timeskew(torch):
                 f" not bitwise: max diff {err!r}")
         return err
 
+    def check_all(g, b, fr, fb):
+        return max(check(g, b, fr, fb, ns, vz) for ns in nus
+                   for vz in (False, True))
+
     def dense_legs(g, legs):
         v = rand(g.padded_shape) * torch.tensor(
             wrap_interior(g.padded_shape), device=dev)
@@ -844,42 +863,60 @@ def phase_kernels_timeskew(torch):
              (65, 131, 101))
     for shape in small:
         g = build_geometries(shape, prob.domain, 1, wrap=True)[0]
-        b, fr, fb = halves(g)
-        for ns in (1, T, 2 * T + 1):
-            for v_zero in (False, True):
-                check(g, b, fr, fb, ns, v_zero)
-    log(f"kernel timeskew: bitwise against its plain version at nu = 1, "
-        f"{T}, {2 * T + 1}, with and without v_zero, on the halves levels "
+        check_all(g, *halves(g))
+    log(f"kernel timeskew: bitwise against its plain version at nu = "
+        f"{nus}, with and without v_zero, on the halves levels "
         f"{[(s[0] - 1, (s[1] - 1) // 2, s[2] - 1) for s in small]}")
 
     for name, n in (("timeskew", 257), ("timeskew_jb", 513)):
         g = build_geometries((n,) * 3, prob.domain, 1, wrap=True)[0]
         b, fr, fb = halves(g)
-        err = max(check(g, b, fr, fb, ns) for ns in (1, T, 2 * T + 1, nsw))
+        shape = tuple(fr.shape)
+        err = check_all(g, b, fr, fb)
         t = paired_times(
             torch,
             lambda: R.timeskew_relax_halves(b, fr, fb, nsw, prob, g),
             lambda: R.timeskew_sweeps_plain(b, fr, fb, nsw, prob, g), 1)
+        # the T ladder: the same leg at every T the kernel is built for
+        ladder = {}
+        for tt in range(1, R.TIMESKEW_MAX_T + 1):
+            ms = device_ms(torch, lambda tt=tt: R.timeskew_relax_halves(
+                b, fr, fb, nsw, prob, g, T=tt), 1)
+            ladder[f"T{tt}"] = {
+                "ms": ms, "launches": -(-nsw // tt),
+                "hbm_share": timeskew_leg_bytes(shape, nsw, tt)
+                / (ms * 1e-3) / HBM_BYTES_PER_S,
+                "layout": {k: v for k, v in R.timeskew_launch_layout(
+                    *shape, tt, 4, shape[0]).items()
+                    if k in ("ctas", "rows", "bands", "chunks", "lx",
+                             "clusters", "redundancy")}}
         dense = dense_legs(g, {
             "wavefront": R.make_timeskew_relax(prob, g),
             "half_sweeps": R.make_split_relax(prob, g),
             "defect": D.plan_defect_relax(prob, g, torch.float32)})
         # the leg reads b, fr and fb once and writes r and b once; per
         # sweep and updated point 13 operations (3 pair sums, 3 products
-        # and 3 sums, the negation, the scale, the select)
+        # and 3 sums, the negation, the scale, the select).  hbm_share:
+        # the bytes the leg's launches move at T (timeskew_leg_bytes)
+        # over its time, against the HBM rate
         nl = -(-nsw // T)
+        hbm = timeskew_leg_bytes(shape, nsw, T)
         out[name] = {"max_abs_err": err, "ms": t["ms"],
                      "plain_ms": t["plain_ms"],
                      **bound(5 * fr.nbytes,
                              nsw * 13 * updated_points(g.padded_shape)),
-                     "library_ms": None}
-        TIMESKEW_AB[f"{n - 1}^3"] = dense
+                     "library_ms": None,
+                     "hbm_share": hbm / (t["ms"] * 1e-3) / HBM_BYTES_PER_S}
+        TIMESKEW_AB[f"{n - 1}^3"] = {**dense, "ladder": ladder}
         log(f"kernel {name} ({n - 1}^3, one {nsw}-sweep leg on halves, "
-            f"T = {T}, {nl} launches): bitwise at nu = 1, {T}, {2 * T + 1}, "
-            f"{nsw}; device {t['ms']!r} ms vs plain {t['plain_ms']!r} ms "
-            f"(bound {out[name]['bound_ms']!r} ms by "
-            f"{out[name]['bound_by']}); eager {t['eager_ms']!r} ms vs plain "
-            f"{t['eager_plain_ms']!r} ms; dense leg ms: {dense!r}")
+            f"T = {T}, {nl} launches): bitwise at nu = {nus}, with and "
+            f"without v_zero; device {t['ms']!r} ms vs plain "
+            f"{t['plain_ms']!r} ms (bound {out[name]['bound_ms']!r} ms by "
+            f"{out[name]['bound_by']}; {hbm / 1e9:.3f} GB at T = {T}, "
+            f"{out[name]['hbm_share']:.3f} of the HBM rate); eager "
+            f"{t['eager_ms']!r} ms vs plain {t['eager_plain_ms']!r} ms; "
+            f"T ladder {ladder!r}; dense leg ms: {dense!r}")
+        del b, fr, fb
     for n in (129, 65):
         g = build_geometries((n,) * 3, prob.domain, 1, wrap=True)[0]
         dense = dense_legs(g, {"wavefront": R.make_timeskew_relax(prob, g),
@@ -3307,8 +3344,8 @@ def phase_kernels_shard(torch):
     """The per-shard kernels against their plain versions on the card,
     bitwise.  The time-skew chunk (`relax.timeskew_shard`, timeskew.cu's
     shard mode) on every shard of the 256^3 level split over 1, 2 and 4
-    ranks at t = 1, 2, 4 (random slabs, the raw halo planes included) and
-    on odd-tiled small levels; the shards' owned windows composed equal
+    ranks at t = 1, 2, 4 and 2T + 1 (random slabs, the raw halo planes
+    included) and on odd-tiled small levels; the shards' owned windows composed equal
     the single-chip wavefront's t sweeps; the masked block
     (`masked_block.masked_block`) on the 128^3 level's extended blocks of
     every shard over 1, 2 and 4 ranks at t = 1 and 4 with the shards' own
@@ -3358,8 +3395,10 @@ def phase_kernels_shard(torch):
 
     g256 = geom((257,) * 3)
     err = 0.0
+    # t = 2T + 1: a launch of T and a remainder launch over a wider window
+    long_t = 2 * R.TIMESKEW_T + 1
     for n in (1, 2, 4):
-        for t in (1, 2, 4):
+        for t in (1, 2, 4, long_t):
             err = max(err, ts_check(g256, n, t))
     small = (((17, 27, 39), 2), ((33, 131, 101), 4), ((33, 33, 33), 8))
     for shape, n in small:
@@ -3404,9 +3443,11 @@ def phase_kernels_shard(torch):
                                      13 * t * updated_points((x_loc, Y, Z))),
                              "library_ms": None}
     log(f"kernel timeskew_shard: bitwise against its plain version on every "
-        f"shard of 256^3 over 1, 2, 4 ranks at t = 1, 2, 4, on {small}, and "
+        f"shard of 256^3 over 1, 2, 4 ranks at t = 1, 2, 4, {long_t}, on "
+        f"{small}, and "
         f"composed over 2 and 4 ranks against the single-chip wavefront; "
-        f"one t = {t} chunk ({XE} slab planes, {-(-t // R.TIMESKEW_T)} "
+        f"one t = {t} chunk ({XE} slab planes, "
+        f"{len(R.shard_windows(t, x_loc))} "
         f"launches): device {tm['ms']!r} ms vs plain {tm['plain_ms']!r} ms "
         f"(bound {out['timeskew_shard']['bound_ms']!r} ms by "
         f"{out['timeskew_shard']['bound_by']}); eager {tm['eager_ms']!r} ms")

@@ -56,13 +56,16 @@ SIGNATURES = {
     "pdemg_error_half_sweep": (
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
     ),
+    # the wavefront takes its launch geometry as a pointer to a host
+    # struct (relax.TimeskewLayout)
     "pdemg_timeskew": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
     ),
     "pdemg_timeskew_shard": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-        _F, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+        _F, _F, _P,
     ),
+    "pdemg_timeskew_clusters": (_P, _I, _P),
     "pdemg_masked_block": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
     "pdemg_blocked3d": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,

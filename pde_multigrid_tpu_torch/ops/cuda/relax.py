@@ -22,6 +22,7 @@ a CUDA tensor to the plain version.  `launches` counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 
@@ -42,9 +43,20 @@ RED, BLACK = 0, 1
 # timeskew_plan); the card's own crossover is ROADMAP queue 2 item 39
 TIMESKEW_MIN_PLANE = 16384
 # sweeps per wavefront launch, from an A/B on the card at 256^3 and 512^3
-# (PERF.md); csrc/timeskew.cu is built for T = TIMESKEW_T and for T = 1,
-# the remainder launch of an odd leg
-TIMESKEW_T = 2
+# (PERF.md); csrc/timeskew.cu is built for T = 1 ... TIMESKEW_MAX_T, the
+# smaller ones serving the remainder launch of a leg
+TIMESKEW_T = 4
+TIMESKEW_MAX_T = 4
+# the wavefront's launch limits: threads per CTA, CTAs per cluster
+# (non-portable past 8: the launch raises where the card refuses it), and
+# the dynamic shared memory a CTA may hold (227 KB less the 16 B of its
+# two halo mbarriers)
+TIMESKEW_THREADS = 512
+TIMESKEW_CTAS = 16
+TIMESKEW_SMEM_BYTES = 232448 - 16
+# the resident clusters `timeskew_layout` assumes where no card is asked
+# (the wrapper asks the card once per launch shape)
+TIMESKEW_CLUSTERS = 8
 
 launches = {"split": 0, "merge": 0, "half_sweep": 0, "error_sweep": 0,
             "timeskew": 0, "timeskew_shard": 0}
@@ -385,23 +397,199 @@ def error_sweeps(rr, rb, nsweeps: int, problem, geom: LevelGeometry):
     return er, eb
 
 
+class TimeskewLayout(ctypes.Structure):
+    """csrc/timeskew.cu `TimeskewLayout`: the wavefront's launch
+    geometry."""
+
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("k", "ctas", "rows", "band", "halo", "bands", "chunks",
+                 "lx", "threads", "smem_bytes")]
+
+
+def _timeskew_smem(rows: int, Z: int, T: int) -> int:
+    """Bytes of shared memory a CTA of `rows` j rows needs: two step
+    parities of a tile of rows + 2 rows (the halo rows) x 2T levels x Z
+    points, each level's even and odd points padded to a multiple of 4."""
+    zp = -(-(Z // 2) // 4) * 4
+    return 2 * (rows + 2) * 2 * 2 * T * zp * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _timeskew_tile(Y2: int, Z: int, T: int, k: int):
+    """(ctas, rows, band, halo, bands): the cluster's CTAs, the j rows each
+    holds (every z), the rows a band owns, the rows it computes past each
+    outer edge (0: its ring is the level's own j wrap) and the bands over
+    Y2.  One band over the whole half-plane when the card holds it (the
+    largest cluster of 16, 8, 4, 2 or 1 CTAs dividing Y2 into CTAs of at
+    most the rows a CTA's threads and shared memory take); otherwise bands
+    that recompute 2T rows past each outer edge, on the fewest CTAs whose
+    band covers Y2, or 16 CTAs of the most rows."""
+    if T < 1 or T > TIMESKEW_MAX_T:
+        raise ValueError(f"T = {T}: the wavefront is built for T = 1 ... "
+                         f"{TIMESKEW_MAX_T}")
+    if Z % 2 or Z % k or k not in (2, 4):
+        raise ValueError(f"Z = {Z}, k = {k}: the wavefront takes an even Z "
+                         "and k = 2 or 4 points a thread")
+    per_row = Z // k
+    rmax = TIMESKEW_THREADS // per_row
+    while rmax >= 1 and _timeskew_smem(rmax, Z, T) > TIMESKEW_SMEM_BYTES:
+        rmax -= 1
+    if rmax < 1:
+        raise ValueError(f"Z = {Z}: a row of the half-plane does not fit "
+                         "one CTA of the wavefront")
+    for c in (16, 8, 4, 2, 1):
+        if Y2 % c == 0 and Y2 // c <= rmax:
+            return c, Y2 // c, Y2, 0, 1
+    halo = 2 * T
+    for c in (1, 2, 4, 8, 16):
+        if c * rmax - 2 * halo >= Y2:
+            rows = -(-(Y2 + 2 * halo) // c)
+            return c, rows, c * rows - 2 * halo, halo, 1
+    band = TIMESKEW_CTAS * rmax - 2 * halo
+    if band < 1:
+        raise ValueError(f"halves (Y/2, Z) = {(Y2, Z)}: a band of the "
+                         f"wavefront at T = {T} owns no row")
+    return TIMESKEW_CTAS, rmax, band, halo, -(-Y2 // band)
+
+
+@functools.lru_cache(maxsize=None)
+def _x_chunks(W: int, bands: int, T: int, slots: int):
+    """(chunks, lx): the x chunks of a window of W planes, each of lx
+    planes (even), that minimise waves x steps, with `slots` clusters
+    resident on the card at once, one per band and chunk, and a chunk of
+    lx planes taking lx + 4T steps."""
+    best = None
+    for c in range(1, W + 1):
+        lx = -(-W // c)
+        lx += lx % 2
+        if -(-W // lx) != c:  # the same chunks as a smaller c
+            continue
+        cost = -(-bands * c // slots) * (lx + 4 * T)
+        if best is None or cost < best[0]:
+            best = (cost, c, lx)
+    return best[1], best[2]
+
+
+def timeskew_layout(X: int, Y2: int, Z: int, T: int,
+                    clusters: int = TIMESKEW_CLUSTERS, k: int | None = None,
+                    window: int | None = None) -> dict:
+    """The wavefront kernel's launch geometry on halves (X, Y/2, Z) at T
+    sweeps a launch, with `clusters` clusters resident on the card (the
+    wrapper asks the card) and the window of `window` planes written
+    (default X): a dict with "k" (z points a thread: 4, or 2 where Z % 4 or
+    the tensors' alignment forbid 16-byte access), "ctas" (the cluster,
+    along j), "rows" (j rows per CTA: the CTA tile is rows x Z),
+    "threads", "smem_bytes" (per CTA), "band" (rows a band owns), "halo"
+    (rows it recomputes past each outer edge: 0 when one band covers the
+    half-plane and its ring is the level's own j wrap), "bands",
+    "chunks" and "lx" (the x chunks, each lx planes), and "redundancy":
+    updates computed / updates needed, bands x ctas x rows / Y2 times
+    (W + 4T chunks) / W."""
+    if k is None:
+        k = 4 if Z % 4 == 0 else 2
+    ctas, rows, band, halo, bands = _timeskew_tile(Y2, Z, T, k)
+    W = X if window is None else window
+    if W < 1 or clusters < 1:
+        raise ValueError(f"window {W}, clusters {clusters}")
+    chunks, lx = _x_chunks(W, bands, T, clusters)
+    threads = -(-rows * (Z // k) // 32) * 32
+    return {"k": k, "ctas": ctas, "rows": rows, "threads": threads,
+            "smem_bytes": _timeskew_smem(rows, Z, T), "band": band,
+            "halo": halo, "bands": bands, "chunks": chunks, "lx": lx,
+            "redundancy": bands * ctas * rows / Y2 * (W + 4 * T * chunks)
+            / W}
+
+
+def timeskew_rows(lay: dict, Y2: int) -> list:
+    """The kernel's rows of a layout: for every band, CTA and row of the
+    CTA, (j, owned): the half-plane row it computes (the band's rows start
+    `halo` rows before its first owned one, wrapping modulo Y2) and
+    whether it writes it out (csrc/timeskew.cu `jg`, `owned`)."""
+    out = []
+    for band in range(lay["bands"]):
+        first = band * lay["band"]
+        for cta in range(lay["ctas"]):
+            for i in range(lay["rows"]):
+                pos = cta * lay["rows"] + i
+                j = (first - lay["halo"] + pos) % Y2
+                owned = (lay["halo"] <= pos < lay["halo"] + lay["band"]
+                         and first + pos - lay["halo"] < Y2)
+                out.append((j, owned))
+    return out
+
+
+def _layout_struct(lay: dict) -> TimeskewLayout:
+    return TimeskewLayout(*(lay[n] for n, _ in TimeskewLayout._fields_))
+
+
+# resident clusters by launch shape (T, k, ctas, threads, shared memory),
+# asked once each outside any capture
+_TIMESKEW_CLUSTERS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def timeskew_launch_layout(X: int, Y2: int, Z: int, T: int, k: int,
+                           window: int) -> dict:
+    """`timeskew_layout` of a launch on the card, its x chunks sized for
+    the clusters the card holds of its tile (cudaOccupancyMaxActiveClusters,
+    asked once per launch shape, in "clusters"); raises where the card runs
+    no such cluster (there is no smaller layout to fall back to)."""
+    tile = timeskew_layout(X, Y2, Z, T, k=k, window=window)
+    shape = (T, k, tile["ctas"], tile["threads"], tile["smem_bytes"])
+    if shape not in _TIMESKEW_CLUSTERS:
+        n = ctypes.c_int(0)
+        build.check(build.load().lib.pdemg_timeskew_clusters(
+            ctypes.byref(_layout_struct(tile)), T, ctypes.byref(n)),
+            "timeskew (cudaOccupancyMaxActiveClusters)")
+        if n.value < 1:
+            raise RuntimeError(
+                f"the card runs no cluster of {tile['ctas']} CTAs of "
+                f"{tile['threads']} threads and {tile['smem_bytes']} B of "
+                "shared memory each (the wavefront's launch)")
+        _TIMESKEW_CLUSTERS[shape] = n.value
+    clusters = _TIMESKEW_CLUSTERS[shape]
+    return {**timeskew_layout(X, Y2, Z, T, clusters, k, window),
+            "clusters": clusters}
+
+
+@functools.lru_cache(maxsize=None)
+def _timeskew_launch(X: int, Y2: int, Z: int, T: int, k: int,
+                     window: int) -> TimeskewLayout:
+    return _layout_struct(timeskew_launch_layout(X, Y2, Z, T, k, window))
+
+
+def _launch_k(Z: int, *ts: torch.Tensor) -> int:
+    """4 z points a thread (16-byte access) where Z % 4 == 0 and every
+    tensor is 16-byte aligned, else 2."""
+    ok = Z % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ts)
+    return 4 if ok else 2
+
+
+def leg_launches(nsweeps: int, T: int = TIMESKEW_T) -> list[int]:
+    """The sweeps of each launch of an nsweeps leg (relax_raw's chain):
+    nsweeps // T launches of T, then one of nsweeps % T."""
+    n_full, rem = divmod(nsweeps, T)
+    return [T] * n_full + [rem] * (rem > 0)
+
+
 def timeskew_relax_halves(b, fr, fb, nsweeps: int, problem,
-                          geom: LevelGeometry, v_zero: bool = False):
+                          geom: LevelGeometry, v_zero: bool = False,
+                          T: int = TIMESKEW_T):
     """(r, b) after `nsweeps` red->black sweeps from the black half `b`
     (not read with `v_zero`, and then may be None) and the RHS halves
     (fr, fb), as `relax_raw` chains the TPU wavefront (relax.py:1744-1769):
-    nsweeps // T launches of T = TIMESKEW_T sweeps, then one of the
-    nsweeps % T left, each from the previous launch's b.  New tensors;
-    the inputs are not written."""
+    nsweeps // T launches of T (default TIMESKEW_T) sweeps, then one of the
+    nsweeps % T left, each from the previous launch's b; only the last
+    launch writes r.  New tensors; the inputs are not written."""
     if nsweeps < 1:
         raise ValueError(f"nsweeps {nsweeps}: the wavefront runs >= 1 sweep")
     on_cuda = _check_sweep_args(fr, fr if v_zero else b, fb, geom)
     X, Y2, Z = fr.shape
-    # the kernel holds two z points per thread and 32-bit element offsets
-    if Z % 2 or (X + 16) * Y2 * Z >= 2**31:
+    # 32-bit element offsets, formed for planes inside the level only
+    if Z % 2 or X * Y2 * Z >= 2**31:
         raise ValueError(
             f"halves {(X, Y2, Z)}: the wavefront takes an even Z and "
-            "(X + 16) * Y/2 * Z < 2^31 points")
+            "X * Y/2 * Z < 2^31 points")
     if not on_cuda:
         return timeskew_sweeps_plain(b, fr, fb, nsweeps, problem, geom,
                                      v_zero)
@@ -413,13 +601,16 @@ def timeskew_relax_halves(b, fr, fb, nsweeps: int, problem,
     stream = _stream()
     r = torch.empty_like(fr)
     bufs = (torch.empty_like(fr), torch.empty_like(fr))  # ping-pong b
+    k = _launch_k(Z, r, *bufs, fr, fb, *(() if v_zero else (b,)))
     src = None if v_zero else b
-    n_full, rem = divmod(nsweeps, TIMESKEW_T)
-    for k, t in enumerate([TIMESKEW_T] * n_full + [rem] * (rem > 0)):
-        dst = bufs[k % 2]
-        rc = fn(None if src is None else src.data_ptr(), fr.data_ptr(),
-                fb.data_ptr(), r.data_ptr(), dst.data_ptr(), X, Y2, Z, t,
-                int(src is None), w0, w1, w2, inv_den, stream)
+    ts = leg_launches(nsweeps, T)
+    for i, t in enumerate(ts):
+        dst = bufs[i % 2]
+        lay = _timeskew_launch(X, Y2, Z, t, k, X)
+        rc = fn(ctypes.byref(lay), None if src is None else src.data_ptr(),
+                fr.data_ptr(), fb.data_ptr(),
+                r.data_ptr() if i == len(ts) - 1 else None, dst.data_ptr(),
+                X, Y2, Z, t, int(src is None), w0, w1, w2, inv_den, stream)
         launches["timeskew"] += 1
         timeskew_by_level[(X, Y2, Z)] = timeskew_by_level.get((X, Y2, Z),
                                                               0) + 1
@@ -484,10 +675,11 @@ def timeskew_shard(b_ext, fr_w, fb_w, g0: int, t: int, problem,
     """One chunk of the sharded time-skew engine: `t` sweeps of
     `timeskew_shard_plain`'s function, whose owned window [2t, 2t + x_loc)
     is written into `b_out` (and `r_out`, when given: the last chunk of a
-    leg), (x_loc, Y/2, Z) halves.  On CUDA tensors ceil(t / 2) launches of
-    csrc/timeskew.cu's shard mode (T = 2, then 1 for an odd t), each over
-    the window the next one reads, the last one into the outputs; the
-    inputs are not written."""
+    leg), (x_loc, Y/2, Z) halves.  On CUDA tensors the launches of
+    csrc/timeskew.cu's shard mode that `shard_windows` lists (t // T of T =
+    TIMESKEW_T sweeps, then one of t % T), each over the window the next
+    one reads, the last one into the outputs; the inputs are not
+    written."""
     XE, Y2, Z = _check_shard(b_ext, fr_w, fb_w, g0, t, geom, x_loc)
     outs = (b_out,) if r_out is None else (b_out, r_out)
     if any(tuple(o.shape) != (x_loc, Y2, Z) for o in outs):
@@ -501,39 +693,49 @@ def timeskew_shard(b_ext, fr_w, fb_w, g0: int, t: int, problem,
             r_out.copy_(r[2 * t:2 * t + x_loc])
         return b_out, r_out
     _check_poisson(problem)
-    if Z % 2 or (XE + 16) * Y2 * Z >= 2**31:
+    if Z % 2 or XE * Y2 * Z >= 2**31:
         raise ValueError(f"halves {(XE, Y2, Z)}: the wavefront takes an even "
-                         "Z and (X + 16) * Y/2 * Z < 2^31 points")
+                         "Z and X * Y/2 * Z < 2^31 points")
     if any(a.data_ptr() % 8 for a in (b_ext, fr_w, fb_w, *outs)):
         raise ValueError("the wavefront kernel reads 8-byte aligned halves")
     (w0, w1, w2), inv_den = split_constants(geom)
     fn = build.load().lib.pdemg_timeskew_shard
     stream = _stream()
-    ts = [TIMESKEW_T] * (t // TIMESKEW_T) + [t % TIMESKEW_T] * (
-        t % TIMESKEW_T > 0)
-    # windows, last launch first: the owned window, then each earlier
-    # launch's widened by the 2T planes the next one reads on either side
-    wins = [(2 * t, 2 * t + x_loc)]
-    for tk in reversed(ts[1:]):
-        lo, hi = wins[0]
-        wins.insert(0, (lo - 2 * tk, hi + 2 * tk))
+    wins = shard_windows(t, x_loc)
     tmp = [None, None]
     src = b_ext
-    for k, (tk, (lo, hi)) in enumerate(zip(ts, wins)):
-        if k == len(ts) - 1:
+    for i, (tk, lo, hi) in enumerate(wins):
+        if i == len(wins) - 1:
             dst, r_dst, out_lo = b_out, r_out, lo
         else:
-            if tmp[k % 2] is None:
-                tmp[k % 2] = torch.empty_like(b_ext)
-            dst, r_dst, out_lo = tmp[k % 2], None, 0
-        rc = fn(src.data_ptr(), fr_w.data_ptr(), fb_w.data_ptr(),
-                None if r_dst is None else r_dst.data_ptr(), dst.data_ptr(),
-                XE, Y2, Z, tk, g0, geom.padded_shape[0], lo, hi, out_lo,
-                w0, w1, w2, inv_den, stream)
+            if tmp[i % 2] is None:
+                tmp[i % 2] = torch.empty_like(b_ext)
+            dst, r_dst, out_lo = tmp[i % 2], None, 0
+        k = _launch_k(Z, src, fr_w, fb_w, dst,
+                      *(() if r_dst is None else (r_dst,)))
+        lay = _timeskew_launch(XE, Y2, Z, tk, k, hi - lo)
+        rc = fn(ctypes.byref(lay), src.data_ptr(), fr_w.data_ptr(),
+                fb_w.data_ptr(), None if r_dst is None else r_dst.data_ptr(),
+                dst.data_ptr(), XE, Y2, Z, tk, g0, geom.padded_shape[0], lo,
+                hi, out_lo, w0, w1, w2, inv_den, stream)
         launches["timeskew_shard"] += 1
         build.check(rc, "timeskew_shard")
         src = dst
     return b_out, r_out
+
+
+def shard_windows(t: int, x_loc: int, T: int = TIMESKEW_T):
+    """The launches of a t-sweep shard chunk: [(sweeps, w_lo, w_hi)], the
+    sweeps of `leg_launches` and the slab planes each launch writes, last
+    launch first computed: the owned window [2t, 2t + x_loc), then each
+    earlier launch's widened by the 2 x sweeps planes that the next one
+    reads on either side."""
+    ts = leg_launches(t, T)
+    wins = [(2 * t, 2 * t + x_loc)]
+    for tk in reversed(ts[1:]):
+        lo, hi = wins[0]
+        wins.insert(0, (lo - 2 * tk, hi + 2 * tk))
+    return [(tk, lo, hi) for tk, (lo, hi) in zip(ts, wins)]
 
 
 def timeskew_plan(geom: LevelGeometry) -> bool:

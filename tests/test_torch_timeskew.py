@@ -3,9 +3,11 @@
 for CPU tensors) against the JAX package: its `make_split_timeskew_relax`
 and `make_split_timeskew_relax_jb` in interpret mode, the jnp tier's
 `relax_rbgs` in float64, and the port's own blend-form half-sweeps; then
-the wrapper's launch chain and refusals, the plan on the 129^3, 257^3 and
-513^3 hierarchies, and an FMG slice through the CUDA tier's plan against
-JAX's jnp solve.
+the wrapper's launch chain and refusals, the kernel's launch layout
+(`timeskew_layout`: every column owned once, the cluster and shared
+memory within the card's limits, the x chunks, the redundancy, the shard
+chunk's windows), the plan on the 129^3, 257^3 and 513^3 hierarchies,
+and an FMG slice through the CUDA tier's plan against JAX's jnp solve.
 
 Tolerances.  On the card, with --fmad=false, the kernel equals this plain
 version bit for bit at any T (`chip_smoke.py`).  XLA's CPU backend, which
@@ -161,7 +163,7 @@ def test_plain_matches_blend_form_half_sweeps():
 # ------------------------------------------------------- (c) the wrapper
 
 
-@pytest.mark.parametrize("T", [1, R.TIMESKEW_T, 3])
+@pytest.mark.parametrize("T", [1, 2, 3, R.TIMESKEW_T])
 def test_wrapper_chain_is_independent_of_T(T):
     """The launch chain's arithmetic: ns // T runs of T sweeps and one of
     ns % T, each from the previous run's black half (relax_raw), equal ns
@@ -248,7 +250,103 @@ def test_wrapper_refusals():
         R.timeskew_sweeps_plain(b, fr, fb, 0, prob, g)
 
 
-# ------------------------------------------------------------- (d) plan
+# ---------------------------------------------------- (d) launch layout
+
+# the halves levels of the bench's wavefront (256^3, 512^3) and the
+# odd-tiled levels chip_smoke.py holds the kernel bitwise on
+LAYOUT_LEVELS = [(256, 128, 256), (512, 256, 512), (10, 13, 38),
+                 (64, 65, 100), (16, 8, 16), (8, 16, 32)]
+
+
+@pytest.mark.parametrize("T", range(1, R.TIMESKEW_MAX_T + 1))
+@pytest.mark.parametrize("shape", LAYOUT_LEVELS)
+def test_timeskew_layout_owns_every_column_once(shape, T):
+    """Every (j, z) column of the level is written by exactly one CTA
+    row of exactly one band: a row's threads cover its Z points (K each),
+    and a band's owned rows lie 2T rows inside its computed ones unless
+    its ring is the level's own j wrap.  The cluster has at most 16 CTAs,
+    a CTA at most 512 threads and 232 448 B of shared memory."""
+    X, Y2, Z = shape
+    for k in ((4, 2) if Z % 4 == 0 else (2,)):
+        lay = R.timeskew_layout(X, Y2, Z, T, k=k)
+        assert lay["k"] == k and Z % k == 0
+        assert 1 <= lay["ctas"] <= 16 and lay["ctas"] in (1, 2, 4, 8, 16)
+        assert lay["threads"] >= lay["rows"] * Z // k
+        assert lay["threads"] <= 512 and lay["threads"] % 32 == 0
+        assert lay["smem_bytes"] <= 232448 - 16
+        rows = R.timeskew_rows(lay, Y2)
+        owned = sorted(j for j, own in rows if own)
+        assert owned == list(range(Y2))
+        if lay["halo"] == 0:
+            assert lay["bands"] == 1 and lay["ctas"] * lay["rows"] == Y2
+            assert sorted(j for j, _ in rows) == list(range(Y2))
+        else:
+            assert lay["halo"] == 2 * T
+            per = lay["ctas"] * lay["rows"]
+            for b in range(lay["bands"]):
+                pos = [p for p in range(per) if rows[b * per + p][1]]
+                assert all(2 * T <= p < per - 2 * T for p in pos)
+
+
+def test_timeskew_layout_pins():
+    """The bench's levels at T = TIMESKEW_T: 256^3 one 16-CTA cluster of
+    8 whole rows a CTA, the level's j wrap its ring (no halo at all);
+    512^3 six bands of 48 owned rows on 16 CTAs of 4 rows."""
+    T = R.TIMESKEW_T
+    lay = R.timeskew_layout(256, 128, 256, T)
+    assert (lay["ctas"], lay["rows"], lay["halo"], lay["bands"],
+            lay["threads"]) == (16, 8, 0, 1, 512)
+    lay = R.timeskew_layout(512, 256, 512, T)
+    assert (lay["ctas"], lay["rows"], lay["band"], lay["halo"],
+            lay["bands"], lay["threads"]) == (16, 4, 48, 8, 6, 512)
+
+
+@pytest.mark.parametrize("clusters", [1, 7, 8, 60])
+@pytest.mark.parametrize("shape", LAYOUT_LEVELS)
+def test_timeskew_x_chunks_cover_the_window(shape, clusters):
+    """The x chunks cover the window exactly: chunks of lx (even) planes,
+    the last one not empty, every chunk starting on an even plane, at
+    every T, for the whole level and for a shard chunk's narrower
+    windows."""
+    X, Y2, Z = shape
+    for T in range(1, R.TIMESKEW_MAX_T + 1):
+        for W in (X, max(2, X - 4 * T), 2):
+            lay = R.timeskew_layout(X, Y2, Z, T, clusters, window=W)
+            assert lay["lx"] % 2 == 0 and lay["lx"] >= 2
+            assert lay["chunks"] * lay["lx"] >= W
+            assert (lay["chunks"] - 1) * lay["lx"] < W
+
+
+def test_timeskew_redundancy():
+    """Updates computed / updates needed at T = TIMESKEW_T with the 7
+    resident 16-CTA clusters of an H100 (PERF.md): at most 1.44 at 256^3
+    (x warm-up only) and 1.55 at 512^3 (band halos and warm-up)."""
+    T = R.TIMESKEW_T
+    lay = R.timeskew_layout(256, 128, 256, T, clusters=7)
+    assert lay["redundancy"] <= 1.44
+    lay = R.timeskew_layout(512, 256, 512, T, clusters=7)
+    assert lay["redundancy"] <= 1.55
+
+
+@pytest.mark.parametrize("x_loc", [8, 64, 256])
+@pytest.mark.parametrize("t", range(1, 2 * R.TIMESKEW_T + 2))
+def test_shard_windows_end_on_the_owned_window(t, x_loc):
+    """A t-sweep shard chunk: its launches run t sweeps in all, T =
+    TIMESKEW_T each but the last remainder; the last writes the owned
+    window [2t, 2t + x_loc), each earlier one that window widened by the
+    2 x sweeps planes the next one reads on either side, inside the slab
+    of x_loc + 4t planes."""
+    wins = R.shard_windows(t, x_loc)
+    assert [tk for tk, _, _ in wins] == R.leg_launches(t)
+    assert sum(tk for tk, _, _ in wins) == t
+    assert wins[-1][1:] == (2 * t, 2 * t + x_loc)
+    for (_, lo, hi), (tk, lo2, hi2) in zip(wins, wins[1:]):
+        assert (lo, hi) == (lo2 - 2 * tk, hi2 + 2 * tk)
+    assert 0 <= wins[0][1] and wins[0][2] <= x_loc + 4 * t
+    assert all(lo % 2 == 0 for _, lo, _ in wins)
+
+
+# ------------------------------------------------------------- (e) plan
 
 
 def _kernels(n, mixed=False):
@@ -316,7 +414,7 @@ def test_mixed_plan_keeps_the_defect_path():
     assert taken == [("wavefront", 3), ("defect", 4), ("defect", 100)]
 
 
-# ------------------------------------------------------------ (e) slice
+# ------------------------------------------------------------ (f) slice
 
 
 def test_fmg_slice_through_the_wavefront_matches_jax(monkeypatch):
