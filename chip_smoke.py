@@ -151,15 +151,20 @@ Phases, in order; any failure exits non-zero without the final result line:
      started after the build): each rank's launches as the schedule
      implies and rank 0's solution bitwise the one-rank solve's;
  13. the sharded 2D Lyapunov solve (after phase 6, whose solution it is
-     held against): the per-shard color slab chunk
-     (color_slab2d_shard.cu) bitwise against its plain version on every
-     shard of 4097^2 over 1, 2 and 4 ranks at t = 1-4, a t = 4 chunk timed
-     beside its plain version and beside the 8 half-sweep launches of the
-     same 4 sweeps; then 4097^2 FMG(2, 500, 500), exact coarsest, f32,
-     `--problem lyapunov2d --mesh 1` through the CLI in process:
-     error_linf < max(10 h, 5e-5), finite residuals, exactly the
-     schedule's launches of the chunk, split2d and merge2d and no other
-     kernel, ms per step eager and as one CUDA graph, the solution within
+     held against): the per-shard color slab (color_slab2d_shard.cu)
+     bitwise against its plain version: the chunk on every shard of
+     4097^2 over 1, 2 and 4 ranks at t = 1-4, its one-rank form on every
+     relaxed level at t = 1-4, and the whole leg on chip on 257^2-9^2
+     over legs of 1-500 sweeps; a t = 4 chunk timed beside its plain
+     version and beside the 8 half-sweep launches of the same 4 sweeps, a
+     500-sweep leg beside its plain version, and by level the chunk with
+     and without halo rows and the leg beside 125 chunks; then 4097^2
+     FMG(2, 500, 500),
+     exact coarsest, f32, `--problem lyapunov2d --mesh 1` through the CLI
+     in process: error_linf < max(10 h, 5e-5), finite residuals, exactly
+     the schedule's launches of the chunk (4097^2-513^2), the leg
+     (257^2-65^2), split2d and merge2d and no other kernel, ms per step
+     eager and as one CUDA graph, the solution within
      JAX's sharded-vs-single tolerance of phase 6's (max|dv| printed);
      then FMG(2, 20, 20) over 2 and 4 gloo ranks on cuda:0: every rank's
      launches as the schedule implies, rank 0's logical solution bitwise
@@ -351,8 +356,13 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/masked_block.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:792",
     ),
-    # the per-shard engine of the sharded 2D Lyapunov solve
+    # the per-shard engine of the sharded 2D Lyapunov solve: a chunk of t
+    # sweeps, and a whole leg of a one-rank level held on chip
     "color_slab2d_shard": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/color_slab2d_shard.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:2879",
+    ),
+    "color_slab2d_leg": (
         "pde_multigrid_tpu_torch/ops/cuda/csrc/color_slab2d_shard.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:2879",
     ),
@@ -429,9 +439,11 @@ PATHS = {
     # the resident kernel on the replicated ones (none on one rank)
     "sharded_fas": ("masked_block",),
     # 4097^2 Lyapunov split over ranks: every relaxed level by the color
-    # slab chunk, its v and f split and merged once per leg; the transfers
-    # and residuals are the plain ops (JAX's jnp under GSPMD)
-    "sharded_lyap": ("split2d", "merge2d", "color_slab2d_shard"),
+    # slab, its v and f split and merged once per leg (on one rank
+    # 4097^2 ... 513^2 in chunks, 257^2 ... 65^2 a whole leg a launch); the
+    # transfers and residuals are the plain ops (JAX's jnp under GSPMD)
+    "sharded_lyap": ("split2d", "merge2d", "color_slab2d_shard",
+                     "color_slab2d_leg"),
     # 4097^2 Lyapunov with the reduced opt-in: row 18 on 4097^2 ... 513^2,
     # each leg's v (and f) split and merged, the resident kernel below
     "lyapunov_reduced": ("split2d", "merge2d", "reduced2d", "resident"),
@@ -579,7 +591,9 @@ def phase_build():
     lib = build.load()
     log(f"build: {'compiled' if lib.built else 'loaded'} {lib.path.name} "
         f"in {lib.seconds:.2f} s from {len(build.sources())} sources")
-    ptxas = [ln for ln in build.build_log().splitlines() if "ptxas" in ln]
+    # ptxas's lines: registers, and each kernel's stack frame and spills
+    ptxas = [ln for ln in build.build_log().splitlines()
+             if "ptxas" in ln or "spill" in ln]
     for ln in ptxas:
         print(ln, file=sys.stderr)
     return lib.seconds
@@ -3503,7 +3517,8 @@ def sharded_launches(solver) -> dict:
     time-skew level each chunk of t sweeps is ceil(t / 2) launches and the
     leg splits v's black half and f and merges once; on a masked-block
     level each chunk is 2t launches; on a split2d level each chunk is one
-    launch and the leg splits v and f and merges once; a replicated 3D
+    launch (a level that runs whole legs on chip: one launch a leg) and
+    the leg splits v and f and merges once; a replicated 3D
     level ("whole") relaxes by the single-device plan, here one resident
     kernel launch a leg.  The transfers, residuals, FAS's injection and
     the exact coarse solve launch no kernel."""
@@ -3537,7 +3552,10 @@ def sharded_launches(solver) -> dict:
                 add("split", legs // 2 * 2)
                 add("merge", legs // 2)
             elif engine == "split2d":
-                add("color_slab2d_shard", legs // 2 * len(ts))
+                if kern._relax[l].leg:
+                    add("color_slab2d_leg", legs // 2 * (nu > 0))
+                else:
+                    add("color_slab2d_shard", legs // 2 * len(ts))
                 add("split2d", legs // 2 * 2)
                 add("merge2d", legs // 2)
             else:
@@ -3788,20 +3806,53 @@ def phase_sharded_fas(torch):
 # one over the gloo ranks (each halo a host round; ~14 000 chunks a step
 # at FMG(2, 500, 500))
 SHARD2D_RANK_NUS = (2, 20, 20)
-# the one-rank 4097^2 chunk (t = 4) beside the 8 half-sweeps it replaces,
-# device ms (printed with the summaries; ROADMAP queue 2 item 27)
+# row 17 on the one-rank path, device ms (printed with the summaries;
+# ROADMAP queue 2 items 27 and 44): the 4097^2 t = 4 chunk beside the 8
+# half-sweeps it replaces, and by level the t = 4 chunk on ext halves,
+# with the halo copies, in the one-rank form, and the 500-sweep leg
 SHARD2D_AB = {}
+# the leg lengths the whole-leg form is held bitwise at, and the levels:
+# the path's (257^2 ... 65^2) and the smaller clusters and one CTA below
+SHARD2D_LEGS = (1, 2, 3, 4, 5, 7, 9, 100, 500)
+SHARD2D_LEG_LEVELS = (257, 129, 65, 33, 17, 9)
+# float32 operations of one Lyapunov point's coefficients (lyap_coef:
+# two clamped coordinates 8, k1 and k2 6, the denominator 4, one
+# division, ae, as, af 5)
+LYAP_COEF_OPS = 24
+
+
+def slab_bound(ins, outs, geom, g0: int, x_loc: int, t: int) -> dict:
+    """`bound` of t sweeps on a shard's x_loc rows from global row g0: the
+    inputs read once, the outputs written once; per interior point of
+    either colour (global rows 1 .. nx - 2, columns 1 .. ny - 2) its
+    coefficients and f a_f once (LYAP_COEF_OPS + 1) and 4 operations an
+    update (lyap_update: two products, two sums)."""
+    nx, ny = geom.shape
+    rows = max(0, min(g0 + x_loc, nx - 1) - max(g0, 1))
+    pts = rows * (ny - 2)
+    return bound(sum(a.nbytes for a in (*ins, *outs)),
+                 (LYAP_COEF_OPS + 1 + 4 * t) * pts)
 
 
 def phase_kernels_shard2d(torch):
-    """The per-shard color slab chunk (`relax2d.color_slab2d_shard`,
-    color_slab2d_shard.cu) against its plain version on the card, bitwise:
-    every shard of 4097^2 over 1, 2 and 4 ranks (the port's padded rows:
-    4097, 4098, 4100), t = 1, 2, 3, 4 sweeps (the engine's T = 4 chunks
-    and its remainder chunks) on random ext halves of x_loc + 2t rows.
-    The one-rank t = 4 chunk timed beside its plain version (P, K, K, P)
-    and beside the 8 half_sweep2d launches of the unsharded path on the
-    whole level (the same 4 sweeps).  Returns the record."""
+    """The per-shard colour slab (color_slab2d_shard.cu) against its plain
+    version on the card, bitwise, in each form the path takes: the chunk
+    on ext halves (`relax2d.color_slab2d_shard`) on every shard of 4097^2
+    over 1, 2 and 4 ranks (the port's padded rows: 4097, 4098, 4100) at
+    t = 1-4 (the engine's T = 4 chunks and its remainder chunks) on
+    random ext halves of x_loc + 2t rows; its one-rank form (rows past
+    x_loc read as 0, `one_rank=True`) on every relaxed level 4097^2 ...
+    65^2 at t = 1-4 (the kernel's two forms: 1024 threads a CTA where
+    512-thread tiles take more than one wave, 512 below); the whole-leg
+    form (`relax2d.color_slab2d_leg`) on SHARD2D_LEG_LEVELS over legs of
+    SHARD2D_LEGS sweeps (clusters of 16, 15, 9, 4, 2 CTAs and one CTA).
+    Timed: the 4097^2 one-rank t = 4 chunk beside its plain version
+    (P, K, K, P) and
+    beside the 8 half_sweep2d launches of the unsharded path (C, K, K, C);
+    the 257^2 500-sweep leg beside its plain version; by level the t = 4
+    chunk on ext halves, with the engine's two halo copies before it, and
+    in the one-rank form, and the 500-sweep leg beside 125 one-rank
+    chunks.  Returns the records."""
     from pde_multigrid_tpu_torch.grid import build_geometries
     from pde_multigrid_tpu_torch.models import Lyapunov2D
     from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
@@ -3813,6 +3864,13 @@ def phase_kernels_shard2d(torch):
     Y2 = (n + 1) // 2
     src = [torch.randn((n + 3 + 8, Y2), generator=gen, device=dev)
            for _ in range(4)]
+
+    def same(out, want, what):
+        e = max(_max_err(torch, o, w) for o, w in zip(out, want))
+        require(all(torch.equal(o, w) for o, w in zip(out, want)),
+                f"{what}: not bitwise, max diff {e!r}")
+        return e
+
     err, checked = 0.0, 0
     for ranks in (1, 2, 4):
         g = build_geometries((n, n), prob.domain, 1, pad_axis0_to=ranks)[0]
@@ -3826,32 +3884,71 @@ def phase_kernels_shard2d(torch):
                                       out)
                 want = R2.color_slab2d_shard_plain(*ins, i * x_loc, t, prob,
                                                    g, x_loc)
-                e = max(_max_err(torch, o, w) for o, w in zip(out, want))
-                err = max(err, e)
+                err = max(err, same(out, want, f"color_slab2d_shard {n}^2 "
+                                    f"over {ranks} ranks, shard {i} (g0 "
+                                    f"{i * x_loc}), t = {t}"))
                 checked += 1
-                require(all(torch.equal(o, w) for o, w in zip(out, want)),
-                        f"color_slab2d_shard {n}^2 over {ranks} ranks, shard "
-                        f"{i} (g0 {i * x_loc}), t = {t}: not bitwise, max "
-                        f"diff {e!r}")
-    g = build_geometries((n, n), prob.domain, 1)[0]
-    t, x_loc = 4, n
-    ins = [a[:x_loc + 2 * t] for a in src]
+    levels = (4097, 2049, 1025, 513, 257, 129, 65)
+    geoms, own = {}, {}
+    leg_err, legs_checked, forms = 0.0, 0, set()
+    for m in (*levels, *SHARD2D_LEG_LEVELS[3:]):
+        gm = geoms[m] = build_geometries((m, m), prob.domain, 1)[0]
+        y2 = (m + 1) // 2
+        own[m] = [a[:m, :y2].contiguous() for a in src]
+        for t in (1, 2, 3, 4) if m in levels else ():
+            want = R2.color_slab2d_shard_plain(*own[m], 0, t, prob, gm, m)
+            out = tuple(torch.empty((m, y2), device=dev) for _ in range(2))
+            R2.color_slab2d_shard(*own[m], 0, t, prob, gm, m, out,
+                                  one_rank=True)
+            forms.add(R2.slab_tile(m, y2, t)[4])
+            err = max(err, same(out, want, f"color_slab2d_shard one-rank "
+                                f"form {m}^2, t = {t}"))
+            checked += 1
+        if m not in SHARD2D_LEG_LEVELS:
+            continue
+        for ns in SHARD2D_LEGS:
+            want = R2.color_slab2d_shard_plain(*own[m], 0, ns, prob, gm, m)
+            out = tuple(torch.empty((m, y2), device=dev) for _ in range(2))
+            R2.color_slab2d_leg(*own[m], ns, prob, gm, out)
+            leg_err = max(leg_err, same(
+                out, want, f"color_slab2d_leg {m}^2 "
+                f"({R2.leg_layout(gm)}), {ns} sweeps"))
+            legs_checked += 1
+    require(forms == set(R2.SLAB_POINTS), f"the chunk's forms {forms}")
+    require([m for m in levels if R2.leg_layout(geoms[m])] == [257, 129, 65],
+            "the whole-leg form's levels")
+    require([R2.leg_layout(geoms[m])[2] for m in SHARD2D_LEG_LEVELS]
+            == [16, 15, 9, 4, 2, 1], "the whole-leg form's clusters")
+
+    # the records: the path's forms, a t = 4 chunk at 4097^2 (one-rank)
+    # and a 500-sweep leg at 257^2
+    g, t, x_loc = geoms[n], 4, n
     out = tuple(torch.empty((x_loc, Y2), device=dev) for _ in range(2))
     tm = paired_times(
         torch,
-        lambda: R2.color_slab2d_shard(*ins, 0, t, prob, g, x_loc, out),
-        lambda: R2.color_slab2d_shard_plain(*ins, 0, t, prob, g, x_loc), 1)
-    # reads the four ext halves once, writes the two owned ones; about 20
-    # operations per owned point and sweep (the half_sweep2d count)
+        lambda: R2.color_slab2d_shard(*own[n], 0, t, prob, g, x_loc, out,
+                                      one_rank=True),
+        lambda: R2.color_slab2d_shard_plain(*own[n], 0, t, prob, g, x_loc),
+        1)
     rec = {"max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-           **bound(sum(a.nbytes for a in ins) + sum(o.nbytes for o in out),
-                   20 * t * 2 * x_loc * Y2),
-           "library_ms": None}
+           **slab_bound(own[n], out, g, 0, x_loc, t), "library_ms": None}
+    m, ns = 257, 500
+    out_l = tuple(torch.empty((m, (m + 1) // 2), device=dev)
+                  for _ in range(2))
+    tl = paired_times(
+        torch, lambda: R2.color_slab2d_leg(*own[m], ns, prob, geoms[m],
+                                           out_l),
+        lambda: R2.color_slab2d_shard_plain(*own[m], 0, ns, prob, geoms[m],
+                                            m), 1)
+    rec_leg = {"max_abs_err": leg_err, "ms": tl["ms"],
+               "plain_ms": tl["plain_ms"],
+               **slab_bound(own[m], out_l, geoms[m], 0, m, ns),
+               "library_ms": None}
     # the A/B: the same 4 sweeps as 8 half-sweep launches on the level
-    r, b, fr, fb = (a[:x_loc].clone() for a in src)
+    r, b, fr, fb = (a.clone() for a in own[n])
     chain = lambda: R2.relax_halves2d(r, b, fr, fb, t, prob, g)  # noqa: E731
     kern = lambda: R2.color_slab2d_shard(  # noqa: E731
-        *ins, 0, t, prob, g, x_loc, out)
+        *own[n], 0, t, prob, g, x_loc, out, one_rank=True)
     c1 = device_ms(torch, chain, 2)
     k1 = device_ms(torch, kern, 2)
     k2 = device_ms(torch, kern, 2)
@@ -3859,25 +3956,65 @@ def phase_kernels_shard2d(torch):
     SHARD2D_AB.update(chunk_t4_ms=(k1 + k2) / 2,
                       half_sweeps_8_ms=(c1 + c2) / 2,
                       ratio=(k1 + k2) / (c1 + c2))
-    # one t = 4 chunk on each coarser relaxed level of the one-rank path
-    by_level = {n: tm["ms"]}
-    for m in (2049, 1025, 513, 257, 129, 65):
-        gm = build_geometries((m, m), prob.domain, 1)[0]
-        y2 = (m + 1) // 2
-        ins_m = [a[:m + 2 * t, :y2].contiguous() for a in src]
+    # by level: the t = 4 chunk on ext halves, with the two halo copies
+    # the engine takes before it on more ranks, in the one-rank form (the
+    # path's on 4097^2 ... 513^2), and the 500-sweep leg (the path's on
+    # 257^2 ... 65^2) beside 125 one-rank chunks of the same sweeps
+    by_level = {}
+    for m in levels:
+        gm, y2 = geoms[m], (m + 1) // 2
+        ext = [a[:m + 2 * t, :y2].contiguous() for a in src]
+        halo = [torch.zeros((2 * t, y2), device=dev) for _ in range(2)]
         out_m = tuple(torch.empty((m, y2), device=dev) for _ in range(2))
-        by_level[m] = device_ms(torch, lambda: R2.color_slab2d_shard(
-            *ins_m, 0, t, prob, gm, m, out_m), 10)
-    SHARD2D_AB["chunk_t4_ms_by_level"] = by_level
+
+        def ext_chunk():
+            R2.color_slab2d_shard(*ext, 0, t, prob, gm, m, out_m)
+
+        def copies_chunk():
+            for h, a in zip(halo, ext[:2]):
+                a[m:m + 2 * t].copy_(h)
+            ext_chunk()
+
+        def one_chunk():
+            R2.color_slab2d_shard(*own[m], 0, t, prob, gm, m, out_m,
+                                  one_rank=True)
+
+        row = {"ext": device_ms(torch, ext_chunk, 10),
+               "ext_copies": device_ms(torch, copies_chunk, 10),
+               "one_rank": device_ms(torch, one_chunk, 10),
+               "threads": R2.slab_tile(m, y2, t)[4]}
+        if R2.leg_layout(gm) is not None:
+            row["leg_ctas"] = R2.leg_layout(gm)[2]
+            row["leg_500"] = device_ms(torch, lambda: R2.color_slab2d_leg(
+                *own[m], 500, prob, gm, out_m), 4)
+
+            def chunks_500():
+                for _ in range(125):
+                    one_chunk()
+
+            row["chunks_500"] = device_ms(torch, chunks_500, 2)
+        by_level[m] = row
+    SHARD2D_AB["chunk_t4_ms_by_level"] = {
+        m: r["one_rank"] for m, r in by_level.items()}
+    SHARD2D_AB["leg_500_ms_by_level"] = {
+        m: r["leg_500"] for m, r in by_level.items() if "leg_500" in r}
+    SHARD2D_AB["forms_ms_by_level"] = by_level
     log(f"kernel color_slab2d_shard: bitwise against its plain version on "
-        f"{checked} shards of {n}^2 over 1, 2, 4 ranks at t = 1-4 (max diff "
-        f"{err!r}); one t = {t} chunk ({x_loc + 2 * t} x {Y2} ext halves): "
-        f"device {tm['ms']!r} ms vs plain {tm['plain_ms']!r} ms (bound "
+        f"{checked} chunks (every shard of {n}^2 over 1, 2, 4 ranks at t = "
+        f"1-4; the one-rank form on {levels} at t = 1-4; max diff {err!r}); "
+        f"one t = {t} chunk, one-rank form ({x_loc} x {Y2} halves): device "
+        f"{tm['ms']!r} ms vs plain {tm['plain_ms']!r} ms (bound "
         f"{rec['bound_ms']!r} ms by {rec['bound_by']}); eager "
         f"{tm['eager_ms']!r} ms; A/B against the 8 half_sweep2d launches of "
-        f"the same 4 sweeps (C, K, K, C): {SHARD2D_AB!r}")
+        f"the same 4 sweeps (C, K, K, C): {SHARD2D_AB['ratio']!r}")
+    log(f"kernel color_slab2d_leg: bitwise against its plain version on "
+        f"{legs_checked} legs ({SHARD2D_LEG_LEVELS} at {SHARD2D_LEGS} "
+        f"sweeps; max diff {leg_err!r}); a {ns}-sweep leg at 257^2 "
+        f"({R2.leg_layout(geoms[257])}): device {tl['ms']!r} ms vs plain "
+        f"{tl['plain_ms']!r} ms (bound {rec_leg['bound_ms']!r} ms by "
+        f"{rec_leg['bound_by']}); by level: {by_level!r}")
     torch.cuda.synchronize()
-    return {"color_slab2d_shard": rec}
+    return {"color_slab2d_shard": rec, "color_slab2d_leg": rec_leg}
 
 
 def _lyap_cfg(nus):
@@ -3889,9 +4026,11 @@ def _lyap_cfg(nus):
 def phase_sharded2d(torch, sum_un, v_un):
     """Lyapunov 4097^2 FMG(2, 500, 500), exact coarsest, f32, `--mesh 1`
     through the CLI in process: error_linf < max(10 h, 5e-5), finite
-    residuals, exactly the schedule's launches of the color slab chunk,
-    split2d and merge2d (`sharded_launches`) and no other kernel (no
-    half_sweep2d, no resident); ms per step eager and as one CUDA graph;
+    residuals, exactly the schedule's launches of the color slab chunk
+    (4097^2 ... 513^2, the one-rank form), its whole-leg form (257^2 ...
+    65^2), split2d and merge2d (`sharded_launches`) and no other kernel
+    (no half_sweep2d, no resident); ms per step eager and as one CUDA
+    graph;
     the solution against phase 6's unsharded solve `v_un` (summary
     `sum_un`) within JAX's sharded-vs-single tolerance (rtol 2e-5, atol
     2e-6; error_linf within 1e-6), max|dv| printed.  Then the one-rank
@@ -3911,6 +4050,10 @@ def phase_sharded2d(torch, sum_un, v_un):
     kern = solver.program.kernels
     require(kern.plan == ["split2d"] * 7 + [None],
             f"sharded {n}^2 plan {kern.plan}")
+    legs = [fn.leg for fn in kern._relax[:-1]]
+    require(legs == [False] * 4 + [True] * 3,
+            f"sharded {n}^2: whole legs on chip by level {legs}, want "
+            "257^2, 129^2 and 65^2")
     want = sharded_launches(solver)
     buf, err = io.StringIO(), io.StringIO()
     torch.cuda.synchronize()
@@ -3947,15 +4090,34 @@ def phase_sharded2d(torch, sum_un, v_un):
                "unsharded_ms_per_step": sum_un["ms_per_step"]}
     del res
     summary.update(time_step(torch, tag, solver, solver.fresh_levels(), 2, 1))
-    # the chunks' device ms per step by level: launches (4 (l + 1) legs of
-    # ceil(nu / T) chunks) times phase_kernels_shard2d's t = 4 chunk
-    by_level = SHARD2D_AB.get("chunk_t4_ms_by_level", {})
-    chunks = {g.shape[0]: 4 * (l + 1) * -(-LYAP_NUS[1] // fn.T)
-              for l, (g, fn) in enumerate(zip(solver.geoms, kern._relax))
-              if fn is not None}
+    levels = solver.fresh_levels()
+    busy = busy_split_ms(
+        torch, lambda: solver.program.solve_step(levels),
+        {"chunk": "color_slab2d_kernel<false",
+         "leg": "color_slab2d_kernel<true", "split2d": "split2d_kernel",
+         "merge2d": "merge2d_kernel"})
+    summary["busy_ms"] = busy
+    log(f"{tag}: device busy ms per step by kernel (profiler) {busy!r}")
+    del levels
+    # row 17's device ms per step by level: launches (4 (l + 1) legs, each
+    # of ceil(nu / T) chunks or one whole leg) times phase_kernels_shard2d's
+    # t = 4 one-rank chunk or 500-sweep leg
+    chunk_ms = SHARD2D_AB.get("chunk_t4_ms_by_level", {})
+    leg_ms = SHARD2D_AB.get("leg_500_ms_by_level", {})
+    per = {}
+    for l, (g, fn) in enumerate(zip(solver.geoms, kern._relax)):
+        m = g.shape[0]
+        if fn is None or m not in chunk_ms:
+            continue
+        if fn.leg:
+            per[m] = ("leg", 4 * (l + 1), leg_ms[m])
+        else:
+            per[m] = ("chunk", 4 * (l + 1) * -(-LYAP_NUS[1] // fn.T),
+                      chunk_ms[m])
     summary["chunk_ms_per_step_by_level"] = {
-        m: k * by_level[m] for m, k in chunks.items() if m in by_level}
-    log(f"{tag}: chunk launches by level {chunks}, their device ms per step "
+        m: k * ms for m, (_, k, ms) in per.items()}
+    log(f"{tag}: row 17 launches by level (form, launches, device ms a "
+        f"launch) {per}, their device ms per step "
         f"{summary['chunk_ms_per_step_by_level']!r} (sum "
         f"{sum(summary['chunk_ms_per_step_by_level'].values())!r})")
     del solver

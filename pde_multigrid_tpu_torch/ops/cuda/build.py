@@ -84,7 +84,11 @@ SIGNATURES = {
     "pdemg_half_sweep2d": (_P, _P, _P, _I, _I, _I, _P, _P),
     "pdemg_resident2d": (_P, _P, _I, _I, _I, _P, _P),
     "pdemg_color_slab2d_shard": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P,
+    ),
+    "pdemg_color_slab2d_leg": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
     "pdemg_reduced2d": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # the HJB kernels take their fields as a pointer to a host struct

@@ -1,167 +1,489 @@
-// One chunk of t red-black sweeps on one shard's extended color-split
-// halves of a padded 2D Lyapunov level (sm_90a): the per-shard engine of
-// the sharded 2D solve (parallel/halo.py, engine "split2d").
+// Red-black sweeps on one shard's colour-split halves of a padded 2D
+// Lyapunov level (sm_90a): the per-shard engine of the sharded 2D solve
+// (parallel/halo.py, engine "split2d"), in two forms.
 //
 // Replaces the TPU kernel
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_split_color_slab_2d_shard
 //
-// Input: the red and black halves (layout of csrc/relax2d.cu, in the
-// global colour convention: q = (g0 + x) % 2) and their RHS halves of an
-// extended slab of XE >= x_loc + 2t rows, Y2 slots each: the shard's x_loc
-// owned rows followed by the first rows of its right neighbour.  Lyapunov's
-// stencil is one-sided (a red point at (x, j) reads B[x+1, j] and
-// B[x, j+q]; a black one R[x+1, j] and R[x, j+1-q]), so the halo sits on
-// the +x side alone.  g0 is the global row of ext row 0; the coefficients,
-// the colour and the interior test come from the global row g = g0 + x,
-// with the arithmetic of half_sweep2d_kernel (lyapunov2d.cuh).  Output: the
-// exact owned x_loc rows of both halves, written to ro / bo, which must not
+// The function.  Input: the red and black halves (layout of
+// csrc/relax2d.cu, in the global colour convention: q = (g0 + x) % 2) and
+// their RHS halves, Y2 slots a row, ext row 0 at global row g0.
+// Lyapunov's stencil is one-sided (a red point at (x, j) reads B[x+1, j]
+// and B[x, j+q]; a black one R[x+1, j] and R[x, j+1-q]), so a shard's halo
+// sits on the +x side alone.  Coefficients, colour and interior test come
+// from the global row g = g0 + x, with the arithmetic of
+// half_sweep2d_kernel (lyapunov2d.cuh).  Output: the exact owned x_loc
+// rows of both halves after t sweeps, written to ro / bo, which must not
 // overlap the inputs (tiles read rows that other tiles own).
 //
-// Design (slab2d.cu's, not the Pallas kernel's full-row slabs): the owned
-// region is cut into kBX x kBJ tiles, one CTA each (4097^2 on one rank:
-// 129 x 33 CTAs).  A CTA loads its tile and a halo of 2t rows and 2t slots
-// on the +x and +j sides (the only directions the stencil reads) into
-// shared memory, runs t red+black sweeps there on every loaded point whose
-// reads stay inside the loaded region or its zero-filled edge, and writes
-// its owned points.  A stale value spreads one row or slot per half-sweep
-// toward -x / -j, so after t sweeps the owned points, 2t from the far
-// edges, are exact: the trapezoid argument of the Pallas kernel
-// (relax.py:2898-2903).  Rows past XE and slots past Y2 load as 0: no
-// owned point depends on them (a point reading slot Y2 is the inert slot
-// or the boundary column, never interior).  Global boundary and padding
-// rows are never interior, so they block the ring-wrapped halo of the
-// last shard, as in JAX.  t is a run-time loop bound: templates unrolled
-// per t cost build time.
+//   * chunk (pdemg_color_slab2d_shard): one chunk of t sweeps on ext
+//     halves of XE rows.  With XE >= x_loc + 2t the rows past x_loc are the
+//     right neighbour's first rows (the ring's halo).  On a one-rank ring
+//     the caller passes XE = x_loc: rows past it read as 0.  No interior
+//     point of such a shard reads past x_loc, because its last row is the
+//     level's boundary or padding (the argument that lets the last shard's
+//     ring-wrapped halo be anything), so the owned rows are bitwise those
+//     of the ext form and no halo copy is needed.
+//   * leg (pdemg_color_slab2d_leg): a whole leg of nsweeps on a one-rank
+//     level held on chip: one CTA, or a cluster of up to 16 CTAs along x,
+//     each holding a band of BX rows and the 2 kLegT rows past it.  Every
+//     kLegT sweeps each CTA pushes the first 2 kLegT rows of its band into
+//     its left neighbour's shared memory (DSMEM), and one cluster barrier
+//     later that neighbour takes them as its halo rows.  A stale value
+//     spreads one row per half-sweep toward -x, so after kLegT sweeps the
+//     band is exact (the trapezoid argument), and the refreshed halo
+//     restarts it: the owned rows are bitwise those of the chunked
+//     schedule.
+//
+// Design.  A CTA holds a tile of RX x RJ points of both colours (owned
+// BX x BJ, with a 2t halo on +x and, when the tile does not span the row,
+// on +j) in shared memory: r and b with a zero row and a zero column past
+// the tile, and fr, fb.  Each thread owns the fixed points p = tid + m NT
+// (m < P) of the tile and computes their coefficients (ae, as and f af of
+// each colour), interior flags and shared-memory offsets once a tile,
+// into registers; a half-sweep is then two shared loads (for G points
+// before their stores), three products and sums and a predicated store a
+// point, between block barriers.  A chunk launches one CTA an SM; each
+// walks its tiles with the next tile's copies (cp.async, zero-filled past
+// XE and Y2) in flight while it sweeps the current one.  Two forms
+// (`Form`): 512 threads of 10 points (128 registers) and 1024 of 4 (64,
+// twice the warps to hide the barriers' and loads' latency, on levels
+// whose tiles take more than one wave of CTAs).  Rows past XE and slots
+// past Y2 read as 0 and are never updated: no owned point depends on
+// them (a point reading slot Y2 is the inert slot or the boundary column,
+// never interior).  t is a run-time loop bound: templates unrolled per t
+// cost build time.  The wrapper (relax2d.slab_tile, leg_layout) picks the
+// form and the tiles: at 4097^2 1024 threads on 64 x 64 points (owned
+// 56 x 56 at t = 4), whole rows where Y2 <= 64, and fewer rows where the
+// tiles would not fill whole waves of CTAs.
 //
 // What bounds it: per point and chunk it reads four halves and writes two
-// (24 B), plus the tile halo ((32 + 2t)(64 + 2t) / (32 * 64) = 1.41 at
-// t = 4); per point and sweep about 20 float operations (one IEEE
-// division) recomputing the coefficients from coordinates, and the
-// dependent shared-memory loads between the 2t block barriers.  Making it
-// fast (coefficients kept in shared memory, wider tiles, TMA loads) is
-// later work.
+// (24 B), plus the tile halo (1.31x the owned points at 4097^2); per
+// interior point and half-sweep 4 float operations (two products, two
+// sums), and once a tile 24 for the coefficients (lyap_coef, one IEEE
+// division) and one for f af, recomputed on the halo points too.  With
+// one CTA an SM a tile's dependent phases (copies, coefficients, 2t
+// barrier-separated half-sweeps) leave issue slots idle.
+// Small levels are bound by latency: a leg on chip pays one launch and
+// one cluster barrier every kLegT sweeps instead of a launch, two halo
+// copies and a pass over device memory every chunk.
 //
-// Masked points are never written (the select form), so they stay bitwise;
-// with --fmad=false the owned output equals the plain version
+// Masked points are never written (the select form), so they stay
+// bitwise; with --fmad=false (f af is rounded once, then added, as in
+// lyap_update) the owned output equals the plain version
 // (relax2d.color_slab2d_shard_plain) bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "lyapunov2d.cuh"  // Lyap2D, lyap_coef, lyap_update, interior
+#include "lyapunov2d.cuh"  // Lyap2D, lyap_coef, interior
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBX = 32;  // owned rows per tile
-constexpr int kBJ = 64;  // owned half slots per tile
-constexpr int kThreads = 256;
+// The kernel's forms: threads a CTA, points a thread holds (both
+// colours), and points whose neighbours load together (a divisor of the
+// points).  A chunk on 512 threads of 10 points or 1024 of 4, a leg on
+// 512 of 8 (its halo exchange needs registers).
+template <int NT_, int P_, int G_>
+struct Form {
+  static constexpr int NT = NT_, P = P_, G = G_;
+  static_assert(P % G == 0, "groups must tile the points");
+};
+using Chunk512 = Form<512, 10, 5>;
+using Chunk1024 = Form<1024, 4, 4>;
+using Leg = Form<512, 8, 4>;
+constexpr int kLegT = 4;     // sweeps between a leg's halo refreshes
+constexpr int kMaxCtas = 16;  // a non-portable cluster
+constexpr int kMaxSmem = 227 * 1024;
 
-// floats of shared memory a tile needs at t sweeps: r and b with one zero
-// row and one zero column past the loaded region, fr and fb
-inline size_t smem_floats(int t) {
-  const size_t RX = kBX + 2 * t;
-  const size_t S = kBJ + 2 * t + 1;
-  return (4 * RX + 2) * S;
+struct Tile {
+  int XE, x_loc, Y2, g0;  // rows loaded at most, owned rows, slots, g0
+  int RX, RJ;  // loaded rows and slots of a tile
+  int BX, BJ;  // owned rows and slots of a tile (the tile stride)
+  int ntj, ntiles;  // tiles along j, tiles in all
+};
+
+// floats of one tile buffer: r and b with a zero row and column past the
+// tile, fr and fb
+__host__ __device__ inline int buffer_floats(int RX, int RJ) {
+  return 2 * (RX + 1) * (RJ + 1) + 2 * RX * RJ;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    color_slab2d_shard_kernel(const float* __restrict__ r,
-                              const float* __restrict__ b,
-                              const float* __restrict__ fr,
-                              const float* __restrict__ fb,
-                              float* __restrict__ ro, float* __restrict__ bo,
-                              int XE, int x_loc, int Y2, int g0, int t,
-                              Lyap2D p) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  // 4 bytes global -> shared, zero-filled where `in` is false
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void tile_origin(const Tile& T, bool leg,
+                                            int tile, int& x0, int& j0) {
+  const int ty = leg ? tile : tile / T.ntj;
+  x0 = ty * T.BX;
+  j0 = leg ? 0 : (tile - ty * T.ntj) * T.BJ;
+}
+
+// The tile coordinates (lx, lj) of a thread's points p = tid + m NT in a
+// tile of RJ slots a row, m = 0, 1, ...: one division, then steps.
+struct Slots {
+  int lx, lj, dx, dj, RJ;
+  __device__ __forceinline__ Slots(int RJ_, int NT) : RJ(RJ_) {
+    lx = threadIdx.x / RJ;
+    lj = threadIdx.x - lx * RJ;
+    dx = NT / RJ;
+    dj = NT - dx * RJ;
+  }
+  __device__ __forceinline__ void next() {
+    lx += dx;
+    lj += dj;
+    if (lj >= RJ) {
+      lj -= RJ;
+      ++lx;
+    }
+  }
+};
+
+// Start the copies of tile `tile` (r, b, fr, fb) into `buf`, one group.
+template <class F>
+__device__ __forceinline__ void load_tile(const float* r, const float* b,
+                                          const float* fr, const float* fb,
+                                          const Tile& T, bool leg, int tile,
+                                          float* buf) {
+  int x0, j0;
+  tile_origin(T, leg, tile, x0, j0);
+  const int S = T.RJ + 1;
+  const int plane = (T.RX + 1) * S;
+  const int npts = T.RX * T.RJ;
+  Slots sl(T.RJ, F::NT);
+#pragma unroll
+  for (int m = 0; m < F::P; ++m, sl.next()) {
+    const int pt = threadIdx.x + m * F::NT;
+    if (pt < npts) {
+      const int lx = sl.lx;
+      const int lj = sl.lj;
+      const int x = x0 + lx;
+      const int j = j0 + lj;
+      const bool in = x < T.XE && j < T.Y2;
+      const long long g = in ? (long long)x * T.Y2 + j : 0;
+      const int k = lx * S + lj;
+      cp_async4(buf + k, r + g, in);
+      cp_async4(buf + plane + k, b + g, in);
+      cp_async4(buf + 2 * plane + pt, fr + g, in);
+      cp_async4(buf + 2 * plane + npts + pt, fb + g, in);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// t sweeps (nchunks chunks: t each and t_last in the last, a leg's halo
+// rows refreshed from the cluster's next CTA between them) on every tile
+// of this CTA, the owned points out to ro, bo.  A chunk CTA walks the
+// tiles blockIdx.x, + gridDim.x, ..., the next tile's copies in flight
+// while it sweeps one (two buffers); a leg CTA (LEG) holds the band of its
+// cluster rank.  Between a leg's chunks each CTA pushes its band's first
+// 2 kLegT rows into the previous CTA's inbox (two, used in turns), one
+// cluster barrier, then copies its own inbox into its halo rows: the
+// barrier of the next refresh cannot pass before every CTA has emptied
+// the inbox that refresh writes.
+template <bool LEG, class F>
+__global__ void __launch_bounds__(F::NT, 1)
+    color_slab2d_kernel(const float* __restrict__ r,
+                        const float* __restrict__ b,
+                        const float* __restrict__ fr,
+                        const float* __restrict__ fb,
+                        float* __restrict__ ro, float* __restrict__ bo,
+                        Tile T, int t, int nchunks, int t_last, Lyap2D p) {
   extern __shared__ float smem[];
-  const int RX = kBX + 2 * t;  // loaded rows
-  const int RJ = kBJ + 2 * t;  // loaded slots per row
-  const int S = RJ + 1;        // row stride
-  float* sr = smem;
-  float* sb = sr + (RX + 1) * S;
-  float* sfr = sb + (RX + 1) * S;
-  float* sfb = sfr + RX * S;
-  const int x0 = blockIdx.y * kBX;
-  const int j0 = blockIdx.x * kBJ;
+  const int S = T.RJ + 1;  // row stride: a zero column past the tile
+  const int plane = (T.RX + 1) * S;  // and a zero row
+  constexpr int NT = F::NT, P = F::P, G = F::G;
+  const int npts = T.RX * T.RJ;
+  const int nslot = (npts + NT - 1) / NT;  // points a thread holds
+  const int nbuf = !LEG && T.ntiles > (int)gridDim.x ? 2 : 1;
+  const int bufsz = buffer_floats(T.RX, T.RJ);
+  const int tid = threadIdx.x;
 
-  for (int i = threadIdx.x; i < (RX + 1) * S; i += blockDim.x) {
-    const int lx = i / S;
-    const int lj = i - lx * S;
-    const int x = x0 + lx;
-    const int j = j0 + lj;
-    const bool in = lx < RX && lj < RJ && x < XE && j < Y2;
-    const long long g = (long long)x * Y2 + j;
-    sr[i] = in ? r[g] : 0.0f;
-    sb[i] = in ? b[g] : 0.0f;
-    if (lx < RX) {
-      sfr[i] = in ? fr[g] : 0.0f;
-      sfb[i] = in ? fb[g] : 0.0f;
+  for (int q = 0; q < nbuf; ++q) {
+    float* base = smem + q * bufsz;
+    for (int i = tid; i < S; i += NT) {
+      base[T.RX * S + i] = 0.0f;
+      base[plane + T.RX * S + i] = 0.0f;
+    }
+    for (int i = tid; i < T.RX; i += NT) {
+      base[i * S + T.RJ] = 0.0f;
+      base[plane + i * S + T.RJ] = 0.0f;
     }
   }
-  __syncthreads();
 
-  for (int s = 0; s < t; ++s) {
-    for (int color = 0; color < 2; ++color) {
-      float* u = color == 0 ? sr : sb;        // the colour updated
-      const float* w = color == 0 ? sb : sr;  // the other colour
-      const float* fu = color == 0 ? sfr : sfb;
-      for (int i = threadIdx.x; i < RX * RJ; i += blockDim.x) {
-        const int lx = i / RJ;
-        const int lj = i - lx * RJ;
-        if (x0 + lx >= XE || j0 + lj >= Y2) continue;
-        const int gx = g0 + x0 + lx;
-        const int q = gx & 1;
-        const int sft = color == 0 ? q : 1 - q;  // y = 2j + sft
-        const int y = 2 * (j0 + lj) + sft;
+  int cur = 0;
+  load_tile<F>(r, b, fr, fb, T, LEG, blockIdx.x, smem);
+  for (int tile = blockIdx.x; tile < T.ntiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (!LEG && next < T.ntiles) {
+      load_tile<F>(r, b, fr, fb, T, false, next, smem + (cur ^ 1) * bufsz);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    float* sr = smem + cur * bufsz;
+    float* sb = sr + plane;
+    const float* sfr = sr + 2 * plane;
+    const float* sfb = sfr + npts;
+    int x0, j0;
+    tile_origin(T, LEG, tile, x0, j0);
+
+    // this thread's points: offsets, row parities, interior flags (bit 2m
+    // red, 2m + 1 black) and coefficients (f af of each colour rounded
+    // once, as lyap_update rounds it), once a tile
+    int off[P];
+    unsigned qbits = 0, live = 0, owned = 0;
+    float ae[2][P], as[2][P], ff[2][P];
+    const int bj = min(T.BJ, T.Y2 - j0);
+    const int bx = min(T.BX, T.x_loc - x0);
+    Slots sl(T.RJ, NT);
+#pragma unroll
+    for (int m = 0; m < P; ++m, sl.next()) {
+      const int pt = tid + m * NT;
+      off[m] = 0;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) ae[c][m] = as[c][m] = ff[c][m] = 0.0f;
+      if (pt >= npts) continue;
+      const int lx = sl.lx;
+      const int lj = sl.lj;
+      if (lx < bx && lj < bj) owned |= 1u << m;
+      const int x = x0 + lx;
+      const int j = j0 + lj;
+      off[m] = lx * S + lj;
+      if (x >= T.XE || j >= T.Y2) continue;
+      const int gx = T.g0 + x;
+      const int q = gx & 1;
+      qbits |= (unsigned)q << m;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int y = 2 * j + (c == 0 ? q : 1 - q);
         if (!interior(gx, y, p)) continue;
-        const int k = lx * S + lj;
-        const Coef c = lyap_coef(gx, y, p);
-        // east (gx + 1, y) at slot j; south (gx, y + 1) at slot j + sft
-        u[k] = lyap_update<true>(w[k + S], w[k + sft], fu[k], c);
+        live |= 1u << (2 * m + c);
+        const Coef cf = lyap_coef(gx, y, p);
+        ae[c][m] = cf.ae;
+        as[c][m] = cf.as;
+        ff[c][m] = (c == 0 ? sfr[pt] : sfb[pt]) * cf.af;
       }
-      __syncthreads();  // this colour done before the other reads it
     }
-  }
 
-  for (int i = threadIdx.x; i < kBX * kBJ; i += blockDim.x) {
-    const int lx = i / kBJ;
-    const int lj = i - lx * kBJ;
-    const int x = x0 + lx;
-    const int j = j0 + lj;
-    if (x < x_loc && j < Y2) {
-      const long long g = (long long)x * Y2 + j;
-      ro[g] = sr[lx * S + lj];
-      bo[g] = sb[lx * S + lj];
+    for (int ch = 0; ch < nchunks; ++ch) {
+      const int tc = ch == nchunks - 1 ? t_last : t;
+      for (int s = 0; s < tc; ++s) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float* u = c == 0 ? sr : sb;        // the colour updated
+          const float* w = c == 0 ? sb : sr;  // the other colour
+#pragma unroll
+          for (int m0 = 0; m0 < P; m0 += G) {
+            if (m0 >= nslot) break;
+            // east (gx + 1, y) at slot j, south (gx, y + 1) at slot j +
+            // sft (y = 2j + sft), loaded for the group before its stores
+            float e[G], so[G];
+#pragma unroll
+            for (int i = 0; i < G; ++i) {
+              const int m = m0 + i;
+              const int q = (qbits >> m) & 1;
+              if (m >= nslot) break;
+              e[i] = w[off[m] + S];
+              so[i] = w[off[m] + (c == 0 ? q : 1 - q)];
+            }
+#pragma unroll
+            for (int i = 0; i < G; ++i) {
+              const int m = m0 + i;
+              if (!((live >> (2 * m + c)) & 1u)) continue;
+              // the order of lyap_update: east ae + south as, + f af
+              float v = e[i] * ae[c][m];
+              v = v + so[i] * as[c][m];
+              u[off[m]] = v + ff[c][m];
+            }
+          }
+          __syncthreads();  // this colour done before the other reads it
+        }
+      }
+      if (LEG && ch + 1 < nchunks) {
+        // the band's halo rows: the next CTA's first 2 kLegT rows, exact
+        // after this chunk, pushed into this CTA's inbox `ch & 1`
+        cg::cluster_group cl = cg::this_cluster();
+        const int rows = 2 * kLegT * S;
+        float* inbox = smem + bufsz + (ch & 1) * 2 * rows;
+        if (blockIdx.x > 0) {
+          float* dst = cl.map_shared_rank(inbox, blockIdx.x - 1);
+          for (int i = tid; i < rows; i += NT) {
+            dst[i] = sr[i];
+            dst[rows + i] = sb[i];
+          }
+        }
+        cl.sync();
+        if (blockIdx.x + 1 < gridDim.x) {
+          for (int i = tid; i < rows; i += NT) {
+            sr[T.BX * S + i] = inbox[i];
+            sb[T.BX * S + i] = inbox[rows + i];
+          }
+        }
+        __syncthreads();
+      }
     }
+
+    Slots sw(T.RJ, NT);
+#pragma unroll
+    for (int m = 0; m < P; ++m, sw.next()) {
+      if (!((owned >> m) & 1u)) continue;
+      const long long g = (long long)(x0 + sw.lx) * T.Y2 + j0 + sw.lj;
+      ro[g] = sr[off[m]];
+      bo[g] = sb[off[m]];
+    }
+    cur ^= nbuf - 1;
+    __syncthreads();  // this buffer read out before it is refilled
   }
+}
+
+// A kernel's attributes: dynamic shared memory past 48 KB, and clusters
+// past the portable 8 CTAs.  Once per process and form, at its first
+// launch (outside any graph capture: the callers run eagerly first).
+template <bool LEG, class F>
+cudaError_t opt_in() {
+  static const cudaError_t status = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        color_slab2d_kernel<LEG, F>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e != cudaSuccess || !LEG) return e;
+    return cudaFuncSetAttribute(
+        color_slab2d_kernel<LEG, F>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  return status;
+}
+
+// The card's SMs: a chunk launches at most one CTA on each.
+int num_sms() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess) {
+      return 0;
+    }
+    return count;
+  }();
+  return n;
+}
+
+bool tile_ok(const Tile& T, int pts, size_t smem) {
+  return T.RX >= 1 && T.RJ >= 1 && T.BX >= 1 && T.BJ >= 1 &&
+         T.BX <= T.RX && T.BJ <= T.RJ && T.RX * T.RJ <= pts &&
+         smem <= (size_t)kMaxSmem;
+}
+
+template <class F>
+int launch_chunk(const float* r, const float* b, const float* fr,
+                 const float* fb, float* ro, float* bo, int XE, int x_loc,
+                 int Y2, int g0, int t, int RX, int RJ, int BX, int BJ,
+                 const Lyap2D* p, cudaStream_t stream) {
+  if (t < 1 || x_loc < 1 || Y2 < 1 || XE < x_loc || BX < 1 || BJ < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int ntj = (Y2 + BJ - 1) / BJ;
+  const int ntiles = ((x_loc + BX - 1) / BX) * ntj;
+  const Tile T{XE, x_loc, Y2, g0, RX, RJ, BX, BJ, ntj, ntiles};
+  // the tile's halo covers 2t rows and slots past its owned points, except
+  // where it reaches past the rows (XE) or slots (Y2) that exist
+  const bool halo_x = BX + 2 * t <= RX || (BX >= x_loc && RX >= XE);
+  const bool halo_j = BJ + 2 * t <= RJ || (BJ >= Y2 && RJ >= Y2);
+  const int sms = num_sms();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const int grid = ntiles < sms ? ntiles : sms;
+  const size_t smem =
+      (ntiles > grid ? 2 : 1) * buffer_floats(RX, RJ) * sizeof(float);
+  if (!tile_ok(T, F::NT * F::P, smem) || !halo_x || !halo_j) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t e = opt_in<false, F>();
+  if (e != cudaSuccess) return (int)e;
+  color_slab2d_kernel<false, F><<<grid, F::NT, smem, stream>>>(
+      r, b, fr, fb, ro, bo, T, t, 1, t, *p);
+  return (int)cudaGetLastError();
+}
+
+int launch_leg(const float* r, const float* b, const float* fr,
+               const float* fb, float* ro, float* bo, int X, int Y2,
+               int nsweeps, int RX, int BX, int nctas, const Lyap2D* p,
+               cudaStream_t stream) {
+  const Tile T{X, X, Y2, 0, RX, Y2, BX, Y2, 1, nctas};
+  // one CTA holds the whole level (no halo: one chunk of nsweeps); a
+  // cluster's bands hold 2 kLegT halo rows each, taken from the next band
+  const bool one = nctas == 1 && BX >= X && RX >= X;
+  const bool bands = nctas > 1 && nctas <= kMaxCtas && BX >= 2 * kLegT &&
+                     RX == BX + 2 * kLegT && nctas * BX >= X &&
+                     (nctas - 1) * BX < X;
+  // the tile, and two inboxes of 2 kLegT rows of r and b
+  const size_t smem =
+      (buffer_floats(RX, Y2) + 8 * kLegT * (Y2 + 1)) * sizeof(float);
+  if (nsweeps < 1 || X < 1 || Y2 < 1 || !tile_ok(T, Leg::NT * Leg::P, smem) ||
+      !(one || bands)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t e = opt_in<true, Leg>();
+  if (e != cudaSuccess) return (int)e;
+  const int nchunks = one ? 1 : (nsweeps + kLegT - 1) / kLegT;
+  const int t = one ? nsweeps : kLegT;
+  const int t_last = nsweeps - (nchunks - 1) * t;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(nctas, 1, 1);
+  cfg.blockDim = dim3(Leg::NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = nctas > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, color_slab2d_kernel<true, Leg>, r, b, fr, fb,
+                         ro, bo, T, t, nchunks, t_last, *p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// One chunk: t sweeps on the (XE, Y2) ext halves r, b (RHS fr, fb), the
-// owned x_loc rows out to ro, bo.
-int pdemg_color_slab2d_shard(const float* r, const float* b, const float* fr,
-                             const float* fb, float* ro, float* bo, int XE,
-                             int x_loc, int Y2, int g0, int t,
-                             const Lyap2D* p, void* stream) {
-  if (t < 1 || x_loc < 1 || Y2 < 1 || XE < x_loc + 2 * t) {
-    return (int)cudaErrorInvalidValue;
+// One chunk: t sweeps on the (XE, Y2) ext halves r, b (RHS fr, fb), in
+// tiles of RX x RJ loaded and BX x BJ owned points, on CTAs of `threads`
+// (512 or 1024); the owned x_loc rows out to ro, bo.  XE = x_loc is the
+// one-rank form.
+__attribute__((visibility("default"))) int pdemg_color_slab2d_shard(
+    const float* r, const float* b, const float* fr, const float* fb,
+    float* ro, float* bo, int XE, int x_loc, int Y2, int g0, int t, int RX,
+    int RJ, int BX, int BJ, int threads, const Lyap2D* p, void* stream) {
+  if (threads == Chunk1024::NT) {
+    return launch_chunk<Chunk1024>(r, b, fr, fb, ro, bo, XE, x_loc, Y2, g0,
+                                   t, RX, RJ, BX, BJ, p,
+                                   (cudaStream_t)stream);
   }
-  const int gy = (x_loc + kBX - 1) / kBX;
-  if (gy > 65535) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = smem_floats(t) * sizeof(float);
-  if (smem > 48 * 1024) {
-    // above 48 KB only as opted-in dynamic shared memory (t > 4); the
-    // card refuses more than 227 KB (t > ~20) here
-    const cudaError_t e = cudaFuncSetAttribute(
-        color_slab2d_shard_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((Y2 + kBJ - 1) / kBJ, gy, 1);
-  color_slab2d_shard_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      r, b, fr, fb, ro, bo, XE, x_loc, Y2, g0, t, *p);
-  return (int)cudaGetLastError();
+  if (threads != Chunk512::NT) return (int)cudaErrorInvalidValue;
+  return launch_chunk<Chunk512>(r, b, fr, fb, ro, bo, XE, x_loc, Y2, g0, t,
+                                RX, RJ, BX, BJ, p, (cudaStream_t)stream);
+}
+
+// A whole leg: nsweeps on a one-rank level's (X, Y2) halves, held by
+// nctas CTAs of RX loaded and BX owned rows; the level out to ro, bo.
+__attribute__((visibility("default"))) int pdemg_color_slab2d_leg(
+    const float* r, const float* b, const float* fr, const float* fb,
+    float* ro, float* bo, int X, int Y2, int nsweeps, int RX, int BX,
+    int nctas, const Lyap2D* p, void* stream) {
+  return launch_leg(r, b, fr, fb, ro, bo, X, Y2, nsweeps, RX, BX, nctas, p,
+                    (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ Replaces the TPU kernels `pde_multigrid_tpu/ops/pallas/relax.py`
 `_pallas_split_2d`, `_pallas_merge_2d` (and the XLA `split_colors_2d` /
 `merge_colors_2d` they stand in for), `make_split_color_slab_2d` (its
 `raw` halves-in/halves-out form) and, on one shard of a sharded level,
-`make_split_color_slab_2d_shard` (`color_slab2d_shard`,
+`make_split_color_slab_2d_shard` (`color_slab2d_shard`, a chunk of t
+sweeps, and `color_slab2d_leg`, a whole leg of a one-rank level on chip:
 csrc/color_slab2d_shard.cu).  Halves layout (`ops/split2d.py`): a
 dense (X, Y) level becomes red/black (X, ceil(Y/2)) arrays; with
 q = x % 2, red sits at y = 2j + q and black at y = 2j + 1 - q.  With an odd
@@ -31,7 +32,21 @@ from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _stream
 RED, BLACK = 0, 1
 
 launches = {"split2d": 0, "merge2d": 0, "half_sweep2d": 0,
-            "color_slab2d_shard": 0}
+            "color_slab2d_shard": 0, "color_slab2d_leg": 0}
+
+# csrc/color_slab2d_shard.cu's constants: points a chunk's CTA holds by
+# its threads (its two forms), points a leg's CTA holds, the sweeps
+# between a leg's halo refreshes and the largest cluster; and the
+# chunk's tiling: the widest tile along j, the fewest owned rows, and the
+# CTAs a launch keeps resident (one on each of an H100's SMs), which
+# small levels' tiles are cut to fill
+SLAB_POINTS = {512: 512 * 10, 1024: 1024 * 4}
+LEG_POINTS = 512 * 8
+LEG_T = 4
+LEG_MAX_CTAS = 16
+SLAB_TILE_J = 64
+SLAB_MIN_BX = 8
+SLAB_CTAS = 132
 
 
 def reset_launches() -> None:
@@ -112,8 +127,10 @@ def color_slab2d_shard_plain(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
                              problem, geom: LevelGeometry, x_loc: int):
     """(r, b): the owned x_loc rows of one shard's ext halves after t
     red-black sweeps (new tensors).  The ext halves hold XE >= x_loc + 2t
-    rows in the global colour convention, ext row 0 at global row `g0`;
-    coordinates, colours and interior masks come from the global row.
+    rows in the global colour convention, ext row 0 at global row `g0`
+    (XE = x_loc on a one-rank ring, whose last row no interior point
+    reads past); coordinates, colours and interior masks come from the
+    global row.
     Each half-sweep is half_sweep2d_plain's on the ext block, its x and y
     neighbours rolled within the block as JAX's kernel rolls them
     (relax.py:2879): the rows a roll corrupts lie past x_loc + 2t - 2s
@@ -230,14 +247,64 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a0 < b0 + b.nbytes and b0 < a0 + a.nbytes
 
 
+def slab_tile(x_loc: int, Y2: int, t: int):
+    """(RX, RJ, BX, BJ, threads): the loaded and owned rows and slots of
+    the chunk kernel's tiles for `t` sweeps on a shard of x_loc rows of Y2
+    slots, with a 2t halo on +x and, where a tile does not span the row,
+    on +j, and the kernel's form (threads a CTA).  Whole rows where Y2 <=
+    SLAB_TILE_J, else SLAB_TILE_J slots; as many rows as the CTA's points
+    allow (SLAB_POINTS[threads]), or on a level whose tiles would leave
+    SLAB_CTAS CTAs idle, fewer (at least SLAB_MIN_BX owned), so that the
+    tiles fill whole waves of SLAB_CTAS.  The form: 1024 threads where
+    512-thread tiles take more than one wave (2049^2 and up; 1025^2 at
+    t = 4), else 512."""
+
+    def tiling(points):
+        RJ = min(Y2, SLAB_TILE_J)
+        BJ = Y2 if RJ >= Y2 else RJ - 2 * t
+        ntj = -(-Y2 // BJ) if BJ > 0 else 1
+        bx_max = points // RJ - 2 * t
+        waves = -(-(-(-x_loc // max(bx_max, 1)) * ntj) // SLAB_CTAS)
+        rows = max(1, waves * SLAB_CTAS // ntj)
+        BX = min(bx_max, max(SLAB_MIN_BX, -(-x_loc // rows)))
+        return BX + 2 * t, RJ, BX, BJ, waves
+
+    threads = 1024 if tiling(SLAB_POINTS[512])[4] > 1 else 512
+    RX, RJ, BX, BJ, _ = tiling(SLAB_POINTS[threads])
+    if BX < 1 or BJ < 1:
+        raise ValueError(f"{t} sweeps do not fit a {RX} x {RJ} tile of the "
+                         f"chunk kernel")
+    return RX, RJ, BX, BJ, threads
+
+
+def leg_layout(geom: LevelGeometry):
+    """(RX, BX, nctas) of `color_slab2d_leg` on a one-rank level: bands
+    of BX rows (plus 2 LEG_T halo rows, RX in all) on the largest cluster
+    of at most LEG_MAX_CTAS CTAs whose bands are at least 2 LEG_T rows
+    and hold LEG_POINTS points, the rows spread evenly; the whole level in
+    one CTA where no cluster fits and it holds LEG_POINTS points; None
+    where the level does not fit on chip."""
+    X, Y2 = geom.padded_shape[0], split2d.half_width(geom)
+    for n in range(LEG_MAX_CTAS, 1, -1):
+        BX = -(-X // n)
+        RX = BX + 2 * LEG_T
+        if BX >= 2 * LEG_T and RX * Y2 <= LEG_POINTS and (n - 1) * BX < X:
+            return RX, BX, n
+    return (X, X, 1) if X * Y2 <= LEG_POINTS else None
+
+
 def color_slab2d_shard(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
-                       problem, geom: LevelGeometry, x_loc: int, out):
+                       problem, geom: LevelGeometry, x_loc: int, out,
+                       one_rank: bool = False):
     """One chunk of `t` sweeps on a shard's (XE, Y2) ext halves (global
     colour convention, ext row 0 at global row `g0`, XE >= x_loc + 2t),
     the exact owned rows written into `out` = (r, b), two (x_loc, Y2)
-    tensors apart from the inputs; returns `out`.  One launch of
-    csrc/color_slab2d_shard.cu for CUDA tensors, the plain version for
-    CPU tensors."""
+    tensors apart from the inputs; returns `out`.  `one_rank`: the form of
+    a one-rank ring, whose shard reaches the level's last row: rows past
+    x_loc read as 0 (no interior point reads them), so XE >= x_loc and no
+    ext rows are read.  Tiles and the kernel's form: `slab_tile`.  One
+    launch of csrc/color_slab2d_shard.cu for CUDA tensors, the plain
+    version for CPU tensors."""
     split2d.check_level(geom)
     Y2 = split2d.half_width(geom)
     XE = r_ext.shape[0]
@@ -250,12 +317,22 @@ def color_slab2d_shard(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
         if tuple(o.shape) != (x_loc, Y2):
             raise ValueError(f"output halves {tuple(o.shape)}, want "
                              f"({x_loc}, {Y2})")
-    if t < 1 or XE < x_loc + 2 * t:
-        raise ValueError(f"{t} sweeps need an ext slab of x_loc + 2t = "
-                         f"{x_loc + 2 * t} rows or more; got {XE}")
+    if one_rank and g0 + x_loc < geom.shape[0]:
+        raise ValueError(
+            f"the one-rank form needs the shard to reach the level's last "
+            f"row: rows {g0} .. {g0 + x_loc - 1} of {geom.shape[0]}")
+    need = x_loc if one_rank else x_loc + 2 * t
+    if t < 1 or XE < need:
+        raise ValueError(f"{t} sweeps need an ext slab of "
+                         f"{'x_loc' if one_rank else 'x_loc + 2t'} = {need} "
+                         f"rows or more; got {XE}")
     if any(_overlap(o, a) for o in out for a in ins) or _overlap(*out):
         raise ValueError("the output halves overlap the inputs or each "
                          "other")
+    if one_rank:
+        ins = tuple(a[:x_loc] for a in ins)
+        XE = x_loc
+    tiles = slab_tile(x_loc, Y2, t)
     if not _on_cuda(*ins, *out):
         pr, pb = color_slab2d_shard_plain(*ins, g0, t, problem, geom, x_loc)
         out[0].copy_(pr)
@@ -264,8 +341,50 @@ def color_slab2d_shard(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
     params = lyap_params(problem, geom)
     rc = build.load().lib.pdemg_color_slab2d_shard(
         *(a.data_ptr() for a in (*ins, *out)), XE, x_loc, Y2, g0, t,
-        ctypes.addressof(params), _stream(),
+        *tiles, ctypes.addressof(params), _stream(),
     )
     launches["color_slab2d_shard"] += 1
     build.check(rc, "color_slab2d_shard")
+    return out
+
+
+def color_slab2d_leg(r, b, fr, fb, nsweeps: int, problem,
+                     geom: LevelGeometry, out):
+    """A whole leg of `nsweeps` sweeps on a one-rank level's (X, Y2)
+    halves (global colour convention: the port's split), written into
+    `out` = (r, b), two (X, Y2) tensors apart from the inputs; returns
+    `out`.  The same owned rows as chunks of the one-rank form
+    (`color_slab2d_shard(..., one_rank=True)`), bit for bit.  One launch
+    of csrc/color_slab2d_shard.cu's leg form (`leg_layout`: one CTA or a
+    cluster) for CUDA tensors, the plain version for CPU tensors; a level
+    that does not fit on chip raises."""
+    _check_halves(r, b, geom)
+    _check_halves(fr, fb, geom)
+    for o in out:
+        if o.shape != r.shape:
+            raise ValueError(f"output halves {tuple(o.shape)}, want "
+                             f"{tuple(r.shape)}")
+    if nsweeps < 1:
+        raise ValueError(f"a leg of {nsweeps} sweeps")
+    ins = (r, b, fr, fb)
+    if any(_overlap(o, a) for o in out for a in ins) or _overlap(*out):
+        raise ValueError("the output halves overlap the inputs or each "
+                         "other")
+    layout = leg_layout(geom)
+    if layout is None:
+        raise ValueError(f"level {geom.padded_shape} does not fit on chip "
+                         f"({LEG_MAX_CTAS} CTAs of {LEG_POINTS} points)")
+    X, Y2 = r.shape
+    if not _on_cuda(*ins, *out):
+        pr, pb = color_slab2d_shard_plain(*ins, 0, nsweeps, problem, geom, X)
+        out[0].copy_(pr)
+        out[1].copy_(pb)
+        return out
+    params = lyap_params(problem, geom)
+    rc = build.load().lib.pdemg_color_slab2d_leg(
+        *(a.data_ptr() for a in (*ins, *out)), X, Y2, nsweeps, *layout,
+        ctypes.addressof(params), _stream(),
+    )
+    launches["color_slab2d_leg"] += 1
+    build.check(rc, "color_slab2d_leg")
     return out

@@ -31,6 +31,15 @@ shapes that is the same on either device:
     of the per-shard color slab (`relax2d.color_slab2d_shard`,
     csrc/color_slab2d_shard.cu), ping-ponging between two ext buffers;
     one merge at the end (JAX's `local_relax_split2d`, halo.py:326-363).
+    On a one-rank ring (every level of `--mesh 1`, every replicated level
+    on more ranks) no halo is taken: the shard's last row is the level's
+    boundary or padding, so no interior point reads past it and the chunk
+    reads those rows as 0 (`one_rank=True`); and where the level fits on
+    chip (`relax2d.leg_layout`: 257^2 and below) a whole leg is one launch
+    (`relax2d.color_slab2d_leg`) instead of ceil(nsweeps / T) chunks.  The
+    owned rows are bitwise the chunked schedule's (the trapezoid argument),
+    so every number of ranks still gives the same solution; JAX chunks
+    every leg in T sweeps (ROADMAP.md, "Observed").
     A shard whose first global row is odd holds the global colours
     swapped in the port's local split, so its halves are swapped at the
     split and the merge: every exchanged halo is in the global colour
@@ -125,7 +134,9 @@ def make_sharded_relax(problem, geom: LevelGeometry, mesh,
     sweeps per halo exchange and a remainder chunk of nsweeps % T, through
     the kernels' wrappers (the CUDA kernels on CUDA tensors, their plain
     versions on CPU tensors).  The engine is recorded as
-    `relax.engine`."""
+    `relax.engine`, T as `relax.T`, and whether a leg is one launch (the
+    split2d engine on a one-rank ring, on a level that fits on chip) as
+    `relax.leg`."""
     X = geom.padded_shape[0]
     n = mesh.n
     if X % n:
@@ -138,6 +149,7 @@ def make_sharded_relax(problem, geom: LevelGeometry, mesh,
             f"local extent {x_loc} smaller than halo {halo}; agglomerate")
     engine = plan_engine(problem, geom, n)
     i0 = mesh.rank * x_loc  # global plane of owned plane 0
+    leg = False  # a whole leg a launch (split2d on a one-rank ring)
 
     def chunks(nsweeps):
         n_full, rem = divmod(nsweeps, T)
@@ -165,6 +177,10 @@ def make_sharded_relax(problem, geom: LevelGeometry, mesh,
             return R.merge(r, b, out=v_loc)
     elif engine == "split2d":
         odd = i0 % 2 == 1
+        # a one-rank ring: no halo (rows past x_loc read as 0), and a whole
+        # leg a launch where the level fits on chip
+        one = n == 1
+        leg = one and R2.leg_layout(geom) is not None
         bufs = []  # per level and rank: (r, b) twice and (fr, fb)
 
         def glob(r, b):
@@ -180,22 +196,28 @@ def make_sharded_relax(problem, geom: LevelGeometry, mesh,
 
         def relax(v_loc, f_loc, nsweeps: int):
             if not bufs:
-                shape = (x_loc + halo, split2d.half_width(geom))
+                shape = (x_loc + (0 if one else halo),
+                         split2d.half_width(geom))
                 bufs.extend(torch.empty(shape, dtype=v_loc.dtype,
                                         device=v_loc.device)
                             for _ in range(6))
             cur, nxt, fs = bufs[0:2], bufs[2:4], bufs[4:6]
             R2.to_halves(f_loc, out=glob(*(a[:x_loc] for a in fs)))
-            for a in fs:
-                take_halo(a, halo)
+            if not one:
+                for a in fs:
+                    take_halo(a, halo)
             R2.to_halves(v_loc, out=glob(*(a[:x_loc] for a in cur)))
-            for t in chunks(nsweeps):
-                xe = x_loc + 2 * t
-                for a in cur:
-                    take_halo(a, 2 * t)
+            if leg:
+                R2.color_slab2d_leg(*cur, *fs, nsweeps, problem, geom, nxt)
+                cur, nxt = nxt, cur
+            for t in () if leg else chunks(nsweeps):
+                xe = x_loc if one else x_loc + 2 * t
+                if not one:
+                    for a in cur:
+                        take_halo(a, 2 * t)
                 R2.color_slab2d_shard(
                     *(a[:xe] for a in (*cur, *fs)), i0, t, problem, geom,
-                    x_loc, tuple(a[:x_loc] for a in nxt))
+                    x_loc, tuple(a[:x_loc] for a in nxt), one_rank=one)
                 cur, nxt = nxt, cur
             return R2.from_halves(*glob(*(a[:x_loc] for a in cur)),
                                   out=v_loc)
@@ -219,4 +241,5 @@ def make_sharded_relax(problem, geom: LevelGeometry, mesh,
 
     relax.engine = engine
     relax.T = T
+    relax.leg = leg
     return relax

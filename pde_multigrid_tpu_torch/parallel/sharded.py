@@ -44,9 +44,12 @@ otherwise.  JAX runs jnp there only because GSPMD owns those levels; the
 kernels compute the same function.  Replicated 2D levels run the split2d
 engine on a one-rank ring, so every 2D level relaxes in the one
 arithmetic of row 17 on any number of ranks (the resident kernel and the
-plain tier round otherwise).  The fused hooks return None, as in
-JAX's `JnpKernels` base, and there is no defect path: `precision` is
-ignored, as JAX's sharded tier does.
+plain tier round otherwise).  On a one-rank ring the engine takes no
+halo, and runs a whole leg in one launch where the level fits on chip
+(257^2 and below), whatever T says: the owned rows are bitwise those of
+the T-sweep chunks (`halo.make_sharded_relax`).  The fused hooks return
+None, as in JAX's `JnpKernels` base, and there is no defect path:
+`precision` is ignored, as JAX's sharded tier does.
 
 The tier serves red-black Gauss-Seidel in the correction scheme on 3D
 wrap-storage Poisson and on padded 2D Lyapunov (FAS also on the 3D wrap

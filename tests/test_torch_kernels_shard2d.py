@@ -1,10 +1,12 @@
-"""Port parity of the per-shard 2D color slab chunk of the sharded
-Lyapunov solve: `ops/cuda/relax2d.py` `color_slab2d_shard_plain` (what
-the wrapper `color_slab2d_shard` runs for CPU tensors) against the JAX
-package's `make_split_color_slab_2d_shard` in interpret mode, and against
-the port's own whole-level half-sweeps on shards whose first global row is
-odd (which JAX's 8-row alignment never makes); the wrapper on CPU tensors
-and its refusals.
+"""Port parity of the per-shard 2D color slab of the sharded Lyapunov
+solve: `ops/cuda/relax2d.py` `color_slab2d_shard_plain` (what the wrappers
+`color_slab2d_shard`, in its ext and one-rank forms, and
+`color_slab2d_leg` run for CPU tensors) against the JAX package's
+`make_split_color_slab_2d_shard` in interpret mode, and against the port's
+own whole-level half-sweeps on shards whose first global row is odd (which
+JAX's 8-row alignment never makes); the one-rank forms against the chunked
+schedule; the kernel's tiles and leg layouts; the wrappers on CPU tensors
+and their refusals.
 
 JAX's kernel takes lane-padded halves (Y2p = 128 slots for 129 points)
 and an 8-row-rounded halo; the port's halves are ceil(Y/2) = 65 wide, so
@@ -93,6 +95,21 @@ def test_color_slab2d_shard_plain_matches_pallas(pad, ranks, t, T):
         for g, w in zip(got, want):
             assert g.shape == (x_loc, Y2)
             _close(g.numpy(), w[:, :Y2])
+        # the wrapper's other forms on CPU tensors (their plain path) on
+        # the last shard, which reaches the level's last row: the one-rank
+        # form without the ext rows, and on one rank the whole-leg form
+        if i != ranks - 1:
+            continue
+        own = [torch.tensor(a[:x_loc, :Y2]) for a in ins]
+        forms = {"one_rank": lambda o: R2.color_slab2d_shard(
+            *own, g0, t, Lyapunov2D(), tg, x_loc, o, one_rank=True)}
+        if ranks == 1:
+            forms["leg"] = lambda o: R2.color_slab2d_leg(
+                *own, t, Lyapunov2D(), tg, o)
+        for name, form in forms.items():
+            out = form(tuple(torch.empty(x_loc, Y2) for _ in range(2)))
+            for g, w in zip(out, want):
+                _close(g.numpy(), w[:, :Y2])
 
 
 def _whole(n, pad, seed):
@@ -134,6 +151,98 @@ def test_shard_chunk_equals_whole_level_sweeps(n, pad, x_loc, t):
                     for _ in range(2))
         R2.color_slab2d_shard(*ins, g0, t, Lyapunov2D(), g, x_loc, out)
         assert all(torch.equal(o, w) for o, w in zip(out, got))
+
+
+def _one_rank_chunked(r, b, fr, fb, ns, g, T=4):
+    """The one-rank engine's chunked schedule before the one-rank form:
+    chunks of T sweeps (and a remainder) on ext halves whose 2t halo rows
+    are the level's first rows (the one-rank ring wraps), the owned rows
+    kept between chunks."""
+    X = g.padded_shape[0]
+    for t in [T] * (ns // T) + [ns % T] * (ns % T > 0):
+        idx = torch.arange(X + 2 * t) % X
+        out = tuple(torch.empty_like(r) for _ in range(2))
+        R2.color_slab2d_shard(*(a[idx] for a in (r, b, fr, fb)), 0, t,
+                              Lyapunov2D(), g, X, out)
+        r, b = out
+    return r, b
+
+
+@pytest.mark.parametrize("n", [9, 65, 129])
+@pytest.mark.parametrize("ns", [1, 3, 7])
+def test_one_rank_forms_equal_the_chunked_schedule(n, ns):
+    """On a one-rank level (9^2: one CTA's leg; 65^2: a 9-CTA cluster's;
+    129^2: a 15-CTA cluster's), a leg of ns sweeps by the one-rank form
+    (rows past x_loc read as 0, no ext rows) in chunks of T = 4, and by
+    the whole-leg form in one call, gives owned rows bitwise those of the
+    chunked T = 4 schedule on ext halves with the ring's halo; the
+    wrappers on CPU tensors (their plain path)."""
+    g, (r, b), (fr, fb) = _whole(n, 1, 31 * n + ns)
+    X = g.padded_shape[0]
+    want = _one_rank_chunked(r, b, fr, fb, ns, g)
+    cr, cb = r, b
+    for t in [4] * (ns // 4) + [ns % 4] * (ns % 4 > 0):
+        out = tuple(torch.empty_like(r) for _ in range(2))
+        R2.color_slab2d_shard(cr, cb, fr, fb, 0, t, Lyapunov2D(), g, X, out,
+                              one_rank=True)
+        cr, cb = out
+    leg = R2.color_slab2d_leg(r, b, fr, fb, ns, Lyapunov2D(), g,
+                              tuple(torch.empty_like(r) for _ in range(2)))
+    for got in ((cr, cb), leg):
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n,pad,want", [
+    (65, 1, (16, 8, 9)), (65, 4, (16, 8, 9)), (9, 1, (9, 9, 1)),
+    (129, 1, (17, 9, 15)),
+    (129, 8, (17, 9, 16)), (257, 1, (25, 17, 16)), (257, 8, (25, 17, 16)),
+    (513, 1, None), (4097, 1, None)])
+def test_leg_layout(n, pad, want):
+    """The whole-leg form's layout (RX, BX, nctas): bands of BX rows plus
+    2 LEG_T halo rows on the largest cluster of at most LEG_MAX_CTAS = 16
+    CTAs whose bands are at least 2 LEG_T rows and hold LEG_POINTS points
+    (16 at 257^2 and at 129^2 on 136 rows, 15 at 129^2, 9 at 65^2), the
+    rows spread evenly and every row owned once; one CTA where no cluster
+    fits and the level's points fit kThreads x kLegPts = 4096 (9^2);
+    513^2 and up do not fit on chip."""
+    g = TG.build_geometries((n, n), Lyapunov2D().domain,
+                            pad_axis0_to=pad)[0]
+    lay = R2.leg_layout(g)
+    assert lay == want
+    if lay is None:
+        return
+    RX, BX, nctas = lay
+    X, Y2 = g.padded_shape[0], split2d.half_width(g)
+    assert RX * Y2 <= R2.LEG_POINTS and nctas <= R2.LEG_MAX_CTAS
+    assert (nctas - 1) * BX < X <= nctas * BX
+    assert RX == (X if nctas == 1 else BX + 2 * R2.LEG_T)
+
+
+@pytest.mark.parametrize("x_loc,Y2,t,want", [
+    (4097, 2049, 4, (64, 64, 56, 56, 1024)),
+    (4097, 2049, 1, (62, 64, 60, 62, 1024)),
+    (2049, 1025, 4, (58, 64, 50, 56, 1024)),
+    (1025, 513, 4, (48, 64, 40, 56, 1024)),
+    (513, 257, 4, (28, 64, 20, 56, 512)),
+    (65, 33, 2, (12, 33, 8, 33, 512))])
+def test_slab_tile(x_loc, Y2, t, want):
+    """The chunk kernel's tiles and form (RX, RJ, BX, BJ, threads): 64
+    slots (owned 64 - 2t) where a row is wider, else whole rows; at most
+    SLAB_POINTS[threads] // RJ rows (owned RX - 2t), fewer where the
+    level would leave the 132 CTAs of a wave idle (at least 8 owned), the
+    tiles filling whole waves: 4097^2 at t = 4 2738 tiles (21 waves),
+    2049^2 779 (6), 1025^2 260 (2), 513^2 130 (1); 1024-thread CTAs of 4
+    points where 512-thread tiles of 10 take more than one wave."""
+    got = R2.slab_tile(x_loc, Y2, t)
+    assert got == want
+    RX, RJ, BX, BJ, threads = got
+    points = R2.SLAB_POINTS[threads]
+    assert RX * RJ <= points and RX == BX + 2 * t
+    # as many waves of 132 CTAs as the largest tiles would take
+    ntj = -(-Y2 // BJ)
+    widest = -(-x_loc // (points // RJ - 2 * t)) * ntj
+    waves = -(-widest // R2.SLAB_CTAS)
+    assert -(-(-(-x_loc // BX) * ntj) // R2.SLAB_CTAS) == waves
 
 
 def test_rows_layout_is_the_level_layout():
@@ -183,3 +292,23 @@ def test_wrapper_refusals():
     with pytest.raises(TypeError, match="float32"):
         R2.color_slab2d_shard(*(a.double() for a in ins), 0, t, prob, g,
                               x_loc, out)
+    # the one-rank form only on a shard that reaches the level's last row
+    with pytest.raises(ValueError, match="last row"):
+        R2.color_slab2d_shard(*ins, 0, t, prob, g, x_loc, out, one_rank=True)
+    # sweeps whose 2t halo leaves no owned row in a tile
+    with pytest.raises(ValueError, match="tile"):
+        R2.color_slab2d_shard(*ins, 27, 151, prob, g, x_loc, out,
+                              one_rank=True)
+    # the whole-leg form: whole halves of a level that fits on chip
+    whole = (r, b, fr, fb)
+    lo = tuple(torch.empty_like(r) for _ in range(2))
+    with pytest.raises(ValueError, match="halves"):
+        R2.color_slab2d_leg(*ins, 3, prob, g, lo)
+    with pytest.raises(ValueError, match="sweeps"):
+        R2.color_slab2d_leg(*whole, 0, prob, g, lo)
+    with pytest.raises(ValueError, match="overlap"):
+        R2.color_slab2d_leg(*whole, 3, prob, g, (r, lo[1]))
+    g5, (r5, b5), (fr5, fb5) = _whole(513, 1, 2)
+    with pytest.raises(ValueError, match="does not fit on chip"):
+        R2.color_slab2d_leg(r5, b5, fr5, fb5, 1, prob, g5,
+                            tuple(torch.empty_like(r5) for _ in range(2)))

@@ -180,6 +180,26 @@ def test_split2d_engine_composes_bitwise(n, T):
         assert torch.equal(got, want), (ns, float((got - want).abs().max()))
 
 
+@pytest.mark.parametrize("m", [65, 513])
+def test_one_rank_engine_bitwise(m):
+    """The split2d engine on a one-rank ring over m^2: no halo taken, a
+    whole leg a launch where the level fits on chip (65^2) and chunks of
+    T = 4 in the one-rank form where it does not (513^2); legs of 1, 3
+    and 7 sweeps bitwise the whole-level half-sweeps."""
+    prob = Lyapunov2D()
+    g = TG.build_geometries((m, m), DOM)[0]
+    v, f = _rand(g.padded_shape, m), _rand(g.padded_shape, m + 1)
+    fn = halo.make_sharded_relax(prob, g, make_mesh(1, device="cpu"), 4)
+    assert fn.leg == (m == 65)
+    for ns in (1, 3, 7):
+        got = fn(v.clone(), f, ns)
+        r, b = R2.to_halves(v)
+        fr, fb = R2.to_halves(f)
+        R2.relax_halves2d(r, b, fr, fb, ns, prob, g)
+        want = R2.from_halves(r, b, torch.empty_like(v))
+        assert torch.equal(got, want), ns
+
+
 @pytest.mark.parametrize("n", range(1, 9))
 def test_plan_pins_4097(n):
     """The plan the card runs for Lyapunov 4097^2, FMG exact coarsest
@@ -198,6 +218,11 @@ def test_plan_pins_4097(n):
     assert geoms[0].padded_shape[0] == n * math.ceil(4097 / n)
     for fn, g in zip(k._relax[:-1], geoms):
         assert fn.T == min(4, g.padded_shape[0] // n // 2) == 4
+    # on one rank (a one-rank ring: no halo copies) 257^2, 129^2 and 65^2
+    # fit on chip and run a whole leg a launch; over more ranks every
+    # level chunks on its shard
+    legs = [fn.leg for fn in k._relax[:-1]]
+    assert legs == ([False] * 4 + [True] * 3 if n == 1 else [False] * 7)
 
 
 # ---------------------------------------------------------- whole solves
@@ -230,8 +255,15 @@ def test_solves_over_shards_bitwise(cfg):
         for r in range(n):  # built one by one: the dense inverse is BLAS
             ring.run(lambda m: make(m) if m.rank == r else None)
         res = ring.run(lambda m: solvers[m.rank].solve_to_tolerance())
-        plan = solvers[0].program.kernels.plan
+        kern = solvers[0].program.kernels
+        plan = kern.plan
         assert set(plan) <= {"split2d", None}, plan
+        # the one-rank schedule: every level on a one-rank ring (all of
+        # them on one rank, the replicated ones on more) a whole leg a
+        # launch, every level split over the ranks in chunks
+        for l, fn in enumerate(kern._relax):
+            if fn is not None:
+                assert fn.leg == (n == 1 or not kern.sharded[l]), (n, l)
         base = base or res[0]
         for r in res:
             assert torch.equal(_logical(r.v), _logical(base.v)), n
