@@ -32,9 +32,14 @@ Phases, in order; any failure exits non-zero without the final result line:
      its plain versions and the half-sweep chain over nu = 1, 2, 3 and 100,
      a 100-sweep leg timed beside the chain on every level, and the layout
      A/B its gate rests on (32^3 on 1 or 8 CTAs, 64^3 on 8 or 16); then
-     the 2D Lyapunov kernels, bitwise: split2d, merge2d and half_sweep2d
-     (with and without f) at 4097^2, resident over 500-sweep legs at
-     257^2 and 65^2 (with and without f);
+     the 2D Lyapunov kernels, bitwise: split2d and merge2d at 4097^2;
+     row 16 as the colour slab's one-rank chunk on the level's halves
+     (JAX's sweeps_per_call = T form) at 4097^2, 2049^2, 1025^2 and 513^2,
+     t = 4, 1, 3 with and without f, and over 9 sweeps in turns between
+     two pairs against the half-sweep chain; row 1 (the colour slab's leg
+     in dense form, on clusters of 16, 15 and 9 CTAs) over legs of 1-500
+     sweeps at 257^2 ... 3^2 with and without f; each timed beside its
+     plain version;
   4. main path at 129^3: FMG(2, 100, 100), red-black Gauss-Seidel, exact
      coarsest level, through `MultigridSolver.solve()` on "cuda", first
      with precision="f32", then "mixed" (the bench's default: every leg
@@ -66,12 +71,21 @@ Phases, in order; any failure exits non-zero without the final result line:
      inverse) coarsest level 33^2, precision="mixed", through
      `MultigridSolver.solve()` on "cuda": error_linf < max(10 h, 5e-5)
      (the bench's gate for this first-order scheme), finite residuals,
-     all four 2D kernels launched and no 3D or defect kernel, the
-     persistent halves' splits and merges within their per-visit budget;
-     ms per step and DOF-updates/s, eager and as one CUDA graph; then the
+     exactly the schedule's launches of row 16's chunk and row 1's leg,
+     split2d and merge2d launched, no 3D or defect kernel and no
+     half-sweep kernel built, the persistent halves' splits and merges
+     within their per-visit budget, the solution's SHA-256; ms per step
+     and DOF-updates/s, eager and as one CUDA graph, the profiler's busy
+     time by kernel and the relax time by level; then the
      float64 solve of the same schedule (plain tier on the card): the
      float32 error_linf within 1 % of its, and the solution within 10 %
-     of that error;
+     of that error; then (after phase 15's reduced solve) the thesis' two
+     Lyapunov presets through the CLI, `--preset lyapunov2d` (1025^2,
+     FMG(1, 500, 500), relaxed to 3^2: row 16 on 1025^2 and 513^2) and
+     `--preset lyapunov2d-cuda` (65^2 on [0, 20]^2, row 1 on every level):
+     the plan's kernels launched and no other, each against the float64
+     solve of its schedule (and the 1025^2 one under max(10 h, 5e-5)), ms
+     per step eager and as one CUDA graph;
   7. the 1D family: relax1d bitwise against its plain version over
      1000-sweep legs (Ode1D at 8193, 4097, 16385 and 3, 5, 9, 17 points;
      Poisson(1) at 8193 and 16385 in wrap storage), timed beside its
@@ -156,16 +170,15 @@ Phases, in order; any failure exits non-zero without the final result line:
      4097^2 over 1, 2 and 4 ranks at t = 1-4, its one-rank form on every
      relaxed level at t = 1-4, and the whole leg on chip on 257^2-9^2
      over legs of 1-500 sweeps; a t = 4 chunk timed beside its plain
-     version and beside the 8 half-sweep launches of the same 4 sweeps, a
-     500-sweep leg beside its plain version, and by level the chunk with
-     and without halo rows and the leg beside 125 chunks; then 4097^2
-     FMG(2, 500, 500),
-     exact coarsest, f32, `--problem lyapunov2d --mesh 1` through the CLI
-     in process: error_linf < max(10 h, 5e-5), finite residuals, exactly
-     the schedule's launches of the chunk (4097^2-513^2), the leg
-     (257^2-65^2), split2d and merge2d and no other kernel, ms per step
-     eager and as one CUDA graph, the solution within
-     JAX's sharded-vs-single tolerance of phase 6's (max|dv| printed);
+     version, a 500-sweep leg beside its plain version, and by level the
+     chunk with and without halo rows and the leg beside 125 chunks; then
+     4097^2 FMG(2, 500, 500), exact coarsest, f32, `--problem lyapunov2d
+     --mesh 1` through the CLI in process: error_linf < max(10 h, 5e-5),
+     finite residuals, exactly the schedule's launches of the chunk
+     (4097^2-513^2), the leg (257^2-65^2), split2d and merge2d and no
+     other kernel, ms per step eager and as one CUDA graph, the solution
+     within JAX's sharded-vs-single tolerance of phase 6's (max|dv|
+     printed);
      then FMG(2, 20, 20) over 2 and 4 gloo ranks on cuda:0: every rank's
      launches as the schedule implies, rank 0's logical solution bitwise
      the one-rank solve's of that schedule;
@@ -199,12 +212,13 @@ Phases, in order; any failure exits non-zero without the final result line:
      kernel (reduced2d.cu, row 18) bitwise its plain version at 33^2,
      65^2, 513^2 (T = 16, 5) and at 4097^2 and 2049^2 in chunks of
      T = 8, 1, 3 with and without f, bitwise its plain version and within
-     JAX's test tolerance of row 16's chain, the T = 8 chunk timed beside
-     its plain version and row 16's 16 half-sweeps; after phase 6, the
+     JAX's test tolerance of row 16 (its chunks), the T = 8 chunk timed
+     beside its plain version and row 16's two chunks of 4; after phase 6,
+     the
      4097^2 Lyapunov solve with the reduced opt-in on
      (dispatch.SPLIT2D_REDUCED): the bench's gate, error_linf within 1 %
      of phase 6's and max|v - v_row16| under 10 % of it, exactly the
-     schedule's launches (`reduced_launches`; no half_sweep2d), eager and
+     schedule's launches (`reduced_launches`; no row 16 chunk), eager and
      graph ms per step.
 
 Every float64 reference but phase 11's is a `MultigridSolver(...,
@@ -292,12 +306,16 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/relax2d.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:2457",
     ),
-    "half_sweep2d": (
-        "pde_multigrid_tpu_torch/ops/cuda/csrc/relax2d.cu",
+    # row 16 in JAX's sweeps_per_call = T form: the colour slab's one-rank
+    # chunk on a level's halves (its launches: the color_slab2d_shard
+    # counter on the unsharded path)
+    "color_slab2d": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/color_slab2d_shard.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:2547",
     ),
+    # row 1's 2D Lyapunov levels: the colour slab's leg in dense form
     "resident": (
-        "pde_multigrid_tpu_torch/ops/cuda/csrc/resident.cu",
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/color_slab2d_shard.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:143",
     ),
     # the HJB variant of relax.py:143 (upwind update, pinned-ball mask)
@@ -406,8 +424,9 @@ PATHS = {
     "f32_257": (*F32_3D, "timeskew"),  # the wavefront on 256^3
     "f32_513": (*F32_3D, "timeskew", "timeskew_jb"),  # on 512^3 and 256^3
     "mixed": ("residual_split", "error_sweep", "merge_fold", *TRANSFERS),
-    # the 2D Lyapunov path (any precision: no defect plan covers 2D)
-    "lyapunov": ("split2d", "merge2d", "half_sweep2d", "resident"),
+    # the 2D Lyapunov path (any precision: no defect plan covers 2D): row
+    # 16 as one-rank chunks on 4097^2 ... 513^2, row 1 on 257^2 ... 65^2
+    "lyapunov": ("split2d", "merge2d", "color_slab2d_shard", "resident"),
     # the 1D family (any precision: no defect plan covers 1D)
     "ode1d": ("relax1d",),
     # the HJB 513^2 FAS row (f32)
@@ -444,6 +463,12 @@ PATHS = {
     # transfers and residuals are the plain ops (JAX's jnp under GSPMD)
     "sharded_lyap": ("split2d", "merge2d", "color_slab2d_shard",
                      "color_slab2d_leg"),
+    # the thesis' 2D Lyapunov presets, relaxed to 3^2: 1025^2 (row 16's
+    # chunks on 1025^2 and 513^2, row 1 below) and 65^2 (row 1 on every
+    # level)
+    "preset_lyap1025": ("split2d", "merge2d", "color_slab2d_shard",
+                        "resident"),
+    "preset_lyap65": ("resident",),
     # 4097^2 Lyapunov with the reduced opt-in: row 18 on 4097^2 ... 513^2,
     # each leg's v (and f) split and merged, the resident kernel below
     "lyapunov_reduced": ("split2d", "merge2d", "reduced2d", "resident"),
@@ -1342,13 +1367,33 @@ def phase_kernels_resident3d(torch):
     return out
 
 
+# the unsharded 2D Lyapunov path's two relax forms by level, ms
+# (printed with the summaries): row 16's T = 4 chunk on the level's
+# halves, with and without f, and row 1's 500-sweep leg
+LYAP2D_AB = {}
+# the levels of each: the split levels (row 16) and the resident ones
+# (row 1: its clusters of 16, 15 and 9 CTAs, then the smaller clusters
+# and one CTA below the path's levels)
+ROW16_LEVELS = (4097, 2049, 1025, 513)
+ROW1_LEVELS = (257, 129, 65, 33, 17, 9, 3)
+ROW1_LEGS = (1, 3, 4, 5, 9, 500)
+
+
 def phase_kernels2d(torch):
-    """The 2D Lyapunov kernels against their plain versions: split2d,
-    merge2d and half_sweep2d (with and without f) at the 4097^2 level's
-    shapes, resident over a 500-sweep leg at 257^2 and 65^2 (with and
-    without f).  Every comparison is bitwise.  Returns {name:
-    {"max_abs_err", "ms", "plain_ms"}}: half_sweep2d per f-less
-    half-sweep at 4097^2, resident per f-less 500-sweep leg at 257^2."""
+    """The 2D Lyapunov kernels against their plain versions: split2d and
+    merge2d at the 4097^2 level's shapes; row 16, JAX's sweeps_per_call =
+    T form, as the colour slab's one-rank chunk on a level's halves at
+    4097^2, 2049^2, 1025^2 and 513^2: chunks of t = 4, 1, 3 with and
+    without f against `color_slab2d_shard_plain`, and `relax_halves2d`
+    over 9 sweeps (two chunks and a remainder, in turns between two
+    pairs) against the half-sweep chain; row 1, `resident_relax` (the
+    colour slab's leg in dense form, in place) against
+    `resident_relax_plain` over legs of ROW1_LEGS sweeps with and without
+    f on ROW1_LEVELS.  Every comparison is bitwise.  Timed beside the
+    plain versions: the t = 4 chunk on each split level, f and f-less,
+    and the 500-sweep leg on 257^2, 129^2 and 65^2, f and f-less.
+    Returns {name: record}: color_slab2d for the f-less 4097^2 chunk,
+    resident for the f-less 500-sweep leg at 257^2."""
     import numpy as np
 
     from pde_multigrid_tpu_torch.grid import build_geometries
@@ -1365,12 +1410,12 @@ def phase_kernels2d(torch):
         return torch.tensor(rng.standard_normal(shape).astype(np.float32),
                             device=dev)
 
-    def record(name, err, t, what, nbytes, ops, lib_ms=None):
+    def record(name, err, t, what, nbytes, ops, lib_ms=None, bnd=None):
         res = {"max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-               **bound(nbytes, ops), "library_ms": lib_ms}
+               **(bnd or bound(nbytes, ops)), "library_ms": lib_ms}
         log(f"kernel {name} ({what}): max|kernel - plain| = {err!r}; device "
             f"{t['ms']!r} ms vs plain {t['plain_ms']!r} ms (bound "
-            f"{res['bound_ms']!r} ms by {res['bound_by']}, torch.take "
+            f"{res['bound_ms']!r} ms by {res['bound_by']}, library "
             f"{lib_ms!r} ms); eager call {t['eager_ms']!r} ms vs plain "
             f"{t['eager_plain_ms']!r} ms")
         return res
@@ -1408,69 +1453,117 @@ def phase_kernels2d(torch):
     out["merge2d"] = record(
         "merge2d", 0.0, t, "4097^2", r.nbytes + b.nbytes + v.nbytes, 0,
         device_ms(torch, lambda: torch.take(rb, idx), 10))
+    del v, f, r, b, pr, pb, dense, rb, idx, live
 
-    fr, fb = R2.to_halves(f)
-    for with_f in (True, False):
-        hf = (fr, fb) if with_f else (None, None)
-        errs = []
-        for sweeps in (1, 10):
+    # row 16: the one-rank chunk on each split level's halves
+    err16, chunks = 0.0, 0
+    LYAP2D_AB["chunk_t4_ms"] = {}
+    for m in ROW16_LEVELS:
+        gm = build_geometries((m, m), prob.domain, 1)[0]
+        r, b = R2.to_halves(rand((m, m)))
+        fr, fb = R2.to_halves(rand((m, m)))
+        ko = (torch.empty_like(r), torch.empty_like(b))
+        spare = (torch.empty_like(r), torch.empty_like(b))
+        for hf in ((fr, fb), (None, None)):
+            for tc in (R2.CHUNK_T, 1, 3):
+                R2.color_slab2d_shard(r, b, *hf, 0, tc, prob, gm, m, ko,
+                                      one_rank=True)
+                want = R2.color_slab2d_shard_plain(r, b, *hf, 0, tc, prob,
+                                                   gm, m)
+                e = max(_max_err(torch, x, w) for x, w in zip(ko, want))
+                require(all(map(torch.equal, ko, want)),
+                        f"color_slab2d {m}^2 chunk t = {tc} (with f: "
+                        f"{hf[0] is not None}) not bitwise: max diff {e!r}")
+                err16, chunks = max(err16, e), chunks + 1
             k_r, k_b = r.clone(), b.clone()
+            got = R2.relax_halves2d(k_r, k_b, *hf, 9, prob, gm, spare=spare)
             p_r, p_b = r.clone(), b.clone()
-            R2.relax_halves2d(k_r, k_b, *hf, sweeps, prob, g)
-            for _ in range(sweeps):
-                R2.half_sweep2d_plain(p_r, p_b, hf[0], R2.RED, prob, g)
-                R2.half_sweep2d_plain(p_b, p_r, hf[1], R2.BLACK, prob, g)
-            errs.append(max(_max_err(torch, k_r, p_r),
-                            _max_err(torch, k_b, p_b)))
-            require(torch.equal(k_r, p_r) and torch.equal(k_b, p_b),
-                    f"{sweeps} half_sweep2d sweeps (with f: {with_f}) not "
-                    f"bitwise: max diff {errs[-1]!r}")
-        t_r, t_b = r.clone(), b.clone()
+            for _ in range(9):
+                R2.half_sweep2d_plain(p_r, p_b, hf[0], R2.RED, prob, gm)
+                R2.half_sweep2d_plain(p_b, p_r, hf[1], R2.BLACK, prob, gm)
+            e = max(_max_err(torch, got[0], p_r), _max_err(torch, got[1], p_b))
+            require(got is spare and torch.equal(got[0], p_r)
+                    and torch.equal(got[1], p_b),
+                    f"relax_halves2d {m}^2, 9 sweeps (with f: "
+                    f"{hf[0] is not None}) not bitwise the half-sweep "
+                    f"chain: max diff {e!r}")
+            err16 = max(err16, e)
+        times = {}
+        for hf in ((None, None), (fr, fb)):
+            key = "f" if hf[0] is not None else "no_f"
+            ins = (r, b) + ((fr, fb) if hf[0] is not None else ())
+            t = paired_times(
+                torch,
+                lambda: R2.color_slab2d_shard(r, b, *hf, 0, R2.CHUNK_T, prob,
+                                              gm, m, ko, one_rank=True),
+                lambda: R2.color_slab2d_shard_plain(r, b, *hf, 0, R2.CHUNK_T,
+                                                    prob, gm, m), 3)
+            bnd = slab_bound(ins, ko, gm, 0, m, R2.CHUNK_T)
+            times[key] = t["ms"]
+            times[key + "_bound"] = bnd["bound_ms"]
+            res = record(
+                "color_slab2d", err16, t,
+                f"{m}^2 halves, one t = {R2.CHUNK_T} chunk, "
+                f"{'with' if key == 'f' else 'no'} f, "
+                f"{R2.slab_tile(m, (m + 1) // 2, R2.CHUNK_T)[4]} threads",
+                0, 0, bnd=bnd)
+            if m == 4097 and key == "no_f":
+                out["color_slab2d"] = res
+        LYAP2D_AB["chunk_t4_ms"][m] = times
+    log(f"kernel color_slab2d: bitwise against its plain version on {chunks}"
+        f" chunks ({ROW16_LEVELS} squared, t = 4, 1, 3, with and without "
+        f"f) and relax_halves2d bitwise the half-sweep chain over 9 sweeps "
+        f"on each; max diff {err16!r}")
+    del r, b, fr, fb, ko, spare, k_r, k_b, p_r, p_b, got, want
 
-        def plain_sweep():
-            R2.half_sweep2d_plain(t_r, t_b, hf[0], R2.RED, prob, g)
-            R2.half_sweep2d_plain(t_b, t_r, hf[1], R2.BLACK, prob, g)
-
-        t = paired_times(
-            torch, lambda: R2.relax_halves2d(t_r, t_b, *hf, 1, prob, g),
-            plain_sweep, 10,
-        )
-        # per half-sweep: u read and written, w (and f) read; the point's
-        # coefficients from its coordinates (one division) and the update:
-        # about 20 operations a point
-        res = record("half_sweep2d", max(errs),
-                     {k: x / 2 for k, x in t.items()},
-                     f"4097^2 per half-sweep, {'with' if with_f else 'no'} f",
-                     (4 if with_f else 3) * r.nbytes, 20 * r.numel())
-        if not with_f:
-            out["half_sweep2d"] = res
-
-    for n in (257, 65):
-        g = build_geometries((n, n), prob.domain, 1)[0]
-        v, f = rand((n, n)), rand((n, n))
-        for with_f in (True, False):
-            ff = f if with_f else None
-            k = RS.resident_relax(v.clone(), ff, 500, prob, g)
-            p = RS.resident_relax_plain(v.clone(), ff, 500, prob, g)
-            err = _max_err(torch, k, p)
-            require(torch.equal(k, p), f"resident 500 sweeps at {n}^2 (with "
-                    f"f: {with_f}) not bitwise: max diff {err!r}")
+    # row 1: the dense leg, in place, on the resident levels
+    err1, legs = 0.0, 0
+    LYAP2D_AB["resident_500_ms"] = {}
+    for m in ROW1_LEVELS:
+        gm = build_geometries((m, m), prob.domain, 1)[0]
+        v, f = rand((m, m)), rand((m, m))
+        for ff in (f, None):
+            for ns in ROW1_LEGS if m >= 65 else (1, 5, 500):
+                k = RS.resident_relax(v.clone(), ff, ns, prob, gm)
+                p = RS.resident_relax_plain(v.clone(), ff, ns, prob, gm)
+                e = _max_err(torch, k, p)
+                require(torch.equal(k, p), f"resident {ns} sweeps at {m}^2 "
+                        f"({RS.layout(gm)}, with f: {ff is not None}) not "
+                        f"bitwise: max diff {e!r}")
+                err1, legs = max(err1, e), legs + 1
+        if m < 65:
+            continue
+        times = {"layout": RS.layout(gm)}
+        for ff in (None, f):
+            key = "f" if ff is not None else "no_f"
             w = v.clone()
             t = paired_times(
-                torch, lambda: RS.resident_relax(w, ff, 500, prob, g),
-                lambda: RS.resident_relax_plain(w, ff, 500, prob, g), 1,
-            )
-            # v (and f) read once, v written once; per sweep and interior
-            # point 2 products, 1 sum (+ the f term) and the blend
-            n_int = (n - 2) ** 2
-            res = record("resident", err, t, f"{n}^2, one 500-sweep leg, "
-                         f"{'with' if with_f else 'no'} f",
-                         (3 if with_f else 2) * v.nbytes,
-                         (7 if with_f else 5) * n_int * 500)
-            if n == 257 and not with_f:
+                torch, lambda: RS.resident_relax(w, ff, 500, prob, gm),
+                lambda: RS.resident_relax_plain(w, ff, 500, prob, gm), 1)
+            # v (and f) read once, v written once; per interior point its
+            # coefficients (and f a_f) once, and per sweep 2 products, 1
+            # sum (+ the f term) and the blend's 2
+            n_int = (m - 2) ** 2
+            wf = ff is not None
+            res = record("resident", err1, t,
+                         f"{m}^2 on {RS.layout(gm)}, one 500-sweep leg, "
+                         f"{'with' if wf else 'no'} f",
+                         (3 if wf else 2) * v.nbytes,
+                         (LYAP_COEF_OPS + wf + (6 if wf else 5) * 500)
+                         * n_int)
+            times[key] = t["ms"]
+            times[key + "_plain"] = t["plain_ms"]
+            times[key + "_bound"] = res["bound_ms"]
+            if m == 257 and not wf:
                 out["resident"] = res
+        LYAP2D_AB["resident_500_ms"][m] = times
+    ctas = [RS.layout(build_geometries((m, m), prob.domain, 1)[0])[2]
+            for m in ROW1_LEVELS]
+    log(f"kernel resident: bitwise against resident_relax_plain on {legs} "
+        f"legs ({ROW1_LEVELS} squared, clusters {ctas}, with and without "
+        f"f); max diff {err1!r}")
     # the barrier floor: a 500-sweep f-less leg on the smallest level
-    # (9^2: 49 interior points), per sweep (two cluster barriers)
+    # (9^2: 49 interior points), per sweep
     g = build_geometries((9, 9), prob.domain, 1)[0]
     w = rand((9, 9))
     ms = device_ms(torch, lambda: RS.resident_relax(w, None, 500, prob, g), 3)
@@ -1717,15 +1810,40 @@ LYAP_N = 4097
 LYAP_NUS = (2, 500, 500)
 
 
+def lyapunov_launches(solver) -> dict:
+    """The relax launches of one FMG step of the unsharded 2D Lyapunov
+    plan: level l takes 2 nu0 (l + 1) legs (`reduced_launches`), each
+    ceil(nu / CHUNK_T) chunks of row 16 on a split level and one launch
+    of row 1 on the others."""
+    from pde_multigrid_tpu_torch.ops.cuda.relax2d import CHUNK_T
+
+    kern = solver.program.kernels
+    cyc = solver.config.cycle
+    want = {"color_slab2d_shard": 0, "resident": 0}
+    for l, fn in enumerate(kern._relax):
+        if fn is None:
+            continue
+        cycles = cyc.nu0 * (l + 1)  # one nu1 leg and one nu2 leg each
+        if kern._split[l]:
+            want["color_slab2d_shard"] += cycles * (
+                -(-cyc.nu1 // CHUNK_T) - (-cyc.nu2 // CHUNK_T))
+        else:
+            want["resident"] += 2 * cycles
+    return want
+
+
 def phase_lyapunov(torch):
     """The 2D Lyapunov path: 4097^2, FMG(2, 500, 500) with the exact
     (dense inverse) coarsest level, precision="mixed" (the bench's
     default; no defect plan covers a 2D level, so it relaxes in f32),
     through `MultigridSolver.solve()` on "cuda".  error_linf below the
     bench's gate max(10 h, 5e-5) for this one-sided first-order scheme,
-    finite residuals, all four 2D kernels launched and nothing else of
-    the CUDA tier, and the persistent halves within their conversion
-    budget.  Returns (launch counts, summary, solution v)."""
+    finite residuals, exactly the schedule's relax launches
+    (`lyapunov_launches`: row 16's chunks on 4097^2 ... 513^2, row 1's
+    legs on 257^2 ... 65^2), split2d and merge2d launched, nothing else of
+    the CUDA tier (no half-sweep kernel is built), and the persistent
+    halves within their conversion budget; the solution's SHA-256
+    printed.  Returns (launch counts, summary, solution v)."""
     from pde_multigrid_tpu_torch import (
         CycleConfig,
         Lyapunov2D,
@@ -1751,7 +1869,13 @@ def phase_lyapunov(torch):
         f"error_linf {res.error_linf!r} (limit max(10 h, 5e-5) = "
         f"{limit!r}), residual_l2 {res.residual_l2!r}, residual_linf "
         f"{res.residual_linf!r}, launches {counts}, conversions {conv}")
-    _check_solve(torch, tag, res, solver, limit, "lyapunov")
+    want = lyapunov_launches(solver)
+    _check_solve(torch, tag, res, solver, limit, "lyapunov", want)
+    require("half_sweep2d" not in counts,
+            f"{tag}: a half_sweep2d counter: the kernel is still built")
+    sha = hashlib.sha256(res.v.cpu().numpy().tobytes()).hexdigest()
+    log(f"{tag}: relax launches {want} as the schedule implies; solution "
+        f"SHA-256 {sha}")
     # the budget: per visit of a split level (nu0 (l + 1) of them, nu0 l
     # as a coarse level with an RHS) at most one split of v, one of f and
     # one merge, plus the final solution's merge
@@ -1770,9 +1894,36 @@ def phase_lyapunov(torch):
     summary = {"n": LYAP_N, "problem": "lyapunov2d", "precision": "mixed",
                "levels": [g.padded_shape for g in solver.geoms],
                "error_linf": res.error_linf,
-               "residual_l2": res.residual_l2, "conversions": conv}
+               "residual_l2": res.residual_l2, "conversions": conv,
+               "launches_per_step": want, "sha256": sha}
     v = res.v.clone()
     summary.update(time_step(torch, tag, solver, levels, 2, 1))
+    busy = busy_split_ms(
+        torch, lambda: solver.program.solve_step(levels),
+        {"chunk": "color_slab2d_kernel<false",
+         "resident": "color_slab2d_kernel<true, true",
+         "split2d": "split2d_kernel", "merge2d": "merge2d_kernel"})
+    summary["busy_ms"] = busy
+    # the relax kernels' device ms per step by level: level l's 2 nu0
+    # f-less legs (the V-cycles rooted at l) and 2 nu0 l legs with f, each
+    # ceil(nu / CHUNK_T) t = 4 chunks or one 500-sweep leg, at
+    # phase_kernels2d's times (a remainder chunk would count as a whole)
+    from pde_multigrid_tpu_torch.ops.cuda.relax2d import CHUNK_T
+
+    nu0 = LYAP_NUS[0]
+    by_level = {}
+    for l, g in enumerate(solver.geoms):
+        m = g.shape[0]
+        chunk = LYAP2D_AB.get("chunk_t4_ms", {}).get(m)
+        leg = LYAP2D_AB.get("resident_500_ms", {}).get(m)
+        per, times = ((-(-LYAP_NUS[1] // CHUNK_T), chunk) if chunk
+                      else (1, leg))
+        if times:
+            by_level[m] = per * 2 * nu0 * (times["no_f"] + l * times["f"])
+    summary["relax_ms_per_step_by_level"] = by_level
+    log(f"{tag}: device busy ms per step by kernel (profiler) {busy!r}; "
+        f"relax device ms per step by level {by_level!r} (sum "
+        f"{sum(by_level.values())!r})")
     return counts, summary, v
 
 
@@ -1793,11 +1944,11 @@ def phase_kernels_reduced2d(torch):
     (tiles past the level), then at 4097^2 and 2049^2,
     on halves of random dense levels: chunks of T = 8 (the path's T at both
     levels), 1 and 3 (a remainder), each with and without f, bitwise
-    against its plain version and within JAX's test tolerance of row 16's
-    half-sweep chain over the same sweeps.  At 4097^2 the f-less T = 8
-    chunk is timed beside its plain version and beside the 16 half-sweep
-    launches of the same 8 sweeps.  Returns {"reduced2d": that chunk's
-    record}."""
+    against its plain version and within JAX's test tolerance of row 16
+    (`relax_halves2d`: its one-rank chunks, bitwise the half-sweep chain)
+    over the same sweeps.  At 4097^2 the f-less T = 8 chunk is timed
+    beside its plain version and beside row 16's two f-less chunks of 4
+    sweeps.  Returns {"reduced2d": that chunk's record}."""
     import numpy as np
 
     from pde_multigrid_tpu_torch.grid import build_geometries
@@ -1844,28 +1995,31 @@ def phase_kernels_reduced2d(torch):
                         f"reduced2d {n}^2 T={T} with f: {hf[0] is not None}"
                         f" not bitwise: max diff {err!r}")
                 cr, cb = r.clone(), b.clone()
-                R2.relax_halves2d(cr, cb, *hf, T, prob, g)
+                cr, cb = R2.relax_halves2d(cr, cb, *hf, T, prob, g)
                 for a, c in zip(ko, (cr, cb)):
                     excess = torch.abs(a - c) - (
                         REDUCED_ATOL + REDUCED_RTOL * torch.abs(c))
                     rels.append(float(torch.max(excess)))
                 errs.append(err)
         require(max(rels) <= 0.0, f"reduced2d {n}^2: outside rtol "
-                f"{REDUCED_RTOL} / atol {REDUCED_ATOL} of row 16's chain "
+                f"{REDUCED_RTOL} / atol {REDUCED_ATOL} of row 16 "
                 f"(max excess {max(rels)!r})")
         log(f"kernel reduced2d ({n}^2, chunks of T = 8, 1, 3, with and "
             f"without f): bitwise against its plain version; within rtol "
-            f"{REDUCED_RTOL} / atol {REDUCED_ATOL} of row 16's half-sweep "
-            f"chain (largest |diff| - tol: {max(rels)!r})")
+            f"{REDUCED_RTOL} / atol {REDUCED_ATOL} of row 16's chunks "
+            f"(largest |diff| - tol: {max(rels)!r})")
         if n != 4097:
             continue
         t = paired_times(
             torch, lambda: RD.reduced_chunk(r, b, None, None, 8, prob, g, ko),
             lambda: RD.reduced_slab2d_plain(r, b, None, None, 8, prob, g), 3)
+        # row 16 over the same 8 sweeps: its form on the path, two f-less
+        # one-rank chunks of 4 between two pairs of halves
         cr, cb = r.clone(), b.clone()
+        spare = (torch.empty_like(r), torch.empty_like(b))
         chain = device_ms(
-            torch, lambda: R2.relax_halves2d(cr, cb, None, None, 8, prob, g),
-            3)
+            torch, lambda: R2.relax_halves2d(cr, cb, None, None, 8, prob, g,
+                                             spare=spare), 3)
         # r and b read once and written once (f-less); per interior black
         # point and sweep 3 products, 3 sums and the mask fold (8), per
         # interior black point and chunk about 80 for its fields and its
@@ -1876,11 +2030,13 @@ def phase_kernels_reduced2d(torch):
                             **bound(4 * r.nbytes,
                                     (8 * 8 + 80) * (n - 2) ** 2 / 2),
                             "library_ms": None}
-        REDUCED_AB.update(chunk_t8_ms=t["ms"], half_sweep2d_8_sweeps_ms=chain,
+        REDUCED_AB.update(chunk_t8_ms=t["ms"], row16_8_sweeps_ms=chain,
                           plain_ms=t["plain_ms"])
         log(f"kernel reduced2d ({n}^2, one f-less T = 8 chunk): device "
-            f"{t['ms']!r} ms vs plain {t['plain_ms']!r} ms vs row 16's 16 "
-            f"half-sweeps {chain!r} ms (bound {out['reduced2d']['bound_ms']!r}"
+            f"{t['ms']!r} ms vs plain {t['plain_ms']!r} ms vs row 16's two "
+            f"f-less chunks of 4 sweeps (its form on the path, "
+            f"relax_halves2d) {chain!r} ms (bound "
+            f"{out['reduced2d']['bound_ms']!r}"
             f" ms by {out['reduced2d']['bound_by']}); eager {t['eager_ms']!r}"
             f" ms vs plain {t['eager_plain_ms']!r} ms")
     torch.cuda.synchronize()
@@ -2069,6 +2225,75 @@ def phase_lyapunov_reduced(torch, sly, vly, counts_ly):
                "launches_per_step": {k: counts[k] for k in want}}
     summary.update(time_step(torch, tag, solver, levels, 2, 1))
     return counts, summary
+
+
+def phase_lyapunov_presets(torch):
+    """The thesis' two 2D Lyapunov presets through the CLI in process on
+    "cuda", relaxed to 3^2 (the CLI's default coarsest): `--preset
+    lyapunov2d` (1025^2 on [0, 1]^2, FMG(1, 500, 500): 1025^2 and 513^2
+    split levels in row 16's chunks, row 1 on 257^2 ... 3^2) and `--preset
+    lyapunov2d-cuda` (65^2 on [0, 20]^2, FMG(2, 500, 500): row 1 on every
+    level).  Each: finite residuals, the kernels of its plan launched and
+    no other, the plan's levels, and the float64 solve of the same
+    schedule (`phase_f64_reference`: error_linf within 1 %, the solution
+    within 10 % of that error); on the unit square also error_linf <
+    max(10 h, 5e-5), the bench's gate (on [0, 20]^2 at h = 0.3125 the
+    scheme's own error is ~10.4, as JAX's jnp tier gives it); ms per step
+    eager and as one CUDA graph (an equal solver's).  Returns the
+    summaries."""
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        MultigridSolver,
+        SolverConfig,
+    )
+    from pde_multigrid_tpu_torch.__main__ import PRESETS, build_problem
+    from pde_multigrid_tpu_torch.__main__ import main as cli_main
+
+    out, counts_by = [], {}
+    for name, path, split in (("lyapunov2d", "preset_lyap1025", 2),
+                              ("lyapunov2d-cuda", "preset_lyap65", 0)):
+        pre = PRESETS[name]
+        problem = build_problem("lyapunov2d", pre.get("domain"))
+        cfg = SolverConfig(cycle=CycleConfig(
+            "fmg", pre["nu0"], pre["nu1"], pre["nu2"], coarsest="relax"))
+        solver = MultigridSolver(problem, pre["n"], cfg, device="cuda")
+        kern = solver.program.kernels
+        resident = [fn == kern._relax_resident for fn in kern._relax]
+        require(kern._split == [True] * split + [False] * (
+            len(solver.geoms) - split) and all(
+            resident[split:]) and solver.geoms[-1].shape == (3, 3),
+            f"preset {name}: split levels {kern._split}, resident "
+            f"{resident}, levels {[g.shape for g in solver.geoms]}")
+        buf, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(err):
+            res = cli_main(["--preset", name, "--device", "cuda"])
+        counts = read_counts()
+        js = json.loads(buf.getvalue().strip().splitlines()[-1])
+        h = solver.geoms[0].spacing[0]
+        unit = pre.get("domain") is None
+        limit = max(10 * h, 5e-5) if unit else float("inf")
+        tag = f"preset {name} ({pre['n']}^2)"
+        log(f"{tag}: levels {[g.shape for g in solver.geoms]}, error_linf "
+            f"{js['error_linf']!r} (limit {limit!r}), residual_l2 "
+            f"{js['residual_l2']!r}, launches {counts}; "
+            f"{err.getvalue().strip().splitlines()[-1]}")
+        counts_by[path] = _check_solve(torch, tag, res, solver, limit, path)
+        summary = {"preset": name, "n": pre["n"],
+                   "levels": [g.padded_shape for g in solver.geoms],
+                   "error_linf": js["error_linf"],
+                   "residual_l2": js["residual_l2"],
+                   "launches": {k: counts[k] for k in PATHS[path]}}
+        phase_f64_reference(torch, problem, pre["n"],
+                            (pre["nu0"], pre["nu1"], pre["nu2"]), summary,
+                            res.v, tag, cycle_kw={"coarsest": "relax"})
+        summary.update(time_step(torch, tag, solver, solver.fresh_levels(),
+                                 2, 1))
+        out.append(summary)
+        del solver, res
+    return counts_by, out
 
 
 def phase_f32_257_blocked(torch, s32, v32):
@@ -3823,15 +4048,17 @@ LYAP_COEF_OPS = 24
 
 def slab_bound(ins, outs, geom, g0: int, x_loc: int, t: int) -> dict:
     """`bound` of t sweeps on a shard's x_loc rows from global row g0: the
-    inputs read once, the outputs written once; per interior point of
-    either colour (global rows 1 .. nx - 2, columns 1 .. ny - 2) its
-    coefficients and f a_f once (LYAP_COEF_OPS + 1) and 4 operations an
-    update (lyap_update: two products, two sums)."""
+    inputs (r, b and, for the form with f, fr, fb) read once, the outputs
+    written once; per interior point of either colour (global rows 1 ..
+    nx - 2, columns 1 .. ny - 2) its coefficients (LYAP_COEF_OPS) and f a_f
+    once, and an update of two products and two sums (one sum less
+    without f)."""
     nx, ny = geom.shape
     rows = max(0, min(g0 + x_loc, nx - 1) - max(g0, 1))
     pts = rows * (ny - 2)
+    with_f = len(ins) > 2
     return bound(sum(a.nbytes for a in (*ins, *outs)),
-                 (LYAP_COEF_OPS + 1 + 4 * t) * pts)
+                 (LYAP_COEF_OPS + with_f + (3 + with_f) * t) * pts)
 
 
 def phase_kernels_shard2d(torch):
@@ -3847,12 +4074,10 @@ def phase_kernels_shard2d(torch):
     form (`relax2d.color_slab2d_leg`) on SHARD2D_LEG_LEVELS over legs of
     SHARD2D_LEGS sweeps (clusters of 16, 15, 9, 4, 2 CTAs and one CTA).
     Timed: the 4097^2 one-rank t = 4 chunk beside its plain version
-    (P, K, K, P) and
-    beside the 8 half_sweep2d launches of the unsharded path (C, K, K, C);
-    the 257^2 500-sweep leg beside its plain version; by level the t = 4
-    chunk on ext halves, with the engine's two halo copies before it, and
-    in the one-rank form, and the 500-sweep leg beside 125 one-rank
-    chunks.  Returns the records."""
+    (P, K, K, P); the 257^2 500-sweep leg beside its plain version; by
+    level the t = 4 chunk on ext halves, with the engine's two halo copies
+    before it, and in the one-rank form, and the 500-sweep leg beside 125
+    one-rank chunks.  Returns the records."""
     from pde_multigrid_tpu_torch.grid import build_geometries
     from pde_multigrid_tpu_torch.models import Lyapunov2D
     from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
@@ -3944,18 +4169,7 @@ def phase_kernels_shard2d(torch):
                "plain_ms": tl["plain_ms"],
                **slab_bound(own[m], out_l, geoms[m], 0, m, ns),
                "library_ms": None}
-    # the A/B: the same 4 sweeps as 8 half-sweep launches on the level
-    r, b, fr, fb = (a.clone() for a in own[n])
-    chain = lambda: R2.relax_halves2d(r, b, fr, fb, t, prob, g)  # noqa: E731
-    kern = lambda: R2.color_slab2d_shard(  # noqa: E731
-        *own[n], 0, t, prob, g, x_loc, out, one_rank=True)
-    c1 = device_ms(torch, chain, 2)
-    k1 = device_ms(torch, kern, 2)
-    k2 = device_ms(torch, kern, 2)
-    c2 = device_ms(torch, chain, 2)
-    SHARD2D_AB.update(chunk_t4_ms=(k1 + k2) / 2,
-                      half_sweeps_8_ms=(c1 + c2) / 2,
-                      ratio=(k1 + k2) / (c1 + c2))
+    SHARD2D_AB["chunk_t4_ms"] = tm["ms"]
     # by level: the t = 4 chunk on ext halves, with the two halo copies
     # the engine takes before it on more ranks, in the one-rank form (the
     # path's on 4097^2 ... 513^2), and the 500-sweep leg (the path's on
@@ -4005,8 +4219,7 @@ def phase_kernels_shard2d(torch):
         f"one t = {t} chunk, one-rank form ({x_loc} x {Y2} halves): device "
         f"{tm['ms']!r} ms vs plain {tm['plain_ms']!r} ms (bound "
         f"{rec['bound_ms']!r} ms by {rec['bound_by']}); eager "
-        f"{tm['eager_ms']!r} ms; A/B against the 8 half_sweep2d launches of "
-        f"the same 4 sweeps (C, K, K, C): {SHARD2D_AB['ratio']!r}")
+        f"{tm['eager_ms']!r} ms")
     log(f"kernel color_slab2d_leg: bitwise against its plain version on "
         f"{legs_checked} legs ({SHARD2D_LEG_LEVELS} at {SHARD2D_LEGS} "
         f"sweeps; max diff {leg_err!r}); a {ns}-sweep leg at 257^2 "
@@ -4029,7 +4242,7 @@ def phase_sharded2d(torch, sum_un, v_un):
     residuals, exactly the schedule's launches of the color slab chunk
     (4097^2 ... 513^2, the one-rank form), its whole-leg form (257^2 ...
     65^2), split2d and merge2d (`sharded_launches`) and no other kernel
-    (no half_sweep2d, no resident); ms per step eager and as one CUDA
+    (no resident); ms per step eager and as one CUDA
     graph;
     the solution against phase 6's unsharded solve `v_un` (summary
     `sum_un`) within JAX's sharded-vs-single tolerance (rtol 2e-5, atol
@@ -4094,7 +4307,8 @@ def phase_sharded2d(torch, sum_un, v_un):
     busy = busy_split_ms(
         torch, lambda: solver.program.solve_step(levels),
         {"chunk": "color_slab2d_kernel<false",
-         "leg": "color_slab2d_kernel<true", "split2d": "split2d_kernel",
+         "leg": "color_slab2d_kernel<true, false",
+         "split2d": "split2d_kernel",
          "merge2d": "merge2d_kernel"})
     summary["busy_ms"] = busy
     log(f"{tag}: device busy ms per step by kernel (profiler) {busy!r}")
@@ -4217,6 +4431,10 @@ def main() -> int:
             "lyapunov_reduced", phase_lyapunov_reduced, torch, sly, vly,
             counts["lyapunov"])
         summaries.append(slr)
+        cpre, spre2 = timed("lyapunov_presets", phase_lyapunov_presets,
+                            torch)
+        counts.update(cpre)
+        summaries += spre2
         results.update(timed("kernels_shard2d", phase_kernels_shard2d,
                              torch))
         counts["sharded_lyap"], ssl, sha2 = timed(
@@ -4277,7 +4495,11 @@ def main() -> int:
     # 4097^2 Lyapunov one, each over one rank; the whole-leg 3D resident
     # kernel's from the FAS 257^3 solve, where its halves mode, which no
     # plan selects (as in JAX), launches 0 times)
-    off_path = {"split_merged": "fas257"}
+    # row 16's record counts the chunk's launches on the unsharded
+    # Lyapunov path, row 17's on the sharded one
+    off_path = {"split_merged": "fas257", "color_slab2d": "lyapunov",
+                "color_slab2d_shard": "sharded_lyap"}
+    counter = {"color_slab2d": "color_slab2d_shard"}
 
     def path_of(name):
         return off_path.get(name) or next(
@@ -4289,7 +4511,8 @@ def main() -> int:
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[path_of(name)][name], **results[name]}
+         "launches": counts[path_of(name)][counter.get(name, name)],
+         **results[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s")
@@ -4298,6 +4521,7 @@ def main() -> int:
                     "subtree_ab": SUBTREE_AB, "shard2d_ab": SHARD2D_AB,
                     "resident3d_ab": RESIDENT3D_AB, "fas_ab": FAS_AB,
                     "reduced_ab": REDUCED_AB, "blocked_ab": BLOCKED_AB,
+                    "lyap2d_ab": LYAP2D_AB,
                     "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

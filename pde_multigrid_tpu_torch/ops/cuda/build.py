@@ -81,8 +81,7 @@ SIGNATURES = {
     # struct (relax2d.Lyap2DParams)
     "pdemg_split2d": (_P, _P, _P, _I, _I, _P),
     "pdemg_merge2d": (_P, _P, _P, _I, _I, _P),
-    "pdemg_half_sweep2d": (_P, _P, _P, _I, _I, _I, _P, _P),
-    "pdemg_resident2d": (_P, _P, _I, _I, _I, _P, _P),
+    "pdemg_resident2d": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "pdemg_color_slab2d_shard": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         _P,

@@ -1,9 +1,13 @@
-// Red-black sweeps on one shard's colour-split halves of a padded 2D
-// Lyapunov level (sm_90a): the per-shard engine of the sharded 2D solve
-// (parallel/halo.py, engine "split2d"), in two forms.
+// Red-black sweeps on colour-split halves of a padded 2D Lyapunov level
+// (sm_90a), in three forms of one template: the chunk and the leg of the
+// sharded and unsharded colour slab, and the whole-leg dense resident relax.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_split_color_slab_2d_shard
+//   pde_multigrid_tpu/ops/pallas/relax.py:make_split_color_slab_2d
+//     (its raw form, sweeps_per_call = T: the chunk's one-rank form)
+//   pde_multigrid_tpu/ops/pallas/relax.py:make_resident_relax
+//     (its 2D Lyapunov levels: the dense form)
 //
 // The function.  Input: the red and black halves (layout of
 // csrc/relax2d.cu, in the global colour convention: q = (g0 + x) % 2) and
@@ -11,19 +15,23 @@
 // Lyapunov's stencil is one-sided (a red point at (x, j) reads B[x+1, j]
 // and B[x, j+q]; a black one R[x+1, j] and R[x, j+1-q]), so a shard's halo
 // sits on the +x side alone.  Coefficients, colour and interior test come
-// from the global row g = g0 + x, with the arithmetic of
-// half_sweep2d_kernel (lyapunov2d.cuh).  Output: the exact owned x_loc
-// rows of both halves after t sweeps, written to ro / bo, which must not
-// overlap the inputs (tiles read rows that other tiles own).
+// from the global row g = g0 + x (lyapunov2d.cuh).  Output: the exact
+// owned x_loc rows of both halves after t sweeps, written to ro / bo,
+// which must not overlap the inputs (tiles read rows that other tiles
+// own).  Without f (fr = fb = null) no RHS is read and no f a_f term is
+// added: a zero RHS term would not be the same (-0 + +0 is +0, and 0 a_f
+// is NaN where a_f is not finite).
 //
 //   * chunk (pdemg_color_slab2d_shard): one chunk of t sweeps on ext
 //     halves of XE rows.  With XE >= x_loc + 2t the rows past x_loc are the
 //     right neighbour's first rows (the ring's halo).  On a one-rank ring
-//     the caller passes XE = x_loc: rows past it read as 0.  No interior
-//     point of such a shard reads past x_loc, because its last row is the
-//     level's boundary or padding (the argument that lets the last shard's
-//     ring-wrapped halo be anything), so the owned rows are bitwise those
-//     of the ext form and no halo copy is needed.
+//     -- and on an unsharded level, whose relax is JAX's sweeps_per_call =
+//     T form: ceil(nsweeps / T) such chunks -- the caller passes XE =
+//     x_loc: rows past it read as 0.  No interior point of such a shard
+//     reads past x_loc, because its last row is the level's boundary or
+//     padding (the argument that lets the last shard's ring-wrapped halo
+//     be anything), so the owned rows are bitwise those of the ext form
+//     and of the half-sweep chain, and no halo copy is needed.
 //   * leg (pdemg_color_slab2d_leg): a whole leg of nsweeps on a one-rank
 //     level held on chip: one CTA, or a cluster of up to 16 CTAs along x,
 //     each holding a band of BX rows and the 2 kLegT rows past it.  Every
@@ -34,44 +42,58 @@
 //     band is exact (the trapezoid argument), and the refreshed halo
 //     restarts it: the owned rows are bitwise those of the chunked
 //     schedule.
+//   * dense (pdemg_resident2d): the leg on a dense level, in place: the
+//     function of make_resident_relax, whose update is the blend
+//     v + m (upd - v) with m = 1 on the colour's interior points (red:
+//     x + y even) and whose RHS is f or none.  The band's dense rows are
+//     split into colour halves as they load and merged as they store, so
+//     the sweeps are the leg's; only the last step of the update differs
+//     (old + (upd - old) in place of the select).  One cluster barrier
+//     after the load: no CTA stores into v before every CTA has read the
+//     rows it holds.
 //
 // Design.  A CTA holds a tile of RX x RJ points of both colours (owned
 // BX x BJ, with a 2t halo on +x and, when the tile does not span the row,
 // on +j) in shared memory: r and b with a zero row and a zero column past
-// the tile, and fr, fb.  Each thread owns the fixed points p = tid + m NT
-// (m < P) of the tile and computes their coefficients (ae, as and f af of
-// each colour), interior flags and shared-memory offsets once a tile,
-// into registers; a half-sweep is then two shared loads (for G points
-// before their stores), three products and sums and a predicated store a
-// point, between block barriers.  A chunk launches one CTA an SM; each
-// walks its tiles with the next tile's copies (cp.async, zero-filled past
-// XE and Y2) in flight while it sweeps the current one.  Two forms
-// (`Form`): 512 threads of 10 points (128 registers) and 1024 of 4 (64,
-// twice the warps to hide the barriers' and loads' latency, on levels
-// whose tiles take more than one wave of CTAs).  Rows past XE and slots
-// past Y2 read as 0 and are never updated: no owned point depends on
-// them (a point reading slot Y2 is the inert slot or the boundary column,
-// never interior).  t is a run-time loop bound: templates unrolled per t
-// cost build time.  The wrapper (relax2d.slab_tile, leg_layout) picks the
-// form and the tiles: at 4097^2 1024 threads on 64 x 64 points (owned
-// 56 x 56 at t = 4), whole rows where Y2 <= 64, and fewer rows where the
-// tiles would not fill whole waves of CTAs.
+// the tile, and fr, fb where the sweeps read f.  Each thread owns the
+// fixed points p = tid + m NT (m < P) of the tile and computes their
+// coefficients (ae, as and f af of each colour), interior flags and
+// shared-memory offsets once a tile, into registers; a half-sweep is then
+// two shared loads (three in the dense form: its blend reads the old
+// value; all for G points before their stores), three products and sums
+// and a predicated store a point, between block barriers.  A chunk
+// launches one CTA an SM; each walks its tiles with the next tile's
+// copies (cp.async, zero-filled past XE and Y2) in flight while it sweeps
+// the current one.  Two forms (`Form`): 512 threads of 10 points (128
+// registers) and 1024 of 4 (64, twice the warps to hide the barriers' and
+// loads' latency, on levels whose tiles take more than one wave of CTAs).
+// Rows past XE and slots past Y2 read as 0 and are never updated: no
+// owned point depends on them (a point reading slot Y2 is the inert slot
+// or the boundary column, never interior).  t is a run-time loop bound:
+// templates unrolled per t cost build time.  The wrapper
+// (relax2d.slab_tile, leg_layout) picks the form and the tiles: at 4097^2
+// 1024 threads on 64 x 64 points (owned 56 x 56 at t = 4), whole rows
+// where Y2 <= 64, and fewer rows where the tiles would not fill whole
+// waves of CTAs.
 //
 // What bounds it: per point and chunk it reads four halves and writes two
-// (24 B), plus the tile halo (1.31x the owned points at 4097^2); per
-// interior point and half-sweep 4 float operations (two products, two
-// sums), and once a tile 24 for the coefficients (lyap_coef, one IEEE
-// division) and one for f af, recomputed on the halo points too.  With
-// one CTA an SM a tile's dependent phases (copies, coefficients, 2t
-// barrier-separated half-sweeps) leave issue slots idle.
-// Small levels are bound by latency: a leg on chip pays one launch and
-// one cluster barrier every kLegT sweeps instead of a launch, two halo
-// copies and a pass over device memory every chunk.
+// (24 B; 16 B without f), plus the tile halo (1.31x the owned points at
+// 4097^2); per interior point and half-sweep 4 float operations (two
+// products, two sums; 3 without f, 5 with the dense form's blend), and
+// once a tile 24 for the coefficients (lyap_coef, one IEEE division) and
+// one for f af, recomputed on the halo points too.  With one CTA an SM a
+// tile's dependent phases (copies, coefficients, 2t barrier-separated
+// half-sweeps) leave issue slots idle.  Small levels are bound by
+// latency: a leg on chip pays one launch and one cluster barrier every
+// kLegT sweeps instead of a launch, two halo copies and a pass over
+// device memory every chunk.
 //
-// Masked points are never written (the select form), so they stay
+// Masked points are never written (the select form; the dense form's
+// blend leaves them as the Pallas kernel's m = 0 does), so they stay
 // bitwise; with --fmad=false (f af is rounded once, then added, as in
-// lyap_update) the owned output equals the plain version
-// (relax2d.color_slab2d_shard_plain) bit for bit.
+// split_update2d) the owned output equals the plain versions
+// (relax2d.color_slab2d_shard_plain, resident.resident_relax_plain) bit
+// for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -103,12 +125,13 @@ struct Tile {
   int RX, RJ;  // loaded rows and slots of a tile
   int BX, BJ;  // owned rows and slots of a tile (the tile stride)
   int ntj, ntiles;  // tiles along j, tiles in all
+  int Y;  // the dense form's columns (Y2 = ceil(Y / 2))
 };
 
 // floats of one tile buffer: r and b with a zero row and column past the
-// tile, fr and fb
-__host__ __device__ inline int buffer_floats(int RX, int RJ) {
-  return 2 * (RX + 1) * (RJ + 1) + 2 * RX * RJ;
+// tile, and fr and fb where the sweeps read f
+__host__ __device__ inline int buffer_floats(int RX, int RJ, bool with_f) {
+  return 2 * (RX + 1) * (RJ + 1) + (with_f ? 2 * RX * RJ : 0);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -147,8 +170,11 @@ struct Slots {
   }
 };
 
-// Start the copies of tile `tile` (r, b, fr, fb) into `buf`, one group.
-template <class F>
+// Start the copies of tile `tile` (r, b, and fr, fb WITH_F) into `buf`,
+// one group.  DENSE: r and fr are the dense level and its RHS (X rows of
+// Y), split into the halves as they load: red at y = 2j + q, black at
+// y = 2j + 1 - q, zero past Y (the inert slot).
+template <class F, bool DENSE, bool WITH_F>
 __device__ __forceinline__ void load_tile(const float* r, const float* b,
                                           const float* fr, const float* fb,
                                           const Tile& T, bool leg, int tile,
@@ -167,13 +193,26 @@ __device__ __forceinline__ void load_tile(const float* r, const float* b,
       const int lj = sl.lj;
       const int x = x0 + lx;
       const int j = j0 + lj;
-      const bool in = x < T.XE && j < T.Y2;
-      const long long g = in ? (long long)x * T.Y2 + j : 0;
       const int k = lx * S + lj;
-      cp_async4(buf + k, r + g, in);
-      cp_async4(buf + plane + k, b + g, in);
-      cp_async4(buf + 2 * plane + pt, fr + g, in);
-      cp_async4(buf + 2 * plane + npts + pt, fb + g, in);
+      long long gr, gb;  // the red and black points' offsets
+      bool in_r, in_b;
+      if (DENSE) {
+        const int q = x & 1;
+        const long long row = (long long)x * T.Y;
+        in_r = x < T.XE && 2 * j + q < T.Y;
+        in_b = x < T.XE && 2 * j + 1 - q < T.Y;
+        gr = in_r ? row + 2 * j + q : 0;
+        gb = in_b ? row + 2 * j + 1 - q : 0;
+      } else {
+        in_r = in_b = x < T.XE && j < T.Y2;
+        gr = gb = in_r ? (long long)x * T.Y2 + j : 0;
+      }
+      cp_async4(buf + k, r + gr, in_r);
+      cp_async4(buf + plane + k, (DENSE ? r : b) + gb, in_b);
+      if (WITH_F) {
+        cp_async4(buf + 2 * plane + pt, fr + gr, in_r);
+        cp_async4(buf + 2 * plane + npts + pt, (DENSE ? fr : fb) + gb, in_b);
+      }
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -188,15 +227,15 @@ __device__ __forceinline__ void load_tile(const float* r, const float* b,
 // 2 kLegT rows into the previous CTA's inbox (two, used in turns), one
 // cluster barrier, then copies its own inbox into its halo rows: the
 // barrier of the next refresh cannot pass before every CTA has emptied
-// the inbox that refresh writes.
-template <bool LEG, class F>
+// the inbox that refresh writes.  DENSE (a leg): r, fr and ro are the
+// dense level, its RHS and the level again (in place); b, fb, bo unused.
+// No pointer is __restrict__: the dense form reads and writes v.
+template <bool LEG, bool DENSE, bool WITH_F, class F>
 __global__ void __launch_bounds__(F::NT, 1)
-    color_slab2d_kernel(const float* __restrict__ r,
-                        const float* __restrict__ b,
-                        const float* __restrict__ fr,
-                        const float* __restrict__ fb,
-                        float* __restrict__ ro, float* __restrict__ bo,
-                        Tile T, int t, int nchunks, int t_last, Lyap2D p) {
+    color_slab2d_kernel(const float* r, const float* b, const float* fr,
+                        const float* fb, float* ro, float* bo, Tile T, int t,
+                        int nchunks, int t_last, Lyap2D p) {
+  static_assert(LEG || !DENSE, "the dense form is a leg");
   extern __shared__ float smem[];
   const int S = T.RJ + 1;  // row stride: a zero column past the tile
   const int plane = (T.RX + 1) * S;  // and a zero row
@@ -204,7 +243,7 @@ __global__ void __launch_bounds__(F::NT, 1)
   const int npts = T.RX * T.RJ;
   const int nslot = (npts + NT - 1) / NT;  // points a thread holds
   const int nbuf = !LEG && T.ntiles > (int)gridDim.x ? 2 : 1;
-  const int bufsz = buffer_floats(T.RX, T.RJ);
+  const int bufsz = buffer_floats(T.RX, T.RJ, WITH_F);
   const int tid = threadIdx.x;
 
   for (int q = 0; q < nbuf; ++q) {
@@ -220,16 +259,20 @@ __global__ void __launch_bounds__(F::NT, 1)
   }
 
   int cur = 0;
-  load_tile<F>(r, b, fr, fb, T, LEG, blockIdx.x, smem);
+  load_tile<F, DENSE, WITH_F>(r, b, fr, fb, T, LEG, blockIdx.x, smem);
   for (int tile = blockIdx.x; tile < T.ntiles; tile += gridDim.x) {
     const int next = tile + gridDim.x;
     if (!LEG && next < T.ntiles) {
-      load_tile<F>(r, b, fr, fb, T, false, next, smem + (cur ^ 1) * bufsz);
+      load_tile<F, DENSE, WITH_F>(r, b, fr, fb, T, false, next,
+                                  smem + (cur ^ 1) * bufsz);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
     __syncthreads();
+    if (DENSE && gridDim.x > 1) {
+      cg::this_cluster().sync();  // every band read before any is stored
+    }
     float* sr = smem + cur * bufsz;
     float* sb = sr + plane;
     const float* sfr = sr + 2 * plane;
@@ -239,7 +282,7 @@ __global__ void __launch_bounds__(F::NT, 1)
 
     // this thread's points: offsets, row parities, interior flags (bit 2m
     // red, 2m + 1 black) and coefficients (f af of each colour rounded
-    // once, as lyap_update rounds it), once a tile
+    // once, as split_update2d rounds it), once a tile
     int off[P];
     unsigned qbits = 0, live = 0, owned = 0;
     float ae[2][P], as[2][P], ff[2][P];
@@ -271,7 +314,7 @@ __global__ void __launch_bounds__(F::NT, 1)
         const Coef cf = lyap_coef(gx, y, p);
         ae[c][m] = cf.ae;
         as[c][m] = cf.as;
-        ff[c][m] = (c == 0 ? sfr[pt] : sfb[pt]) * cf.af;
+        if (WITH_F) ff[c][m] = (c == 0 ? sfr[pt] : sfb[pt]) * cf.af;
       }
     }
 
@@ -286,8 +329,9 @@ __global__ void __launch_bounds__(F::NT, 1)
           for (int m0 = 0; m0 < P; m0 += G) {
             if (m0 >= nslot) break;
             // east (gx + 1, y) at slot j, south (gx, y + 1) at slot j +
-            // sft (y = 2j + sft), loaded for the group before its stores
-            float e[G], so[G];
+            // sft (y = 2j + sft), and the dense form's old values, loaded
+            // for the group before its stores
+            float e[G], so[G], o[G];
 #pragma unroll
             for (int i = 0; i < G; ++i) {
               const int m = m0 + i;
@@ -295,15 +339,21 @@ __global__ void __launch_bounds__(F::NT, 1)
               if (m >= nslot) break;
               e[i] = w[off[m] + S];
               so[i] = w[off[m] + (c == 0 ? q : 1 - q)];
+              if (DENSE) o[i] = u[off[m]];
             }
 #pragma unroll
             for (int i = 0; i < G; ++i) {
               const int m = m0 + i;
               if (!((live >> (2 * m + c)) & 1u)) continue;
-              // the order of lyap_update: east ae + south as, + f af
+              // the order of split_update2d: east ae + south as (+ f af)
               float v = e[i] * ae[c][m];
               v = v + so[i] * as[c][m];
-              u[off[m]] = v + ff[c][m];
+              if (WITH_F) v = v + ff[c][m];
+              if (DENSE) {
+                u[off[m]] = o[i] + (v - o[i]);  // m = 1: v + m (upd - v)
+              } else {
+                u[off[m]] = v;
+              }
             }
           }
           __syncthreads();  // this colour done before the other reads it
@@ -337,9 +387,19 @@ __global__ void __launch_bounds__(F::NT, 1)
 #pragma unroll
     for (int m = 0; m < P; ++m, sw.next()) {
       if (!((owned >> m) & 1u)) continue;
-      const long long g = (long long)(x0 + sw.lx) * T.Y2 + j0 + sw.lj;
-      ro[g] = sr[off[m]];
-      bo[g] = sb[off[m]];
+      const int x = x0 + sw.lx;
+      const int j = j0 + sw.lj;
+      if (DENSE) {
+        // merged back into the dense rows (nothing past Y)
+        const int q = x & 1;
+        const long long row = (long long)x * T.Y;
+        if (2 * j + q < T.Y) ro[row + 2 * j + q] = sr[off[m]];
+        if (2 * j + 1 - q < T.Y) ro[row + 2 * j + 1 - q] = sb[off[m]];
+      } else {
+        const long long g = (long long)x * T.Y2 + j;
+        ro[g] = sr[off[m]];
+        bo[g] = sb[off[m]];
+      }
     }
     cur ^= nbuf - 1;
     __syncthreads();  // this buffer read out before it is refilled
@@ -349,16 +409,15 @@ __global__ void __launch_bounds__(F::NT, 1)
 // A kernel's attributes: dynamic shared memory past 48 KB, and clusters
 // past the portable 8 CTAs.  Once per process and form, at its first
 // launch (outside any graph capture: the callers run eagerly first).
-template <bool LEG, class F>
+template <bool LEG, bool DENSE, bool WITH_F, class F>
 cudaError_t opt_in() {
   static const cudaError_t status = [] {
+    const auto kernel = color_slab2d_kernel<LEG, DENSE, WITH_F, F>;
     const cudaError_t e = cudaFuncSetAttribute(
-        color_slab2d_kernel<LEG, F>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess || !LEG) return e;
     return cudaFuncSetAttribute(
-        color_slab2d_kernel<LEG, F>,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }();
   return status;
 }
@@ -383,7 +442,7 @@ bool tile_ok(const Tile& T, int pts, size_t smem) {
          smem <= (size_t)kMaxSmem;
 }
 
-template <class F>
+template <bool WITH_F, class F>
 int launch_chunk(const float* r, const float* b, const float* fr,
                  const float* fb, float* ro, float* bo, int XE, int x_loc,
                  int Y2, int g0, int t, int RX, int RJ, int BX, int BJ,
@@ -393,7 +452,7 @@ int launch_chunk(const float* r, const float* b, const float* fr,
   }
   const int ntj = (Y2 + BJ - 1) / BJ;
   const int ntiles = ((x_loc + BX - 1) / BX) * ntj;
-  const Tile T{XE, x_loc, Y2, g0, RX, RJ, BX, BJ, ntj, ntiles};
+  const Tile T{XE, x_loc, Y2, g0, RX, RJ, BX, BJ, ntj, ntiles, 2 * Y2};
   // the tile's halo covers 2t rows and slots past its owned points, except
   // where it reaches past the rows (XE) or slots (Y2) that exist
   const bool halo_x = BX + 2 * t <= RX || (BX >= x_loc && RX >= XE);
@@ -401,23 +460,37 @@ int launch_chunk(const float* r, const float* b, const float* fr,
   const int sms = num_sms();
   if (sms < 1) return (int)cudaErrorInvalidDevice;
   const int grid = ntiles < sms ? ntiles : sms;
-  const size_t smem =
-      (ntiles > grid ? 2 : 1) * buffer_floats(RX, RJ) * sizeof(float);
+  const size_t smem = (ntiles > grid ? 2 : 1) *
+                      buffer_floats(RX, RJ, WITH_F) * sizeof(float);
   if (!tile_ok(T, F::NT * F::P, smem) || !halo_x || !halo_j) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t e = opt_in<false, F>();
+  cudaError_t e = opt_in<false, false, WITH_F, F>();
   if (e != cudaSuccess) return (int)e;
-  color_slab2d_kernel<false, F><<<grid, F::NT, smem, stream>>>(
+  color_slab2d_kernel<false, false, WITH_F, F><<<grid, F::NT, smem, stream>>>(
       r, b, fr, fb, ro, bo, T, t, 1, t, *p);
   return (int)cudaGetLastError();
 }
 
+template <bool WITH_F, class F>
+int chunk_form(int threads, const float* r, const float* b, const float* fr,
+               const float* fb, float* ro, float* bo, int XE, int x_loc,
+               int Y2, int g0, int t, int RX, int RJ, int BX, int BJ,
+               const Lyap2D* p, cudaStream_t stream) {
+  if (threads != F::NT) return (int)cudaErrorInvalidValue;
+  return launch_chunk<WITH_F, F>(r, b, fr, fb, ro, bo, XE, x_loc, Y2, g0, t,
+                                 RX, RJ, BX, BJ, p, stream);
+}
+
+// A leg of nsweeps on a one-rank level of X rows (Y2 slots a row; the
+// dense form's rows hold Y points), on nctas CTAs of RX loaded and BX
+// owned rows.
+template <bool DENSE, bool WITH_F>
 int launch_leg(const float* r, const float* b, const float* fr,
-               const float* fb, float* ro, float* bo, int X, int Y2,
+               const float* fb, float* ro, float* bo, int X, int Y, int Y2,
                int nsweeps, int RX, int BX, int nctas, const Lyap2D* p,
                cudaStream_t stream) {
-  const Tile T{X, X, Y2, 0, RX, Y2, BX, Y2, 1, nctas};
+  const Tile T{X, X, Y2, 0, RX, Y2, BX, Y2, 1, nctas, Y};
   // one CTA holds the whole level (no halo: one chunk of nsweeps); a
   // cluster's bands hold 2 kLegT halo rows each, taken from the next band
   const bool one = nctas == 1 && BX >= X && RX >= X;
@@ -426,12 +499,12 @@ int launch_leg(const float* r, const float* b, const float* fr,
                      (nctas - 1) * BX < X;
   // the tile, and two inboxes of 2 kLegT rows of r and b
   const size_t smem =
-      (buffer_floats(RX, Y2) + 8 * kLegT * (Y2 + 1)) * sizeof(float);
-  if (nsweeps < 1 || X < 1 || Y2 < 1 || !tile_ok(T, Leg::NT * Leg::P, smem) ||
-      !(one || bands)) {
+      (buffer_floats(RX, Y2, WITH_F) + 8 * kLegT * (Y2 + 1)) * sizeof(float);
+  if (nsweeps < 1 || X < 1 || Y2 < 1 || (DENSE && Y2 != (Y + 1) / 2) ||
+      !tile_ok(T, Leg::NT * Leg::P, smem) || !(one || bands)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t e = opt_in<true, Leg>();
+  cudaError_t e = opt_in<true, DENSE, WITH_F, Leg>();
   if (e != cudaSuccess) return (int)e;
   const int nchunks = one ? 1 : (nsweeps + kLegT - 1) / kLegT;
   const int t = one ? nsweeps : kLegT;
@@ -448,8 +521,8 @@ int launch_leg(const float* r, const float* b, const float* fr,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = nctas > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, color_slab2d_kernel<true, Leg>, r, b, fr, fb,
-                         ro, bo, T, t, nchunks, t_last, *p);
+  e = cudaLaunchKernelEx(&cfg, color_slab2d_kernel<true, DENSE, WITH_F, Leg>,
+                         r, b, fr, fb, ro, bo, T, t, nchunks, t_last, *p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -458,22 +531,32 @@ int launch_leg(const float* r, const float* b, const float* fr,
 
 extern "C" {
 
-// One chunk: t sweeps on the (XE, Y2) ext halves r, b (RHS fr, fb), in
-// tiles of RX x RJ loaded and BX x BJ owned points, on CTAs of `threads`
-// (512 or 1024); the owned x_loc rows out to ro, bo.  XE = x_loc is the
-// one-rank form.
+// One chunk: t sweeps on the (XE, Y2) ext halves r, b (RHS fr, fb, or
+// both null: no RHS), in tiles of RX x RJ loaded and BX x BJ owned points,
+// on CTAs of `threads` (512 or 1024); the owned x_loc rows out to ro, bo.
+// XE = x_loc is the one-rank form.
 __attribute__((visibility("default"))) int pdemg_color_slab2d_shard(
     const float* r, const float* b, const float* fr, const float* fb,
     float* ro, float* bo, int XE, int x_loc, int Y2, int g0, int t, int RX,
     int RJ, int BX, int BJ, int threads, const Lyap2D* p, void* stream) {
-  if (threads == Chunk1024::NT) {
-    return launch_chunk<Chunk1024>(r, b, fr, fb, ro, bo, XE, x_loc, Y2, g0,
-                                   t, RX, RJ, BX, BJ, p,
-                                   (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if ((fr == nullptr) != (fb == nullptr)) return (int)cudaErrorInvalidValue;
+  if (fr == nullptr) {
+    return threads == Chunk1024::NT
+               ? chunk_form<false, Chunk1024>(threads, r, b, fr, fb, ro, bo,
+                                              XE, x_loc, Y2, g0, t, RX, RJ,
+                                              BX, BJ, p, s)
+               : chunk_form<false, Chunk512>(threads, r, b, fr, fb, ro, bo,
+                                             XE, x_loc, Y2, g0, t, RX, RJ, BX,
+                                             BJ, p, s);
   }
-  if (threads != Chunk512::NT) return (int)cudaErrorInvalidValue;
-  return launch_chunk<Chunk512>(r, b, fr, fb, ro, bo, XE, x_loc, Y2, g0, t,
-                                RX, RJ, BX, BJ, p, (cudaStream_t)stream);
+  return threads == Chunk1024::NT
+             ? chunk_form<true, Chunk1024>(threads, r, b, fr, fb, ro, bo, XE,
+                                           x_loc, Y2, g0, t, RX, RJ, BX, BJ,
+                                           p, s)
+             : chunk_form<true, Chunk512>(threads, r, b, fr, fb, ro, bo, XE,
+                                          x_loc, Y2, g0, t, RX, RJ, BX, BJ, p,
+                                          s);
 }
 
 // A whole leg: nsweeps on a one-rank level's (X, Y2) halves, held by
@@ -482,8 +565,25 @@ __attribute__((visibility("default"))) int pdemg_color_slab2d_leg(
     const float* r, const float* b, const float* fr, const float* fb,
     float* ro, float* bo, int X, int Y2, int nsweeps, int RX, int BX,
     int nctas, const Lyap2D* p, void* stream) {
-  return launch_leg(r, b, fr, fb, ro, bo, X, Y2, nsweeps, RX, BX, nctas, p,
-                    (cudaStream_t)stream);
+  return launch_leg<false, true>(r, b, fr, fb, ro, bo, X, 2 * Y2, Y2,
+                                 nsweeps, RX, BX, nctas, p,
+                                 (cudaStream_t)stream);
+}
+
+// A whole leg in place on a dense (X, Y) level v (RHS f, or null: none),
+// in make_resident_relax's blend form, held as the leg holds its halves
+// (RX loaded and BX owned rows on nctas CTAs, relax2d.leg_layout).
+__attribute__((visibility("default"))) int pdemg_resident2d(
+    float* v, const float* f, int X, int Y, int nsweeps, int RX, int BX,
+    int nctas, const Lyap2D* p, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int Y2 = (Y + 1) / 2;
+  if (f == nullptr) {
+    return launch_leg<true, false>(v, nullptr, nullptr, nullptr, v, nullptr,
+                                   X, Y, Y2, nsweeps, RX, BX, nctas, p, s);
+  }
+  return launch_leg<true, true>(v, nullptr, f, nullptr, v, nullptr, X, Y, Y2,
+                                nsweeps, RX, BX, nctas, p, s);
 }
 
 }  // extern "C"

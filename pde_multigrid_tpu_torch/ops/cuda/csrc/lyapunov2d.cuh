@@ -1,7 +1,8 @@
 // The 2D Lyapunov local solve, shared by the 2D relax kernels (sm_90a):
 // the coefficient fields of Lyapunov2D.kernel_precompute computed from a
-// point's own coordinates, and the update of Lyapunov2D.kernel_update /
-// split_update2d.
+// point's own coordinates, and the interior test.  The kernels evaluate
+// the update of Lyapunov2D.kernel_update / split_update2d in its order:
+// east a_e + south a_s, then + f a_f (f a_f rounded once).
 //
 // Built with --fmad=false: every product and sum rounds on its own, in the
 // order of the plain PyTorch versions (models/lyapunov2d.py), so the kernels
@@ -49,16 +50,6 @@ __device__ __forceinline__ Coef lyap_coef(int x, int y, const Lyap2D& p) {
   c.as = (p.h0 * k2) * inv;
   c.af = p.nhh * inv;
   return c;
-}
-
-// east * a_e + south * a_s (+ f * a_f)
-template <bool WITH_F>
-__device__ __forceinline__ float lyap_update(float east, float south,
-                                             float f, const Coef& c) {
-  float u = east * c.ae;
-  u = u + south * c.as;
-  if (WITH_F) u = u + f * c.af;
-  return u;
 }
 
 __device__ __forceinline__ bool interior(int x, int y, const Lyap2D& p) {

@@ -1,10 +1,10 @@
-// Color-split red-black Gauss-Seidel for padded 2D Lyapunov levels (sm_90a).
+// Dense <-> colour-split converters for padded 2D Lyapunov levels (sm_90a).
 //
 // Replaces the TPU kernels
 //   pde_multigrid_tpu/ops/pallas/relax.py:_pallas_split_2d          (dense -> halves)
 //   pde_multigrid_tpu/ops/pallas/relax.py:_pallas_merge_2d          (halves -> dense)
-//   pde_multigrid_tpu/ops/pallas/relax.py:make_split_color_slab_2d  (the sweeps)
-// and, for the converters, the XLA default split_colors_2d/merge_colors_2d.
+// and the XLA default split_colors_2d/merge_colors_2d they stand in for.
+// The sweeps on the halves are csrc/color_slab2d_shard.cu's.
 //
 // Layout ("halves"): a dense (X, Y) float32 level is stored as two
 // (X, Y2) arrays, Y2 = ceil(Y/2).  With q = x % 2, red lives at y = 2j + q
@@ -15,28 +15,13 @@
 // point, R[x+1, j] and R[x, j+1-q].  The boundary column y = Y-1 holds the
 // non-zero Dirichlet data and reaches the halves like any other column.
 //
-// What bounds these kernels on the card: device-memory traffic.  An f-less
-// half-sweep reads the other color (4 B per point: E and S rows are both
-// streamed, the caches serve the second read) and writes 4 B; with f, 4 B
-// more.  The coefficient fields are recomputed per point from its own
-// coordinates (about 20 float operations and one IEEE division) instead of
-// being streamed: 12 B per point less than reading a_e, a_s, a_f.
-// split/merge move 8 B per dense point.
-//
-// The simple design: one thread per (x, j) slot, launched as rows
-// (threads along j, blockIdx.y = x), so a thread finds its point without
-// integer division; neighbours read straight from global memory and left to
-// L1/L2; one launch per half-sweep.  The Pallas kernel runs T = 16 sweeps
-// per call behind a one-sided x-halo (trapezoidal slabs in VMEM); that
-// temporal blocking is later Hopper work.
-//
-// The write keeps masked points bitwise: boundary and inert slots are
-// never written (the Pallas kernel's mask-fold m*upd + (1-m)*v0 gives the
-// same values).
+// What bounds them on the card: device-memory traffic, 8 B per dense
+// point.  One thread per slot (split) or dense point (merge), launched as
+// rows (threads along j, blockIdx.z = x), so a thread finds its point
+// without integer division.
 
 #include <cuda_runtime.h>
 
-#include "lyapunov2d.cuh"  // Lyap2D, lyap_coef, lyap_update, interior
 #include "stencil.cuh"     // row_grid, row_block, row_launch_ok
 
 namespace {
@@ -68,26 +53,6 @@ __global__ void merge2d_kernel(const float* __restrict__ r,
   v[(long long)x * Y + y] = ((y & 1) == (x & 1)) ? r[i] : b[i];
 }
 
-// One half-sweep: u (the color being updated) in place from w (the other
-// color) and fu (u's RHS half; not read without WITH_F).  color 0 = red.
-template <bool WITH_F>
-__global__ void half_sweep2d_kernel(float* __restrict__ u,
-                                    const float* __restrict__ w,
-                                    const float* __restrict__ fu, int Y2,
-                                    int color, Lyap2D p) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= Y2) return;
-  const int x = blockIdx.z;
-  const int s = (color == 0) ? (x & 1) : 1 - (x & 1);  // y = 2j + s
-  const int y = 2 * j + s;
-  if (!interior(x, y, p)) return;
-  const long long i = (long long)x * Y2 + j;
-  const float east = w[i + Y2];  // (x+1, y): the other color, same j
-  const float south = w[i + s];  // (x, y+1): the other color at j + s
-  const Coef c = lyap_coef(x, y, p);
-  u[i] = lyap_update<WITH_F>(east, south, WITH_F ? fu[i] : 0.0f, c);
-}
-
 }  // namespace
 
 extern "C" {
@@ -107,21 +72,6 @@ int pdemg_merge2d(const float* r, const float* b, float* v, int X, int Y,
   if (!row_launch_ok(X, 1)) return (int)cudaErrorInvalidConfiguration;
   merge2d_kernel<<<row_grid(X, 1, Y), row_block(Y), 0,
                    (cudaStream_t)stream>>>(r, b, v, X, Y, Y2);
-  return (int)cudaGetLastError();
-}
-
-int pdemg_half_sweep2d(float* u, const float* w, const float* fu, int X,
-                       int Y, int color, const Lyap2D* p, void* stream) {
-  const int Y2 = (Y + 1) / 2;
-  if (!row_launch_ok(X, 1)) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid = row_grid(X, 1, Y2), block = row_block(Y2);
-  if (fu) {
-    half_sweep2d_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        u, w, fu, Y2, color, *p);
-  } else {
-    half_sweep2d_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        u, w, nullptr, Y2, color, *p);
-  }
   return (int)cudaGetLastError();
 }
 

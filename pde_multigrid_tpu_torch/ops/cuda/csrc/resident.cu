@@ -1,28 +1,17 @@
 // Dense red-black Gauss-Seidel over a whole small padded 2D level, all
-// sweeps of a relax leg in one launch (sm_90a), for two problems: the 2D
-// Lyapunov equation and the HJB minimum-time equation (upwind scheme).
+// sweeps of a relax leg in one launch (sm_90a), for the HJB minimum-time
+// equation (upwind scheme).
 //
 // Replaces the TPU kernel
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_resident_relax
-// on the 2D levels too small for the other tiers: 257^2, 129^2, 65^2 on the
-// Lyapunov 4097^2 path; 257^2 down to 3^2 on the HJB 513^2 path.  A
+// on the HJB 513^2 path's levels 257^2 down to 3^2.  (Its 2D Lyapunov
+// levels are the dense form of csrc/color_slab2d_shard.cu's leg.)  A
 // half-sweep there is far shorter than a host launch: with one launch per
 // half-sweep the legs would be launch-bound.  So, as the Pallas kernel keeps
 // the level in VMEM for the whole leg, this kernel keeps it on chip for the
 // whole leg.  Device memory is read once at the start of the leg and written
 // once at its end.  What bounds it: barrier and instruction latency, not
 // bytes.
-//
-// Lyapunov (resident2d_kernel): one thread-block cluster of 8 CTAs (1024
-// threads each) per level.  CTA k holds rows [k*rows, (k+1)*rows) of v in its
-// shared memory, with the per-point coefficients a_e, a_s (and a_f, f when
-// the leg has an RHS), computed once per launch from the point's
-// coordinates.  A 257^2 level is 264 KB per array, over the 227 KB one CTA
-// may hold; split 8 ways, v plus four more arrays take 170 KB per CTA.  The
-// +x neighbor of a CTA's last row is row 0 of the next CTA, read through
-// distributed shared memory.  Each half-sweep ends with a cluster barrier.
-// Bytes per point per leg: 4 read (8 with f) + 4 written, against 8-12 per
-// half-sweep streamed.
 //
 // HJB (resident2d_hjb_kernel): the update reads both x neighbours, both y
 // neighbours and four per-column coefficients (hjb2d.cuh).  Shared memory
@@ -45,7 +34,6 @@
 #include <cuda_runtime.h>
 
 #include "hjb2d.cuh"       // HJB2D, hjb_update
-#include "lyapunov2d.cuh"  // Lyap2D, lyap_coef, lyap_update, interior
 
 namespace cg = cooperative_groups;
 
@@ -54,101 +42,6 @@ namespace {
 constexpr int kCtas = 8;  // the portable cluster size
 constexpr int kThreads = 1024;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most one CTA may hold
-
-template <bool WITH_F>
-__global__ void __cluster_dims__(kCtas, 1, 1) __launch_bounds__(kThreads)
-    resident2d_kernel(float* __restrict__ v, const float* __restrict__ f,
-                      int X, int Y, int rows, int nsweeps, Lyap2D p) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int x0 = rank * rows;
-  const int nr = max(0, min(rows, X - x0));
-  extern __shared__ float smem[];
-  const int n = rows * Y;
-  float* sv = smem;
-  float* sae = sv + n;
-  float* sas = sae + n;
-  float* saf = sas + n;  // WITH_F only
-  float* sf = saf + n;   // WITH_F only
-
-  // load this CTA's rows and compute their coefficients (the only integer
-  // division per point of the leg)
-  for (int i = threadIdx.x; i < nr * Y; i += blockDim.x) {
-    const int lx = i / Y;
-    const int y = i - lx * Y;
-    const long long g = (long long)(x0 + lx) * Y + y;
-    sv[i] = v[g];
-    const Coef c = lyap_coef(x0 + lx, y, p);
-    sae[i] = c.ae;
-    sas[i] = c.as;
-    if (WITH_F) {
-      saf[i] = c.af;
-      sf[i] = f[g];
-    }
-  }
-  cluster.sync();  // every CTA loaded before any reads a neighbor's rows
-  const float* next =
-      rank + 1 < kCtas ? cluster.map_shared_rank(sv, rank + 1) : nullptr;
-
-  // each thread walks slots (lx, k) of one color, y = 2k + ((x + c) & 1),
-  // stepping blockDim slots at a time without division
-  const int Yh = (Y + 1) / 2;
-  const int dq = blockDim.x / Yh;
-  const int dr = blockDim.x - dq * Yh;
-  const int lx0 = threadIdx.x / Yh;
-  const int k0 = threadIdx.x - lx0 * Yh;
-  for (int s = 0; s < nsweeps; ++s) {
-    for (int color = 0; color < 2; ++color) {
-      int lx = lx0, k = k0;
-      while (lx < nr) {
-        const int x = x0 + lx;
-        const int y = 2 * k + ((x + color) & 1);
-        if (interior(x, y, p)) {
-          const int i = lx * Y + y;
-          // x + 1 <= nx - 1 always lies in this CTA or the next one
-          const float east = lx + 1 < nr ? sv[i + Y] : next[y];
-          Coef c;
-          c.ae = sae[i];
-          c.as = sas[i];
-          c.af = WITH_F ? saf[i] : 0.0f;
-          const float upd =
-              lyap_update<WITH_F>(east, sv[i + 1], WITH_F ? sf[i] : 0.0f, c);
-          const float old = sv[i];
-          sv[i] = old + (upd - old);  // m = 1: v + m * (upd - v)
-        }
-        lx += dq;
-        k += dr;
-        if (k >= Yh) {
-          k -= Yh;
-          ++lx;
-        }
-      }
-      cluster.sync();  // this color done everywhere before the other reads it
-    }
-  }
-  for (int i = threadIdx.x; i < nr * Y; i += blockDim.x) {
-    v[(long long)x0 * Y + i] = sv[i];
-  }
-}
-
-template <bool WITH_F>
-int launch_resident(float* v, const float* f, int X, int Y, int nsweeps,
-                    const Lyap2D& p, cudaStream_t stream) {
-  const int rows = (X + kCtas - 1) / kCtas;
-  const size_t smem = (size_t)rows * Y * sizeof(float) * (WITH_F ? 5 : 3);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  static bool opted_in = false;  // once per process, outside any capture
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        resident2d_kernel<WITH_F>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
-  resident2d_kernel<WITH_F><<<kCtas, kThreads, smem, stream>>>(
-      v, f, X, Y, rows, nsweeps, p);
-  return (int)cudaGetLastError();
-}
 
 // Shared memory of the HJB kernel for `rows` rows of Y points: v, f, the
 // four coefficient columns, the mask bytes.
@@ -283,16 +176,6 @@ int launch_resident_hjb(float* v, const float* f, int X, int Y, int nctas,
 }  // namespace
 
 extern "C" {
-
-int pdemg_resident2d(float* v, const float* f, int X, int Y, int nsweeps,
-                     const Lyap2D* p, void* stream) {
-  if (f) {
-    return launch_resident<true>(v, f, X, Y, nsweeps, *p,
-                                 (cudaStream_t)stream);
-  }
-  return launch_resident<false>(v, nullptr, X, Y, nsweeps, *p,
-                                (cudaStream_t)stream);
-}
 
 int pdemg_resident2d_hjb(float* v, const float* f, int X, int Y, int nctas,
                          int nsweeps, const HJB2D* p, void* stream) {

@@ -58,10 +58,12 @@ with the hand-written kernels.
   * split levels (half width Y // 2 >= SPLIT2D_MIN_Y2): the persistent
     color-split tier.  The level's state lives in red/black halves
     across a whole visit (relax, residual + restrict, the coarse visit,
-    prolong + blend, relax): the half-sweeps of `ops/cuda/relax2d.py`,
-    and `ops/split2d.py`'s residual + restrict and prolong + blend on the
-    halves.  Conversions (the split2d / merge2d kernels) run only where a
-    dense array is needed; see "Persistent halves" below;
+    prolong + blend, relax): JAX's sweeps_per_call = T form of row 16,
+    `relax2d.relax_halves2d`, one launch of the colour slab's one-rank
+    chunk (`csrc/color_slab2d_shard.cu`) per T = 4 sweeps, f-less on
+    f-less legs, and `ops/split2d.py`'s residual + restrict and prolong +
+    blend on the halves.  Conversions (the split2d / merge2d kernels) run
+    only where a dense array is needed; see "Persistent halves" below;
   * with `SPLIT2D_REDUCED` (JAX's opt-in `PDE_MG_SPLIT2D_REDUCED=1`,
     read at import), the split levels are reduced levels instead: each
     leg splits v (and f, unless the leg is f-less), runs the
@@ -70,7 +72,8 @@ with the hand-written kernels.
     `plan_split2d_raw` returns None there), so the level's transfers are
     the plain ops below;
   * other relaxed levels: the whole-leg resident kernel
-    (`ops/cuda/resident.py`);
+    (`ops/cuda/resident.py`: the dense form of the colour slab's leg, on
+    a cluster of up to 16 CTAs);
   * pairs whose fine level is not a split level, and the residual norms:
     the plain ops of `ops/stencil.py` on the card.  These are the JAX
     package's non-Pallas ops (jnp/XLA: its `make_residual` is 3D-only, and
@@ -115,14 +118,17 @@ plain tensor ops on the card.
 Persistent halves.  JAX gets them from trace-time identity caches and
 dead-code elimination (`ops/pallas/dispatch.py:154-183`); eager PyTorch
 has neither, so this tier holds them as explicit level state: per split
-level, the halves of v (with which of dense and halves is current) and
-of f.  `cycles.CycleProgram` tells the tier where it reads or writes a
-level's dense v or f itself (`v_written`, `f_written`, `zero_v`), and
-`solve_step` starts (`reset_state`) and ends (`dense_v`) every step on
-current dense tensors.  Per visit of a split level that costs at most
-one split of v, one split of f (none on f-less legs) and one merge, for
-prolonging the level's v to the next finer one (`prolong_blend_halves`
-takes the coarse array dense); `conversions` counts them.
+level, two pairs of halves of v (a chunk writes apart from what it
+reads, so a relax leaves the result in either pair; the pair that holds
+it is the current one, with which of dense and halves is current) and
+the halves of f.  `cycles.CycleProgram` tells the tier where it reads or
+writes a level's dense v or f itself (`v_written`, `f_written`,
+`zero_v`), and `solve_step` starts (`reset_state`) and ends (`dense_v`)
+every step on current dense tensors.  Per visit of a split level that
+costs at most one split of v, one split of f (none on f-less legs) and
+one merge, for prolonging the level's v to the next finer one
+(`prolong_blend_halves` takes the coarse array dense); `conversions`
+counts them.
 """
 
 from __future__ import annotations
@@ -301,7 +307,8 @@ class CudaKernels(TorchKernels):
             if not (_plain_ok(g) if low else (g.wrap and g.ndim == 3)):
                 raise _not_planned(f"residual on level {g}")
         # persistent halves of split levels (explicit level state)
-        self._vh = [None] * n  # (r, b) of v
+        self._vh = [None] * n  # (r, b) of v: the current pair
+        self._vh_spare = [None] * n  # the other pair, a relax's output
         self._fh = [None] * n  # (fr, fb) of f
         self._v_cur = ["dense"] * n  # "dense" | "halves" | "both"
         self._f_ok = [False] * n
@@ -365,10 +372,15 @@ class CudaKernels(TorchKernels):
     # -- relax -------------------------------------------------------------
 
     def _relax_split(self, l, v, f, nsweeps, f_zero):
-        r, b = self._v_halves(l, v)
+        vh = self._v_halves(l, v)
         fr, fb = (None, None) if f_zero else self._f_halves(l, f)
-        relax2d_mod.relax_halves2d(r, b, fr, fb, nsweeps, self.problem,
-                                   self.geoms[l])
+        if self._vh_spare[l] is None:
+            self._vh_spare[l] = self._alloc(l, v)
+        out = relax2d_mod.relax_halves2d(*vh, fr, fb, nsweeps, self.problem,
+                                         self.geoms[l],
+                                         spare=self._vh_spare[l])
+        if out is self._vh_spare[l]:
+            self._vh[l], self._vh_spare[l] = out, vh
         self._v_cur[l] = "halves"
         return v
 

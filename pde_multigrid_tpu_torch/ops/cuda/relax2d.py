@@ -1,16 +1,19 @@
 """Color-split red-black Gauss-Seidel on padded 2D Lyapunov levels: the
-CUDA kernels of `csrc/relax2d.cu` and their plain PyTorch versions.
+CUDA kernels of `csrc/relax2d.cu` (the converters) and
+`csrc/color_slab2d_shard.cu` (the sweeps) and their plain PyTorch
+versions.
 
 Replaces the TPU kernels `pde_multigrid_tpu/ops/pallas/relax.py`
 `_pallas_split_2d`, `_pallas_merge_2d` (and the XLA `split_colors_2d` /
 `merge_colors_2d` they stand in for), `make_split_color_slab_2d` (its
-`raw` halves-in/halves-out form) and, on one shard of a sharded level,
+`raw` halves-in/halves-out form at sweeps_per_call = T: `relax_halves2d`,
+chunks of T sweeps) and, on one shard of a sharded level,
 `make_split_color_slab_2d_shard` (`color_slab2d_shard`, a chunk of t
-sweeps, and `color_slab2d_leg`, a whole leg of a one-rank level on chip:
-csrc/color_slab2d_shard.cu).  Halves layout (`ops/split2d.py`): a
-dense (X, Y) level becomes red/black (X, ceil(Y/2)) arrays; with
-q = x % 2, red sits at y = 2j + q and black at y = 2j + 1 - q.  With an odd
-Y the slot y = Y of each row is inert (split writes 0 there).
+sweeps, and `color_slab2d_leg`, a whole leg of a one-rank level on chip).
+Halves layout (`ops/split2d.py`): a dense (X, Y) level becomes red/black
+(X, ceil(Y/2)) arrays; with q = x % 2, red sits at y = 2j + q and black at
+y = 2j + 1 - q.  With an odd Y the slot y = Y of each row is inert (split
+writes 0 there).
 
 Each wrapper launches its kernel for CUDA tensors, runs the plain version
 for CPU tensors, and raises for anything else; there is no fallback from
@@ -20,6 +23,7 @@ a CUDA tensor to the plain version.  `launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,8 +35,8 @@ from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _stream
 
 RED, BLACK = 0, 1
 
-launches = {"split2d": 0, "merge2d": 0, "half_sweep2d": 0,
-            "color_slab2d_shard": 0, "color_slab2d_leg": 0}
+launches = {"split2d": 0, "merge2d": 0, "color_slab2d_shard": 0,
+            "color_slab2d_leg": 0}
 
 # csrc/color_slab2d_shard.cu's constants: points a chunk's CTA holds by
 # its threads (its two forms), points a leg's CTA holds, the sweeps
@@ -47,6 +51,10 @@ LEG_MAX_CTAS = 16
 SLAB_TILE_J = 64
 SLAB_MIN_BX = 8
 SLAB_CTAS = 132
+# sweeps a chunk of an unsharded level's relax (JAX's sweeps_per_call):
+# the one-rank engine's T (config.sweeps_per_exchange); any T gives the
+# same owned rows, bit for bit
+CHUNK_T = 4
 
 
 def reset_launches() -> None:
@@ -123,25 +131,33 @@ def half_sweep2d_plain(u, w, fu, color: int, problem, geom: LevelGeometry):
     return u.copy_(torch.where(m > 0, upd, u))
 
 
+@functools.lru_cache(maxsize=8)
+def _rows_fields(problem, geom: LevelGeometry, g0: int, rows: int, dtype,
+                 device):
+    """(q1, m_r, m_b, pre_r, pre_b) of `rows` rows from global row `g0`:
+    split2d.rows_layout's q1 and interior masks (bool), and each colour's
+    kernel_precompute fields."""
+    lay = split2d.rows_layout(geom, g0, rows, dtype, device)
+    cr, cb = lay["coords"]
+    m_r, m_b = (m > 0 for m in lay["masks"])
+    return (lay["q1"], m_r, m_b, problem.kernel_precompute(cr, geom, dtype),
+            problem.kernel_precompute(cb, geom, dtype))
+
+
 def color_slab2d_shard_plain(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
                              problem, geom: LevelGeometry, x_loc: int):
     """(r, b): the owned x_loc rows of one shard's ext halves after t
-    red-black sweeps (new tensors).  The ext halves hold XE >= x_loc + 2t
-    rows in the global colour convention, ext row 0 at global row `g0`
-    (XE = x_loc on a one-rank ring, whose last row no interior point
-    reads past); coordinates, colours and interior masks come from the
-    global row.
+    red-black sweeps (new tensors); fr_ext / fb_ext None drop the RHS.
+    The ext halves hold XE >= x_loc + 2t rows in the global colour
+    convention, ext row 0 at global row `g0` (XE = x_loc on a one-rank
+    ring, whose last row no interior point reads past); coordinates,
+    colours and interior masks come from the global row.
     Each half-sweep is half_sweep2d_plain's on the ext block, its x and y
     neighbours rolled within the block as JAX's kernel rolls them
     (relax.py:2879): the rows a roll corrupts lie past x_loc + 2t - 2s
     after s sweeps."""
-    lay = split2d.rows_layout(geom, g0, r_ext.shape[0], r_ext.dtype,
-                              r_ext.device)
-    q1 = lay["q1"]
-    cr, cb = lay["coords"]
-    m_r, m_b = (m > 0 for m in lay["masks"])
-    pre_r = problem.kernel_precompute(cr, geom, r_ext.dtype)
-    pre_b = problem.kernel_precompute(cb, geom, r_ext.dtype)
+    q1, m_r, m_b, pre_r, pre_b = _rows_fields(
+        problem, geom, g0, r_ext.shape[0], r_ext.dtype, r_ext.device)
     r, b = r_ext, b_ext
     for _ in range(t):
         upd = problem.split_update2d(split2d._nbr_factory(b, q1), fr_ext,
@@ -211,34 +227,31 @@ def from_halves(r: torch.Tensor, b: torch.Tensor, out: torch.Tensor):
 
 
 def relax_halves2d(r, b, fr, fb, nsweeps: int, problem,
-                   geom: LevelGeometry):
-    """`nsweeps` red-then-black sweeps on halves, in place on r and b;
-    fr/fb None drops the RHS (the f-less kernel).  2*nsweeps launches,
-    the operands checked once."""
+                   geom: LevelGeometry, spare=None):
+    """`nsweeps` red-then-black sweeps on a level's halves (r, b) with the
+    RHS halves (fr, fb), or None for none (the f-less chunk): JAX's raw
+    `make_split_color_slab_2d` at sweeps_per_call = CHUNK_T, that is
+    ceil(nsweeps / CHUNK_T) one-rank chunks (`color_slab2d_shard`, the
+    remainder last), in turns from (r, b) into `spare` (the level's
+    second pair of halves; a new pair when None) and back.  Returns the
+    pair the last chunk wrote: (r, b) after an even count of chunks, else
+    `spare`.  The result is bitwise the half-sweep chain's
+    (`half_sweep2d_plain`)."""
     _check_halves(r, b, geom)
-    fs = () if fr is None else (fr, fb)
-    if fs:
+    if (fr is None) != (fb is None):
+        raise ValueError("give both RHS halves or neither")
+    if fr is not None:
         _check_halves(fr, fb, geom)
-    if not _on_cuda(r, b, *fs):
-        for _ in range(nsweeps):
-            half_sweep2d_plain(r, b, fr, RED, problem, geom)
-            half_sweep2d_plain(b, r, fb, BLACK, problem, geom)
-        return r, b
-    params = lyap_params(problem, geom)
-    p = ctypes.addressof(params)
-    X, Y = geom.padded_shape
-    fn = build.load().lib.pdemg_half_sweep2d
-    stream = _stream()
-    pr, pb = r.data_ptr(), b.data_ptr()
-    pfr, pfb = (fr.data_ptr(), fb.data_ptr()) if fs else (None, None)
-    for _ in range(nsweeps):
-        rc = fn(pr, pb, pfr, X, Y, RED, p, stream)
-        launches["half_sweep2d"] += 1
-        build.check(rc, "half_sweep2d")
-        rc = fn(pb, pr, pfb, X, Y, BLACK, p, stream)
-        launches["half_sweep2d"] += 1
-        build.check(rc, "half_sweep2d")
-    return r, b
+    nxt = (torch.empty_like(r), torch.empty_like(b)) if spare is None \
+        else spare
+    _check_halves(*nxt, geom)
+    cur = (r, b)
+    n_full, rem = divmod(nsweeps, CHUNK_T)
+    for t in [CHUNK_T] * n_full + [rem] * (rem > 0):
+        color_slab2d_shard(*cur, fr, fb, 0, t, problem, geom, r.shape[0],
+                           nxt, one_rank=True)
+        cur, nxt = nxt, cur
+    return cur
 
 
 def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -298,17 +311,21 @@ def color_slab2d_shard(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
                        one_rank: bool = False):
     """One chunk of `t` sweeps on a shard's (XE, Y2) ext halves (global
     colour convention, ext row 0 at global row `g0`, XE >= x_loc + 2t),
-    the exact owned rows written into `out` = (r, b), two (x_loc, Y2)
-    tensors apart from the inputs; returns `out`.  `one_rank`: the form of
-    a one-rank ring, whose shard reaches the level's last row: rows past
-    x_loc read as 0 (no interior point reads them), so XE >= x_loc and no
-    ext rows are read.  Tiles and the kernel's form: `slab_tile`.  One
-    launch of csrc/color_slab2d_shard.cu for CUDA tensors, the plain
-    version for CPU tensors."""
+    with the RHS halves (fr_ext, fb_ext), or None for none (the f-less
+    form: no RHS read, no f a_f term), the exact owned rows written into
+    `out` = (r, b), two (x_loc, Y2) tensors apart from the inputs; returns
+    `out`.  `one_rank`: the form of a one-rank ring (and of an unsharded
+    level, `relax_halves2d`), whose shard reaches the level's last row:
+    rows past x_loc read as 0 (no interior point reads them), so XE >=
+    x_loc and no ext rows are read.  Tiles and the kernel's form:
+    `slab_tile`.  One launch of csrc/color_slab2d_shard.cu for CUDA
+    tensors, the plain version for CPU tensors."""
     split2d.check_level(geom)
     Y2 = split2d.half_width(geom)
     XE = r_ext.shape[0]
-    ins = (r_ext, b_ext, fr_ext, fb_ext)
+    if (fr_ext is None) != (fb_ext is None):
+        raise ValueError("give both RHS halves or neither")
+    ins = (r_ext, b_ext) + (() if fr_ext is None else (fr_ext, fb_ext))
     for a in ins:
         if tuple(a.shape) != (XE, Y2):
             raise ValueError(f"ext halves {tuple(a.shape)}, want ({XE}, "
@@ -333,15 +350,17 @@ def color_slab2d_shard(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
         ins = tuple(a[:x_loc] for a in ins)
         XE = x_loc
     tiles = slab_tile(x_loc, Y2, t)
+    fs = ins[2:] or (None, None)
     if not _on_cuda(*ins, *out):
-        pr, pb = color_slab2d_shard_plain(*ins, g0, t, problem, geom, x_loc)
+        pr, pb = color_slab2d_shard_plain(*ins[:2], *fs, g0, t, problem,
+                                          geom, x_loc)
         out[0].copy_(pr)
         out[1].copy_(pb)
         return out
     params = lyap_params(problem, geom)
     rc = build.load().lib.pdemg_color_slab2d_shard(
-        *(a.data_ptr() for a in (*ins, *out)), XE, x_loc, Y2, g0, t,
-        *tiles, ctypes.addressof(params), _stream(),
+        *(None if a is None else a.data_ptr() for a in (*ins[:2], *fs, *out)),
+        XE, x_loc, Y2, g0, t, *tiles, ctypes.addressof(params), _stream(),
     )
     launches["color_slab2d_shard"] += 1
     build.check(rc, "color_slab2d_shard")

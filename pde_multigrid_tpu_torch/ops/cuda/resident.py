@@ -1,14 +1,23 @@
 """Whole-leg dense red-black Gauss-Seidel on small padded 2D levels (the
 2D Lyapunov equation and the HJB equation's upwind scheme): the CUDA
-kernels of `csrc/resident.cu` and their plain PyTorch version.
+kernels and their plain PyTorch version.
 
 Replaces the TPU kernel `pde_multigrid_tpu/ops/pallas/relax.py`
 `make_resident_relax`: all sweeps of a relax leg in one launch, the level
 held on chip for the whole leg (`fits` / `hjb_ctas` say whether a level
-fits).  Lyapunov runs on one cluster of 8 CTAs; HJB on one CTA up to 33^2
-and on a cluster of 8 CTAs from 65^2 to 257^2 (`hjb_ctas`).  The update is the Pallas
-kernel's `v + m * (kernel_update - v)`, red (x + y even) then black, with
-the masks of `_coords_and_masks`: the interior times the problem's
+fits).  Lyapunov runs the dense form of the colour slab's leg
+(csrc/color_slab2d_shard.cu, `pdemg_resident2d`): the level in x bands
+on the largest cluster of at most 16 CTAs that holds it
+(`relax2d.leg_layout`: 16, 15 and 9 CTAs at 257^2, 129^2 and 65^2; one
+CTA on levels no cluster fits), each band kept as colour halves in shared
+memory, split from the dense rows on load and merged on store, its
+coefficients (and f a_f) in registers, block barriers between
+half-sweeps and one cluster barrier every 4 sweeps, when each band's
+first 8 rows are pushed into its left neighbour as its halo.  HJB
+(csrc/resident.cu) runs on one CTA up to 33^2 and on a cluster of 8 CTAs
+from 65^2 to 257^2 (`hjb_ctas`).  The update is the Pallas kernel's
+`v + m * (kernel_update - v)`, red (x + y even) then black, with the masks
+of `_coords_and_masks`: the interior times the problem's
 `kernel_keep_mask` where it has one (HJB's pinned target ball).
 
 The wrapper launches the kernel for CUDA tensors, runs the plain version
@@ -28,12 +37,12 @@ from pde_multigrid_tpu_torch.grid import LevelGeometry, base_aux
 from pde_multigrid_tpu_torch.models.hjb import HJBMinTime
 from pde_multigrid_tpu_torch.ops.cuda import build
 from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _stream
-from pde_multigrid_tpu_torch.ops.cuda.relax2d import lyap_params
+from pde_multigrid_tpu_torch.ops.cuda.relax2d import leg_layout, lyap_params
 
 launches = {"resident": 0, "resident_hjb": 0}
 
-# the cluster the Lyapunov kernel runs on: CTAs, and the shared memory one
-# may hold
+# the cluster the HJB kernel runs on from 65^2 up: CTAs, and the shared
+# memory one may hold
 CLUSTER_CTAS = 8
 MAX_SMEM_BYTES = 232448
 # the largest level the HJB kernel runs on one CTA: one whose colors each
@@ -59,17 +68,19 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def smem_bytes(geom: LevelGeometry, with_f: bool) -> int:
-    """Shared memory per CTA: v, a_e, a_s (+ a_f, f) for ceil(X/8) rows."""
-    X, Y = geom.padded_shape
-    rows = -(-X // CLUSTER_CTAS)
-    return rows * Y * 4 * (5 if with_f else 3)
+def layout(geom: LevelGeometry):
+    """(RX, BX, nctas) of the Lyapunov kernel on a padded 2D level: bands
+    of BX owned rows (RX loaded) on nctas CTAs, `relax2d.leg_layout`; None
+    where the level does not fit on chip (513^2 and up: the split tier's
+    levels)."""
+    if geom.ndim != 2 or geom.wrap:
+        return None
+    return leg_layout(geom)
 
 
 def fits(geom: LevelGeometry) -> bool:
     """True when the Lyapunov kernel can hold the level (RHS included)."""
-    return (geom.ndim == 2 and not geom.wrap
-            and smem_bytes(geom, True) <= MAX_SMEM_BYTES)
+    return layout(geom) is not None
 
 
 def hjb_smem_bytes(geom: LevelGeometry, ctas: int) -> int:
@@ -146,8 +157,8 @@ def resident_relax_plain(v, f, nsweeps: int, problem, geom: LevelGeometry):
 
 def resident_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
     """`nsweeps` red-black sweeps in place on v (one launch); f None is
-    the f-less leg (Lyapunov only).  The HJB kernel runs on
-    `hjb_ctas(geom)` CTAs."""
+    the f-less leg (Lyapunov only).  The Lyapunov kernel runs on
+    `layout(geom)`, the HJB kernel on `hjb_ctas(geom)` CTAs."""
     if tuple(v.shape) != tuple(geom.padded_shape) or geom.ndim != 2:
         raise ValueError(
             f"v {tuple(v.shape)} does not match 2D level {geom.padded_shape}"
@@ -160,21 +171,22 @@ def resident_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
         check_hjb(problem)
         if not fs:
             raise ValueError("the HJB resident kernel takes f")
+    lay = None if hjb else layout(geom)
+    if not hjb and lay is None:
+        raise ValueError(
+            f"level {geom.padded_shape} does not fit the resident kernel's "
+            "cluster (relax2d.leg_layout)"
+        )
     if not _on_cuda(v, *fs):
         return resident_relax_plain(v, f, nsweeps, problem, geom)
     if hjb:
         return _resident_hjb(v, f, nsweeps, problem, geom)
-    if smem_bytes(geom, bool(fs)) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"level {geom.padded_shape} does not fit the resident kernel's "
-            f"{CLUSTER_CTAS} x {MAX_SMEM_BYTES} B of shared memory"
-        )
     if nsweeps < 1:
         return v
     params = lyap_params(problem, geom)
     X, Y = geom.padded_shape
     rc = build.load().lib.pdemg_resident2d(
-        v.data_ptr(), f.data_ptr() if fs else None, X, Y, nsweeps,
+        v.data_ptr(), f.data_ptr() if fs else None, X, Y, nsweeps, *lay,
         ctypes.addressof(params), _stream(),
     )
     launches["resident"] += 1

@@ -100,20 +100,36 @@ def test_split_merge2d_match_pallas_converters(n):
 @pytest.mark.parametrize("f_zero", [False, True])
 @pytest.mark.parametrize("n", [33, 65])
 def test_half_sweep2d_matches_pallas(n, f_zero):
-    """Red-black sweeps on halves (split, 2 nsweeps half-sweeps, merge)
-    against make_split_color_slab_2d in interpret mode (T = 4 sweeps per
-    call behind its one-sided halo), with and without f."""
+    """Red-black sweeps on halves (split, relax_halves2d: chunks of
+    CHUNK_T = 4 sweeps with a remainder chunk, merge) against
+    make_split_color_slab_2d in interpret mode (T = 4 sweeps per call
+    behind its one-sided halo), dense in and out and in the raw form the
+    persistent tier runs (halves in and out, JAX's converters), with and
+    without f; 1, 4, 5 and 9 sweeps cover one chunk, a remainder alone
+    and remainder chunks."""
     jg, tg, v, f = _level(n, seed=2 * n + f_zero)
     fn = JR.make_split_color_slab_2d(JLyapunov2D(), jg, F32, 8,
                                      sweeps_per_call=4, interpret=True)
-    for ns in (1, 5):
+    raw = JR.make_split_color_slab_2d(JLyapunov2D(), jg, F32, 8,
+                                      sweeps_per_call=4, interpret=True,
+                                      raw=True)
+    X, Y = jg.padded_shape
+    split_pad, merge = JR.make_color_converters_2d(
+        X, Y, -(-(Y // 2) // 128) * 128, F32, interpret=True)
+    jfs = () if f_zero else split_pad(jnp.asarray(f))
+    for ns in (1, 4, 5, 9):
         want = np.asarray(fn(jnp.asarray(v), jnp.asarray(f), ns,
                              f_zero=f_zero))[:n, :n]
+        want_raw = np.asarray(merge(*raw(*split_pad(jnp.asarray(v)), jfs,
+                                         ns)))[:n, :n]
         r, b = R2.to_halves(torch.tensor(v[:n, :n]))
         fr, fb = (None, None) if f_zero else R2.to_halves(
             torch.tensor(f[:n, :n]))
-        R2.relax_halves2d(r, b, fr, fb, ns, Lyapunov2D(), tg)
-        _close(R2.from_halves(r, b, torch.empty(n, n)).numpy(), want)
+        out = R2.relax_halves2d(r, b, fr, fb, ns, Lyapunov2D(), tg)
+        assert (out[0] is r) == (-(-ns // R2.CHUNK_T) % 2 == 0)
+        got = R2.from_halves(*out, torch.empty(n, n)).numpy()
+        _close(got, want)
+        _close(got, want_raw)
 
 
 def test_half_sweep2d_colors_masks_and_boundary_column():
@@ -143,10 +159,88 @@ def test_half_sweep2d_colors_masks_and_boundary_column():
     outs = []
     for dense in (v[:n, :n], v2):
         r, b = R2.to_halves(torch.tensor(dense))
-        R2.relax_halves2d(r, b, fr, fb, 1, prob, tg)
+        r, b = R2.relax_halves2d(r, b, fr, fb, 1, prob, tg)
         outs.append(R2.from_halves(r, b, torch.empty(n, n)))
     diff = (outs[0] != outs[1])[1 : n - 1, n - 2]
     assert bool(diff.all())
+
+
+def _bits(a):
+    return a.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("n", [17, 33, 65])
+def test_fless_chunk_is_the_fless_chain(n):
+    """The chunk's f-less form (fr = fb = None: no RHS read, no f a_f
+    term) on a level's halves is bitwise the f-less half-sweep chain
+    (half_sweep2d_plain with fu None) at t = 1, 3, 4; the form with f on
+    f = 0 gives the same values (its -0 + +0 may differ in the sign
+    bit, which is why the f-less form adds no zero term)."""
+    _, tg, v, _ = _level(n, seed=40 + n)
+    prob = Lyapunov2D()
+    r0, b0 = R2.to_halves(torch.tensor(v[:n, :n]))
+    zr, zb = torch.zeros_like(r0), torch.zeros_like(b0)
+    for t in (1, 3, 4):
+        cr, cb = r0.clone(), b0.clone()
+        for _ in range(t):
+            R2.half_sweep2d_plain(cr, cb, None, R2.RED, prob, tg)
+            R2.half_sweep2d_plain(cb, cr, None, R2.BLACK, prob, tg)
+        out = (torch.empty_like(r0), torch.empty_like(b0))
+        R2.color_slab2d_shard(r0, b0, None, None, 0, t, prob, tg, n, out,
+                              one_rank=True)
+        assert torch.equal(_bits(out[0]), _bits(cr))
+        assert torch.equal(_bits(out[1]), _bits(cb))
+        withf = (torch.empty_like(r0), torch.empty_like(b0))
+        R2.color_slab2d_shard(r0, b0, zr, zb, 0, t, prob, tg, n, withf,
+                              one_rank=True)
+        assert torch.equal(withf[0], out[0]) and torch.equal(withf[1],
+                                                             out[1])
+    with pytest.raises(ValueError, match="both RHS halves"):
+        R2.color_slab2d_shard(r0, b0, zr, None, 0, 1, prob, tg, n, out,
+                              one_rank=True)
+
+
+@pytest.mark.parametrize("with_f", [False, True])
+def test_relax_halves2d_chunks_and_pairs(monkeypatch, with_f):
+    """relax_halves2d is JAX's sweeps_per_call = CHUNK_T form: one
+    one-rank chunk per CHUNK_T sweeps and a remainder chunk, each from
+    one pair of halves into the other; with a spare pair the result lies
+    in whichever pair the last chunk wrote (the spare after an odd count
+    of chunks), bitwise the half-sweep chain either way; no sweep, no
+    chunk."""
+    n = 33
+    _, tg, v, f = _level(n, seed=77 + with_f)
+    prob = Lyapunov2D()
+    calls = []
+    chunk = R2.color_slab2d_shard
+
+    def spy(*a, **k):
+        calls.append((a[5], a[8], k.get("one_rank"), a[2] is None))
+        return chunk(*a, **k)
+
+    monkeypatch.setattr(R2, "color_slab2d_shard", spy)
+    assert R2.CHUNK_T == 4
+    r0, b0 = R2.to_halves(torch.tensor(v[:n, :n]))
+    fr, fb = R2.to_halves(torch.tensor(f[:n, :n])) if with_f else (None,
+                                                                    None)
+    for ns, ts in ((0, []), (1, [1]), (4, [4]), (5, [4, 1]), (9, [4, 4, 1]),
+                   (12, [4, 4, 4])):
+        calls.clear()
+        cr, cb = r0.clone(), b0.clone()
+        for _ in range(ns):
+            R2.half_sweep2d_plain(cr, cb, fr, R2.RED, prob, tg)
+            R2.half_sweep2d_plain(cb, cr, fb, R2.BLACK, prob, tg)
+        pair = (r0.clone(), b0.clone())
+        spare = (torch.empty_like(r0), torch.empty_like(b0))
+        out = R2.relax_halves2d(*pair, fr, fb, ns, prob, tg, spare=spare)
+        assert [c[0] for c in calls] == ts
+        assert all(c[1:] == (n, True, not with_f) for c in calls)
+        if len(ts) % 2:
+            assert out is spare
+        else:
+            assert out[0] is pair[0] and out[1] is pair[1]
+        assert torch.equal(_bits(out[0]), _bits(cr))
+        assert torch.equal(_bits(out[1]), _bits(cb))
 
 
 # --------------------------------------------------------------- resident
@@ -169,15 +263,48 @@ def test_resident_matches_pallas(n, f_zero):
 
 
 def test_resident_sizes():
-    """The kernel holds a level in 8 CTAs of at most 227 KB each: every
-    level up to 257^2 fits with its RHS (170 KB per CTA there), 513^2
-    does not (the split tier serves it)."""
+    """The kernel holds a level in x bands on the largest cluster of at
+    most 16 CTAs whose bands (8 rows or more, with 8 halo rows) fit a
+    CTA's 4096 points (relax2d.leg_layout): 16, 15 and 9 CTAs at 257^2,
+    129^2 and 65^2, fewer on smaller levels, one CTA on levels no cluster
+    fits; 513^2 does not fit (the split tier serves it), nor a wrap or a
+    3D level."""
     dom = Lyapunov2D().domain
+    want = {257: (25, 17, 16), 129: (17, 9, 15), 65: (16, 8, 9)}
     for n, ok in ((65, True), (129, True), (257, True), (513, False)):
         g = TG.build_geometries((n, n), dom, 1)[0]
         assert RS.fits(g) is ok
-    g = TG.build_geometries((257, 257), dom, 1)[0]
-    assert RS.smem_bytes(g, True) == 33 * 257 * 4 * 5
+        assert RS.layout(g) == want.get(n)
+    for n in (3, 5, 9, 17, 33):
+        g = TG.build_geometries((n, n), dom, 1)[0]
+        RX, BX, nctas = RS.layout(g)
+        Y2 = (n + 1) // 2
+        assert RX * Y2 <= R2.LEG_POINTS
+        if nctas == 1:
+            assert RX == BX == n
+        else:
+            assert BX >= 2 * R2.LEG_T and RX == BX + 2 * R2.LEG_T
+            assert (nctas - 1) * BX < n <= nctas * BX
+    assert RS.layout(TG.build_geometries((3, 3), dom, 1)[0]) == (3, 3, 1)
+    assert RS.layout(TG.build_geometries((33, 33), dom, 1)[0]) == (17, 9, 4)
+    wrap = TG.build_geometries((17, 17), ((0.0, 1.0),) * 2, wrap=True)[0]
+    cube = TG.build_geometries((9, 9, 9), ((0.0, 1.0),) * 3, 1)[0]
+    assert RS.layout(wrap) is None and RS.layout(cube) is None
+
+
+def test_resident_refuses_what_no_cluster_holds():
+    """A dense level no cluster holds (513^2) is refused before any
+    sweep, on either device, and so is a level of the wrong shape."""
+    prob = Lyapunov2D()
+    g = TG.build_geometries((513, 513), prob.domain, 1)[0]
+    v = torch.zeros(513, 513)
+    with pytest.raises(ValueError, match="does not fit"):
+        RS.resident_relax(v, None, 1, prob, g)
+    with pytest.raises(ValueError, match="does not fit"):
+        RS.resident_relax(v, torch.zeros_like(v), 3, prob, g)
+    small = TG.build_geometries((65, 65), prob.domain, 1)[0]
+    with pytest.raises(ValueError):
+        RS.resident_relax(torch.zeros(65, 64), None, 1, prob, small)
 
 
 # --------------------------------------------------------------- wrappers
@@ -226,6 +353,14 @@ def test_cuda_dispatch_plan_2d():
         assert k._split == [True] * 4 + [False] * 4
         assert [fn is not None for fn in k._relax] == [True] * 7 + [False]
         assert all(d is None for d in k._defect)
+        # the split levels by JAX's sweeps_per_call = T form (row 16 by
+        # the colour slab's one-rank chunk, CHUNK_T sweeps a launch), the
+        # small ones by row 1's clustered leg
+        assert k._relax[:4] == [k._relax_split] * 4
+        assert k._relax[4:7] == [k._relax_resident] * 3
+    assert [R2.slab_tile(g.shape[0], (g.shape[1] + 1) // 2, R2.CHUNK_T)[4]
+            for g in geoms[:4]] == [1024, 1024, 1024, 512]
+    assert [RS.layout(g)[2] for g in geoms[4:7]] == [16, 15, 9]
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         CudaKernels(Poisson(2), TG.build_geometries(
             (17, 17), ((0.0, 1.0),) * 2), torch.float32)

@@ -139,7 +139,7 @@ def test_shard_chunk_equals_whole_level_sweeps(n, pad, x_loc, t):
     X = g.padded_shape[0]
     assert X % x_loc == 0
     wr, wb = r.clone(), b.clone()
-    R2.relax_halves2d(wr, wb, fr, fb, t, Lyapunov2D(), g)
+    wr, wb = R2.relax_halves2d(wr, wb, fr, fb, t, Lyapunov2D(), g)
     for g0 in range(0, X, x_loc):
         idx = (g0 + torch.arange(x_loc + 2 * t)) % X
         ins = [a[idx] for a in (r, b, fr, fb)]

@@ -351,6 +351,51 @@ def test_split_merge_budget(monkeypatch):
     assert kv.conversions == {"split_v": 1, "split_f": 1, "merge": 2}
 
 
+def test_two_pair_halves_follow_the_relax(monkeypatch):
+    """A split level holds two pairs of persistent halves: a relax of an
+    odd count of chunks (1 or 5 ... 8 sweeps at CHUNK_T = 4 is 1 or 2)
+    leaves the result in the other pair, which becomes the current one;
+    dense_v, residual_restrict and prolong_blend then read it.  The level
+    after relax, relax, merge is bitwise the half-sweep chain's, f-less
+    legs split no f, and no pair is allocated twice."""
+    monkeypatch.setattr(D, "SPLIT2D_MIN_Y2", 32)
+    _, ts, _, arrays = _jax_and_port(65, 3)
+    k = _cuda_tier(ts)
+    assert k._split[0]
+    g = ts.geoms[0]
+    rng = np.random.default_rng(21)
+    v0 = torch.tensor(rng.standard_normal(g.padded_shape), dtype=torch.float32)
+    f = torch.tensor(rng.standard_normal(g.padded_shape), dtype=torch.float32)
+    r, b = R2.to_halves(v0)
+    fr, fb = R2.to_halves(f)
+    v = v0.clone()
+    k.reset_state()
+    seen = []
+    for ns, f_zero in ((1, False), (5, True), (4, False), (9, True)):
+        before = k._v_halves(0, v)
+        k.relax(0, v, f, None, ns, f_zero=f_zero)
+        flip = -(-ns // R2.CHUNK_T) % 2 == 1
+        assert (k._vh[0] is not before) == flip
+        assert (k._vh_spare[0] is before) == flip
+        seen += [id(k._vh[0]), id(k._vh_spare[0])]
+        for _ in range(ns):
+            R2.half_sweep2d_plain(r, b, None if f_zero else fr, R2.RED,
+                                  ts.problem, g)
+            R2.half_sweep2d_plain(b, r, None if f_zero else fb, R2.BLACK,
+                                  ts.problem, g)
+    assert len(set(seen)) == 2
+    assert k.conversions == {"split_v": 1, "split_f": 1, "merge": 0}
+    got = k.dense_v(0, v)
+    want = R2.merge_colors_2d(r, b, g.padded_shape[1])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the transfers on halves read the current pair
+    caux = levels_from_numpy(ts.geoms, arrays)[1].aux
+    rr, rb = TS.residual_halves(ts.problem, g, r, b, fr, fb)
+    want = TS.restrict_residual_from_halves(g, ts.geoms[1], rr, rb,
+                                            caux["m_int"], caux["m_log"])
+    assert torch.equal(k.residual_restrict(0, v, f, None, caux), want)
+
+
 def test_cuda_tier_mixed_relaxes_in_float32(monkeypatch):
     """precision="mixed" on Lyapunov: no defect plan covers a 2D level, so
     every level relaxes in float32 (as the JAX package does) and the

@@ -175,7 +175,7 @@ def test_split2d_engine_composes_bitwise(n, T):
         got = torch.cat(Ring(n).run(shard))
         r, b = R2.to_halves(v)
         fr, fb = R2.to_halves(f)
-        R2.relax_halves2d(r, b, fr, fb, ns, prob, g)
+        r, b = R2.relax_halves2d(r, b, fr, fb, ns, prob, g)
         want = R2.from_halves(r, b, torch.empty_like(v))
         assert torch.equal(got, want), (ns, float((got - want).abs().max()))
 
@@ -195,7 +195,7 @@ def test_one_rank_engine_bitwise(m):
         got = fn(v.clone(), f, ns)
         r, b = R2.to_halves(v)
         fr, fb = R2.to_halves(f)
-        R2.relax_halves2d(r, b, fr, fb, ns, prob, g)
+        r, b = R2.relax_halves2d(r, b, fr, fb, ns, prob, g)
         want = R2.from_halves(r, b, torch.empty_like(v))
         assert torch.equal(got, want), ns
 

@@ -176,7 +176,7 @@ def test_chunk_within_jax_tolerance_of_row16(T_):
         out = (torch.empty_like(r), torch.empty_like(b))
         RD.reduced_chunk(r, b, *hf, T_, prob, tg, out)
         cr, cb = r.clone(), b.clone()
-        R2.relax_halves2d(cr, cb, *hf, T_, prob, tg)
+        cr, cb = R2.relax_halves2d(cr, cb, *hf, T_, prob, tg)
         for got, want in zip(out, (cr, cb)):
             np.testing.assert_allclose(got.numpy(), want.numpy(),
                                        rtol=2e-5, atol=2e-6)
