@@ -10,14 +10,25 @@ Phases, in order; any failure exits non-zero without the final result line:
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the 129^3 main path's shapes (128^3 fine, 64^3 coarse), and
      each one's time beside the plain version's (CUDA events); the bf16
-     defect trio (residual_split, error_sweep, merge_fold) included; then
+     defect trio included: residual_split, row 10's error sweeps as the
+     plan runs them on 128^3 and below (error_leg, one cooperative
+     launch a leg) bitwise error_sweeps_plain at nu = 1 ... 9 and 100 on
+     128^3 (isotropic and anisotropic spacing), 64^3 and two odd shapes,
+     a 100-sweep leg at 128^3 timed beside its plain version and the
+     half-sweep chain it replaces (error_sweep, kept for the levels that
+     fit neither form), merge_fold; then
      the time-skewed wavefront (timeskew.cu, T = 4 sweeps per launch on
      a 16-CTA cluster), bitwise on small and odd-tiled levels and at
      256^3 and 512^3 over 1 ... 2T + 1 and 100 sweeps, with and without
      v_zero, a 100-sweep leg timed beside its plain version and at every
      T the kernel is built for, and (dense in and out) beside the
-     half-sweep chain and the bf16 defect leg, and at 128^3 and 64^3
-     beside the half-sweeps; then
+     half-sweep chain, the bf16 defect leg and that leg with row 10 as
+     the chain, and at 128^3 and 64^3 beside the half-sweeps; its error
+     mode (error_timeskew, row 10 on 256^3 and 512^3) bitwise
+     error_sweeps_plain at nu = 1 ... 9 and 100 on 16^3, 32^3, the
+     odd-tiled (64, 65, 100) and 256^3 and 512^3 (isotropic and
+     anisotropic), a 100-sweep leg timed at 256^3 and 512^3 beside its
+     plain version and the chain; then
      the fused coarse-subtree V-cycle (subtree.cu) bitwise against the
      unfused chain of the port's kernels and against its plain version at
      the roots 64^3 ... 2^3, nu = (1, 1), (1, 0), (2, 3), with and without
@@ -45,7 +56,9 @@ Phases, in order; any failure exits non-zero without the final result line:
      with precision="f32", then "mixed" (the bench's default: every leg
      of 100 sweeps takes the bf16 defect correction); error_linf
      < 50 h^2, finite residuals, and every kernel of each path launched
-     by its solve (counts set to 0 just before it, read just after);
+     by its solve (counts set to 0 just before it, read just after); in
+     mixed exactly row 10's launches of the plan (4 a step at 129^3, 108
+     at 257^3, 312 at 513^3), none of the half-sweep chain;
      then ms per solve step and DOF-updates/s, eager and replayed as one
      CUDA graph; then the reference: the same schedule in float64
      through the plain tensor tier, against which the mixed solve's
@@ -290,6 +303,18 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/defect.cu",
         "pde_multigrid_tpu/ops/pallas/defect.py:111",
     ),
+    # row 10 in three forms: the whole leg with the halves on chip (the
+    # plan's on 128^3 and below), the wavefront's error mode, T sweeps a
+    # launch (256^3, 512^3), and the half-sweep chain, the earlier form,
+    # kept for the levels that fit neither (no bench row has one)
+    "error_leg": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/relax.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:1268",
+    ),
+    "error_timeskew": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/timeskew.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:1268",
+    ),
     "error_sweep": (
         "pde_multigrid_tpu_torch/ops/cuda/csrc/relax.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:1268",
@@ -423,7 +448,13 @@ PATHS = {
     "f32": F32_3D,  # 129^3: the half-sweeps on 128^3
     "f32_257": (*F32_3D, "timeskew"),  # the wavefront on 256^3
     "f32_513": (*F32_3D, "timeskew", "timeskew_jb"),  # on 512^3 and 256^3
-    "mixed": ("residual_split", "error_sweep", "merge_fold", *TRANSFERS),
+    # mixed: row 10 as the whole leg on 128^3, and as the wavefront's error
+    # mode on 256^3 and 512^3; no half-sweep chain
+    "mixed": ("residual_split", "error_leg", "merge_fold", *TRANSFERS),
+    "mixed_257": ("residual_split", "error_leg", "error_timeskew",
+                  "merge_fold", *TRANSFERS),
+    "mixed_513": ("residual_split", "error_leg", "error_timeskew",
+                  "merge_fold", *TRANSFERS),
     # the 2D Lyapunov path (any precision: no defect plan covers 2D): row
     # 16 as one-rank chunks on 4097^2 ... 513^2, row 1 on 257^2 ... 65^2
     "lyapunov": ("split2d", "merge2d", "color_slab2d_shard", "resident"),
@@ -591,6 +622,20 @@ def paired_times(torch, kernel_fn, plain_fn, reps: int):
     return out
 
 
+def leg_times(torch, kernel_fn, plain_fn):
+    """{"ms", "plain_ms", "eager_ms", "eager_plain_ms"} of a whole leg: the
+    kernel graph-replayed twice around the plain version's eager call
+    (kernel, plain, kernel; hundreds of PyTorch operations on large
+    tensors, so its eager time is its device time to within the host's
+    launches, which the warm-up keeps off the clock)."""
+    k1 = device_ms(torch, kernel_fn, 1)
+    plain_ms = time_ms(torch, plain_fn, 1)
+    k2 = device_ms(torch, kernel_fn, 1)
+    return {"ms": (k1 + k2) / 2, "plain_ms": plain_ms,
+            "eager_ms": time_ms(torch, kernel_fn, 2),
+            "eager_plain_ms": plain_ms}
+
+
 def phase_card(torch):
     require(
         torch.cuda.is_available(),
@@ -626,6 +671,42 @@ def phase_build():
 
 def _max_err(torch, a, b) -> float:
     return float(torch.max(torch.abs(a - b)))
+
+
+# row 10's bitwise sweep counts, and the odd shapes (dense, stored + 1)
+# it is held on beside the bench's levels: halves (64, 65, 100), an
+# odd-tiled wavefront level whose 65 rows no cluster divides, and
+# (10, 13, 38)
+ERROR_NUS = (*range(1, 10), 100)
+# the anisotropic spacing's (the error mode's other update form) at
+# 256^3 and 512^3: one launch of T, a remainder, a chain of three
+ERROR_NUS_ANISO = (1, 4, 9)
+ERROR_ODD = ((65, 131, 101), (11, 27, 39))
+# row 10's 100-sweep legs by level beside the half-sweep chain and the
+# plain version, ms (printed with the summaries)
+ERROR_AB = {}
+
+
+def check_error_sweeps(torch, fn, problem, g, halves, rng, nus=ERROR_NUS):
+    """fn (a row-10 wrapper) bitwise `error_sweeps_plain` at every nu of
+    `nus` on the bf16 residual halves `halves` (None: random ones,
+    boundary planes included, which every form must ignore)."""
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
+    if halves is None:
+        X, Y, Z = g.padded_shape
+        halves = [torch.tensor(rng.standard_normal((X, Y // 2, Z)).astype(
+            "float32"), device="cuda").to(torch.bfloat16) for _ in range(2)]
+    rr, rb = halves
+    for nu in nus:
+        k = fn(rr, rb, nu, problem, g)
+        p = R.error_sweeps_plain(rr, rb, nu, problem, g)
+        same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for a, b in zip(k, p))
+        err = max(_max_err(torch, a.float(), b.float())
+                  for a, b in zip(k, p))
+        require(same, f"{fn.__name__} at {tuple(rr.shape)} nu = {nu} "
+                f"(spacing {g.spacing}) not bitwise: max diff {err!r}")
 
 
 def phase_kernels(torch):
@@ -782,31 +863,54 @@ def phase_kernels(torch):
     record("residual_split", err, t, 2 * v.nbytes + v.numel() * 2,
            16 * v.numel())
 
-    # error sweeps from e = 0: one sweep bitwise, with isotropic and
-    # anisotropic spacing (the kernel's two update forms); 100 sweeps
-    # within REL_TOL of max|e|
+    # row 10, the error sweeps from e = 0: the whole-leg kernel (the
+    # plan's form on 128^3 and below) bitwise its plain version at
+    # nu = 1 ... 9 and 100 on 128^3, 64^3 and odd shapes, with isotropic
+    # and anisotropic spacing (the kernel's two update forms); the
+    # wavefront's error mode is held in phase_kernels_timeskew
     rr, rb = p_r
     aniso = ((0.0, 1.0), (0.0, 2.0), (0.0, 4.0))
     ga = build_geometries((129,) * 3, aniso, 2, wrap=True)[0]
-    for pb, g in ((prob, gf), (Poisson(3, domain=aniso), ga)):
-        k_e = R.error_sweeps(rr, rb, 1, pb, g)
-        p_e = R.error_sweeps_plain(rr, rb, 1, pb, g)
-        require(all(map(torch.equal, k_e, p_e)),
-                f"one error sweep not bitwise (spacing {g.spacing})")
-    k_e = R.error_sweeps(rr, rb, 100, prob, gf)
-    p_e = R.error_sweeps_plain(rr, rb, 100, prob, gf)
-    err = max(_max_err(torch, a.float(), b.float()) for a, b in zip(k_e, p_e))
-    scale = max(float(torch.max(torch.abs(b.float()))) for b in p_e)
-    require(err <= REL_TOL * scale, "100 error sweeps disagree")
-    # time 10 sweeps (20 launches, the first from e = 0), per half-sweep
-    t = paired_times(
-        torch, lambda: R.error_sweeps(rr, rb, 10, prob, gf),
-        lambda: R.error_sweeps_plain(rr, rb, 10, prob, gf), 5,
-    )
+    for pb, g, halves in ((prob, gf, p_r),
+                          (Poisson(3, domain=aniso), ga, p_r),
+                          *((prob, g, None) for g in (
+                              gc, *(build_geometries(s, prob.domain, 1,
+                                                     wrap=True)[0]
+                                    for s in ERROR_ODD)))):
+        check_error_sweeps(torch, R.error_leg, pb, g, halves, rng)
+    log(f"kernel error_leg: bitwise against error_sweeps_plain at nu = "
+        f"{ERROR_NUS} on the halves levels (128, 64, 128) (isotropic and "
+        f"anisotropic), (64, 32, 64), "
+        f"{[(s[0] - 1, (s[1] - 1) // 2, s[2] - 1) for s in ERROR_ODD]}")
+    # a 100-sweep leg beside its plain version and the half-sweep chain it
+    # replaces (the chain per half-sweep: row 10's earlier form, still the
+    # form of the levels that fit neither kernel)
+    nsw = 100
+    k_e = R.error_leg(rr, rb, nsw, prob, gf)
+    t = leg_times(torch, lambda: R.error_leg(rr, rb, nsw, prob, gf),
+                  lambda: R.error_sweeps_plain(rr, rb, nsw, prob, gf))
+    chain_ms = device_ms(torch, lambda: R.error_chain(rr, rb, nsw, prob, gf),
+                         1)
+    c_e = R.error_chain(rr, rb, nsw, prob, gf)
+    require(all(torch.equal(a, b) for a, b in zip(c_e, k_e)),
+            "the half-sweep chain and the leg differ")
+    # the leg reads rr and rb once and writes er and eb once; per sweep and
+    # updated point 8 operations (3 pair sums, 2 sums, 2 products, the
+    # select)
+    record("error_leg", 0.0, t, 4 * rr.nbytes,
+           nsw * 8 * updated_points(gf.padded_shape))
+    ERROR_AB["128^3"] = {"leg_ms": t["ms"], "plain_ms": t["plain_ms"],
+                         "chain_ms": chain_ms,
+                         "layout": R.error_leg_layout(*rr.shape, R._sm_count(
+                             rr.device.index))}
     # per half-sweep: the other color and the RHS half read, one written
-    # (bf16); 3 pair sums, 2 sums, 2 products and the select: 8 a point
-    record("error_sweep", err, {k: x / 20 for k, x in t.items()},
-           3 * rr.nbytes, 8 * rr.numel())
+    # (bf16); 8 operations an updated point of the colour
+    record("error_sweep", 0.0, {"ms": chain_ms / (2 * nsw),
+                                "plain_ms": t["plain_ms"] / (2 * nsw),
+                                "eager_ms": float("nan"),
+                                "eager_plain_ms": float("nan")},
+           3 * rr.nbytes, 8 * updated_points(gf.padded_shape) / 2)
+    log(f"row 10 at 128^3, a {nsw}-sweep leg: {ERROR_AB['128^3']!r}")
 
     # merge_fold, in place into v: bitwise
     er, eb = k_e
@@ -821,6 +925,20 @@ def phase_kernels(torch):
            er.nbytes + eb.nbytes + 2 * v.nbytes, v.numel())
     torch.cuda.synchronize()
     return out
+
+
+def defect_chain_relax(problem, g):
+    """The defect leg with row 10 as its earlier form, the half-sweep chain
+    (`relax.error_chain`): the parent's defect path, for the A/B."""
+    from pde_multigrid_tpu_torch.ops.cuda import defect as D
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
+    def relax(v, f, nsweeps):
+        rr, rb = D.residual_split(v, f, problem, g)
+        er, eb = R.error_chain(rr, rb, nsweeps, problem, g)
+        return D.merge_fold(er, eb, v)
+
+    return relax
 
 
 def timeskew_leg_bytes(shape, nsweeps: int, T: int) -> int:
@@ -853,7 +971,7 @@ def phase_kernels_timeskew(torch):
     import numpy as np
 
     from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
-    from pde_multigrid_tpu_torch.models import Poisson3D
+    from pde_multigrid_tpu_torch.models import Poisson, Poisson3D
     from pde_multigrid_tpu_torch.ops.cuda import defect as D
     from pde_multigrid_tpu_torch.ops.cuda import relax as R
 
@@ -898,6 +1016,43 @@ def phase_kernels_timeskew(torch):
         return {k: device_ms(torch, lambda fn=fn: fn(v, f, nsw), 1)
                 for k, fn in legs.items()}
 
+    aniso = ((0.0, 1.0), (0.0, 2.0), (0.0, 4.0))
+
+    def error_leg_record(g, name):
+        """Row 10's error mode on the level: bitwise at ERROR_NUS (with
+        anisotropic spacing at ERROR_NUS_ANISO), a 100-sweep leg timed
+        beside its plain version and the half-sweep chain; at 256^3 the
+        error_timeskew record."""
+        X, Y, Z = g.padded_shape
+        rr, rb = [rand((X, Y // 2, Z)).to(torch.bfloat16) for _ in range(2)]
+        check_error_sweeps(torch, R.error_timeskew, prob, g, (rr, rb), rng)
+        ga = build_geometries(tuple(n + 1 for n in g.padded_shape), aniso,
+                              1, wrap=True)[0]
+        check_error_sweeps(torch, R.error_timeskew, Poisson(3, domain=aniso),
+                           ga, (rr, rb), rng, ERROR_NUS_ANISO)
+        t = leg_times(
+            torch, lambda: R.error_timeskew(rr, rb, nsw, prob, g),
+            lambda: R.error_sweeps_plain(rr, rb, nsw, prob, g))
+        chain_ms = device_ms(
+            torch, lambda: R.error_chain(rr, rb, nsw, prob, g), 1)
+        # the leg reads rr and rb once and writes er and eb once; per sweep
+        # and updated point 8 operations (3 pair sums, 2 sums, 2 products,
+        # the select)
+        rec = {"max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+               **bound(4 * rr.nbytes,
+                       nsw * 8 * updated_points(g.padded_shape)),
+               "library_ms": None}
+        key = f"{X}^3"
+        ERROR_AB[key] = {**rec, "chain_ms": chain_ms,
+                         "launches": R.error_launches("wavefront", nsw)}
+        if name == "timeskew":
+            out["error_timeskew"] = rec
+        log(f"kernel error_timeskew ({key}, one {nsw}-sweep leg, "
+            f"{ERROR_AB[key]['launches']} launches): bitwise at nu = "
+            f"{ERROR_NUS} (anisotropic at {ERROR_NUS_ANISO}); "
+            f"{ERROR_AB[key]!r}; "
+            f"eager {t['eager_ms']!r} ms vs plain {t['eager_plain_ms']!r}")
+
     small = ((17, 17, 17), (33, 33, 33), (65, 65, 65), (11, 27, 39),
              (65, 131, 101))
     for shape in small:
@@ -906,6 +1061,15 @@ def phase_kernels_timeskew(torch):
     log(f"kernel timeskew: bitwise against its plain version at nu = "
         f"{nus}, with and without v_zero, on the halves levels "
         f"{[(s[0] - 1, (s[1] - 1) // 2, s[2] - 1) for s in small]}")
+    # row 10's error mode (k = 4: Z % 4 == 0) on the small levels and the
+    # odd-tiled (64, 65, 100), which the plan gives the whole-leg kernel
+    err_small = ((17, 17, 17), (33, 33, 33), (65, 131, 101))
+    for shape in err_small:
+        g = build_geometries(shape, prob.domain, 1, wrap=True)[0]
+        check_error_sweeps(torch, R.error_timeskew, prob, g, None, rng)
+    log(f"kernel error_timeskew: bitwise against error_sweeps_plain at nu = "
+        f"{ERROR_NUS} on the halves levels "
+        f"{[(s[0] - 1, (s[1] - 1) // 2, s[2] - 1) for s in err_small]}")
 
     for name, n in (("timeskew", 257), ("timeskew_jb", 513)):
         g = build_geometries((n,) * 3, prob.domain, 1, wrap=True)[0]
@@ -932,7 +1096,9 @@ def phase_kernels_timeskew(torch):
         dense = dense_legs(g, {
             "wavefront": R.make_timeskew_relax(prob, g),
             "half_sweeps": R.make_split_relax(prob, g),
-            "defect": D.plan_defect_relax(prob, g, torch.float32)})
+            "defect": D.plan_defect_relax(prob, g, torch.float32),
+            "defect_chain": defect_chain_relax(prob, g)})
+        error_leg_record(g, name)
         # the leg reads b, fr and fb once and writes r and b once; per
         # sweep and updated point 13 operations (3 pair sums, 3 products
         # and 3 sums, the negation, the scale, the select).  hbm_share:
@@ -959,7 +1125,9 @@ def phase_kernels_timeskew(torch):
     for n in (129, 65):
         g = build_geometries((n,) * 3, prob.domain, 1, wrap=True)[0]
         dense = dense_legs(g, {"wavefront": R.make_timeskew_relax(prob, g),
-                               "half_sweeps": R.make_split_relax(prob, g)})
+                               "half_sweeps": R.make_split_relax(prob, g),
+                               "defect": D.plan_defect_relax(
+                                   prob, g, torch.float32)})
         TIMESKEW_AB[f"{n - 1}^3"] = dense
         log(f"wavefront below its gate ({n - 1}^3, plan: "
             f"{'wavefront' if R.timeskew_plan(g) else 'half-sweeps'}): "
@@ -1719,9 +1887,8 @@ def _check_counts(tag, path, launches=None):
 
 def row_path(n: int, precision: str) -> str:
     """The PATHS entry of the 3D row at n^3 in `precision`."""
-    if precision == "mixed":
-        return "mixed"
-    return "f32" if n == 129 else f"f32_{n}"
+    base = "f32" if precision == "f32" else "mixed"
+    return base if n == 129 else f"{base}_{n}"
 
 
 def phase_main_path(torch, n: int, precision: str):
@@ -1760,6 +1927,24 @@ def phase_main_path(torch, n: int, precision: str):
         f"{res.residual_linf!r}, launches {counts}, wavefront launches by "
         f"level {by_level}")
     _check_solve(torch, tag, res, solver, 50 * h * h, row_path(n, precision))
+    if precision == "mixed":
+        # row 10 a step: level l relaxes 2 nu0 (l + 1) legs, each one
+        # launch of the whole-leg kernel or ceil(nu / T) of the wavefront's
+        # error mode, as the plan's form gives it
+        kern = solver.program.kernels
+        want = {"error_leg": 0, "error_timeskew": 0, "error_sweep": 0}
+        name = {"leg": "error_leg", "wavefront": "error_timeskew",
+                "chain": "error_sweep"}
+        for l, d in enumerate(kern._defect):
+            if d is not None and kern._relax[l] is not None:
+                want[name[d.form]] += 2 * nus[0] * (l + 1) * d.launches(
+                    nus[1])
+        got = {k: counts.get(k, 0) for k in want}
+        log(f"{tag}: row 10 launches a step {got} (total "
+            f"{sum(got.values())}), the plan's {want}; forms by level "
+            f"{[d.form if d else None for d in kern._defect]}")
+        require(got == want, f"{tag}: row 10 launches {got}, the schedule "
+                f"implies {want}")
     if precision == "f32":
         legs = [2 * nus[0] * (l + 1) for l in range(len(solver.geoms) - 1)]
         plan = [R.timeskew_plan(g) for g in solver.geoms[:len(legs)]]
@@ -1776,6 +1961,8 @@ def phase_main_path(torch, n: int, precision: str):
                "levels": [g.padded_shape for g in solver.geoms],
                "error_linf": res.error_linf,
                "residual_l2": res.residual_l2}
+    if precision == "mixed":
+        summary["row10_launches"] = got
     summary.update(time_step(torch, tag, solver, levels, 5, 2))
     return counts, summary, res.v
 
@@ -4400,7 +4587,7 @@ def main() -> int:
                   {"f32": (s32, v32), "mixed": (smx, vmx)})
             summaries += [s32, smx]
             counts.setdefault(row_path(n, "f32"), c32)
-            counts.setdefault("mixed", cmx)
+            counts.setdefault(row_path(n, "mixed"), cmx)
             if n == SHARD_N:
                 UNSHARDED["f32"] = (s32, v32)
                 counts["f32_257_blocked"], sbl = timed(
@@ -4485,7 +4672,9 @@ def main() -> int:
     # launches: each kernel's count from the solve of the path it serves
     # (the 3D kernels' from the 129^3 solves: the bench's default
     # precision, mixed, for the defect trio and the transfers, f32 for the
-    # f32 split relax; the wavefront's from the 257^3 f32 solve (row 11,
+    # f32 split relax; row 10's wavefront error mode from the 257^3 mixed
+    # solve, its half-sweep chain from the 129^3 one (0: no bench level
+    # fits neither form); the wavefront's from the 257^3 f32 solve (row 11,
     # 256^3) and the 513^3 one (row 13, 512^3); the 2D kernels' from the
     # 4097^2 Lyapunov solve; relax1d's from the ode1d 8193 solve; slab2d's
     # and resident_hjb's from the hjb2d 513^2 solve; the stencil kernels'
@@ -4498,13 +4687,14 @@ def main() -> int:
     # row 16's record counts the chunk's launches on the unsharded
     # Lyapunov path, row 17's on the sharded one
     off_path = {"split_merged": "fas257", "color_slab2d": "lyapunov",
-                "color_slab2d_shard": "sharded_lyap"}
+                "color_slab2d_shard": "sharded_lyap", "error_sweep": "mixed"}
     counter = {"color_slab2d": "color_slab2d_shard"}
 
     def path_of(name):
         return off_path.get(name) or next(
             p for p in ("ode1d", "lyapunov", "hjb", "varcoef", "mixed",
-                        "f32", "f32_257", "f32_513", "preset129", "fas257",
+                        "mixed_257", "f32", "f32_257", "f32_513",
+                        "preset129", "fas257",
                         "sharded257", "sharded_lyap", "lyapunov_reduced",
                         "f32_257_blocked")
             if name in PATHS[p])
@@ -4521,7 +4711,7 @@ def main() -> int:
                     "subtree_ab": SUBTREE_AB, "shard2d_ab": SHARD2D_AB,
                     "resident3d_ab": RESIDENT3D_AB, "fas_ab": FAS_AB,
                     "reduced_ab": REDUCED_AB, "blocked_ab": BLOCKED_AB,
-                    "lyap2d_ab": LYAP2D_AB,
+                    "lyap2d_ab": LYAP2D_AB, "error_ab": ERROR_AB,
                     "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -56,6 +56,11 @@ SIGNATURES = {
     "pdemg_error_half_sweep": (
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
     ),
+    # the error leg takes its launch geometry as a pointer to a host
+    # struct (relax.ErrorLegLayout)
+    "pdemg_error_leg": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+    ),
     # the wavefront takes its launch geometry as a pointer to a host
     # struct (relax.TimeskewLayout)
     "pdemg_timeskew": (
@@ -65,7 +70,10 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
         _F, _F, _P,
     ),
-    "pdemg_timeskew_clusters": (_P, _I, _P),
+    "pdemg_timeskew_error": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+    ),
+    "pdemg_timeskew_clusters": (_P, _I, _I, _P),
     "pdemg_masked_block": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
     "pdemg_blocked3d": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,

@@ -7,8 +7,9 @@
 //   pde_multigrid_tpu/ops/pallas/defect.py:make_merge_fold
 //       v = v + merge(float(er), float(eb))
 // Between them the error halves are smoothed in bf16 (relax.cu
-// error_half_sweep_kernel); ops/cuda/defect.py strings the three
-// together.  Halves layout as in relax.cu: with q = (x + z) % 2, red
+// error_leg_kernel, or timeskew.cu's error mode on the levels whose
+// halves the card's shared memory does not hold); ops/cuda/defect.py
+// strings the three together.  Halves layout as in relax.cu: with q = (x + z) % 2, red
 // (parity 0) sits at dense y = 2j + q and black at y = 2j + 1 - q.
 //
 // What bounds these kernels on the card: device-memory traffic.

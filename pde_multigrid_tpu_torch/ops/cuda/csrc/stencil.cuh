@@ -51,6 +51,25 @@ __device__ __forceinline__ float split_update(float p0, float p1, float p2,
   return num * inv_den;
 }
 
+// Poisson.split_update_folded in the plain version's order: iso
+// (p0+p1+p2)*a0 - r*inv_den; otherwise -r*inv_den + p0*a0 + p1*a1 + p2*a2
+// (a_ax = w_ax*inv_den).
+__device__ __forceinline__ float folded_update(float p0, float p1, float p2,
+                                               float r, int iso, float a0,
+                                               float a1, float a2,
+                                               float inv_den) {
+  if (iso) {
+    float s = p0 + p1;
+    s = s + p2;
+    return s * a0 - r * inv_den;
+  }
+  float u = (-r) * inv_den;
+  u = u + p0 * a0;
+  u = u + p1 * a1;
+  u = u + p2 * a2;
+  return u;
+}
+
 // m_int * (f - L v) at one dense point; L v in Poisson.kernel_operator's
 // order: sum over axes of ((v[-1] - 2 v) + v[+1]) * w_ax, x first.
 __device__ __forceinline__ float residual_at(const float* __restrict__ v,

@@ -5,6 +5,10 @@
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_split_timeskew_relax       (whole half-planes)
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_split_timeskew_relax_jb    (j-blocked)
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_split_timeskew_relax_shard (one shard's chunk)
+// and, in its error mode (pdemg_timeskew_error), on the defect levels
+// whose halves the card's shared memory does not hold (256^3, 512^3),
+//   pde_multigrid_tpu/ops/pallas/relax.py:make_split_resident_sweeps
+// (see below; relax.cu's whole-leg kernel serves the smaller levels).
 // All three compute one function: from the black half b and the RHS
 // halves fr, fb of a level in the halves layout (X, Y/2, Z) (q = (x + z) %
 // 2, red at y = 2j + q, black at y = 2j + 1 - q), the (r, b) halves after
@@ -68,6 +72,29 @@
 // The launch geometry (cluster, rows, bands, chunks) is the caller's
 // (ops/cuda/relax.py timeskew_layout) and checked here.
 //
+// The error mode (template flag E; ops/cuda/relax.py error_timeskew) is
+// row 10's function, the bf16 defect path's error sweeps: from e = 0
+// (v_zero on a leg's first launch), the black error half b and the
+// residual halves rr, rb in bf16 (2 B a point, exact when widened), the
+// update Poisson.split_update_folded (relax.cu's folded_update, its iso
+// branch included: isotropic (p0 + p1 + p2) a0 - r inv_den), and each
+// level-step's result rounded to bf16 (__float2bfloat16_rn) before any
+// neighbour reads it, so a leg is bitwise relax.error_sweeps_plain: the
+// where form and the red input never read are that function's own.  The
+// tiles stay float (the rounded values are exact there), so the layout,
+// the bands and T = 4 are the float32 mode's.  A leg of 100 sweeps at
+// T = 4 reads rr, rb and b and writes b 25 times (8 B a halves point a
+// launch: 1.7 GB at 256^3, 13 GB at 512^3); its bound is the operations,
+// 8 an updated point a half-sweep (1.3e10 at 256^3, 0.20 ms at 67
+// TFLOP/s; 1.1e11, 1.6 ms, at 512^3), against the one-launch-a-half-sweep
+// chain's pass over device memory a half-sweep.  Built for k = 4 only (the
+// defect plan takes the mode where Z % 4 == 0), once for each of the
+// update's two forms (no branch a point): eight instantiations.  A level's
+// RHS words stay packed two a register until used, and each level-step's
+// four values are rounded two a conversion.  On the card (PERF.md) a
+// 100-sweep leg takes 2.44 ms at 256^3 and 24.2 ms at 512^3, against 5.94
+// and 44.1 for the half-sweep chain.
+//
 // The shard chunk (pdemg_timeskew_shard, parallel/halo.py's time-skew
 // engine) is the same walk on one shard's extended slab: XE = x_loc + 4T
 // planes, plane x being global plane g0 + x of a level of XG planes (g0
@@ -92,12 +119,13 @@
 // 2^31 points or more.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
-#include "stencil.cuh"  // split_update
+#include "stencil.cuh"  // split_update, folded_update
 
 namespace cg = cooperative_groups;
 
@@ -123,18 +151,19 @@ struct TimeskewLayout {
   int smem_bytes;  // dynamic shared memory per CTA
 };
 
+// Element pointers: float, or bf16 in the error mode.
 struct Args {
-  const float* b;
-  const float* fr;
-  const float* fb;
-  float* r;   // null: r is not written
-  float* bo;
+  const void* b;
+  const void* fr;
+  const void* fb;
+  void* r;   // null: r is not written
+  void* bo;
   int X, Y2, Z;
   int v_zero;          // b is zero and not read
   int vlo, vhi, ilo;   // planes [vlo, vhi] update, b is read on [ilo, vhi]
   int w_lo, w_hi;      // the planes written, plane x to plane x - out_lo
   int out_lo;
-  float w0, w1, w2, inv_den;
+  float w0, w1, w2, inv_den;  // error mode: a0, a1, a2 (folded), inv_den
   TimeskewLayout lay;
 };
 
@@ -177,6 +206,71 @@ __device__ __forceinline__ void stg(float* p, const float (&v)[K]) {
   }
 }
 
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <int K>
+__device__ __forceinline__ void stg_bf16(__nv_bfloat16* p,
+                                         const float (&v)[K]) {
+  if constexpr (K == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  } else {
+    *reinterpret_cast<unsigned*>(p) = pack_bf16(v[0], v[1]);
+  }
+}
+
+// K consecutive values of a row as loaded from device memory: floats, or
+// in the error mode the bf16 bits, two a register, widened where they are
+// used (exact): half the registers a level's RHS holds.
+template <int K, bool E>
+struct Row {
+  float v[K];
+  __device__ __forceinline__ float at(int k) const { return v[k]; }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = 0.0f;
+  }
+  __device__ __forceinline__ void load(const void* p, int off) {
+    ldg<K>(static_cast<const float*>(p) + off, v);
+  }
+};
+
+template <int K>
+struct Row<K, true> {
+  unsigned w[K / 2];
+  __device__ __forceinline__ float at(int k) const {
+    return __uint_as_float((k & 1) ? (w[k >> 1] & 0xffff0000u)
+                                   : (w[k >> 1] << 16));
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int k = 0; k < K / 2; ++k) w[k] = 0u;
+  }
+  __device__ __forceinline__ void load(const void* p, int off) {
+    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p) + off;
+    if constexpr (K == 4) {
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(q));
+      w[0] = a.x;
+      w[1] = a.y;
+    } else {
+      w[0] = __ldg(reinterpret_cast<const unsigned*>(q));
+    }
+  }
+};
+
+template <int K, bool E>
+__device__ __forceinline__ void st_elems(void* p, int off,
+                                         const float (&v)[K]) {
+  if constexpr (E) {
+    stg_bf16<K>(static_cast<__nv_bfloat16*>(p) + off, v);
+  } else {
+    stg<K>(static_cast<float*>(p) + off, v);
+  }
+}
+
 // H = K / 2 floats of shared memory: a thread's even or odd z points.
 template <int H>
 __device__ __forceinline__ void lds(const float* p, float (&v)[H]) {
@@ -207,9 +301,12 @@ __host__ __device__ inline int padded_half(int Z) {
   return ((Z >> 1) + 3) & ~3;
 }
 
-template <int T, int K>
+// M: the mode, 0 float32, 1 the error mode with isotropic spacing, 2 the
+// error mode with anisotropic spacing (folded_update's two forms)
+template <int T, int K, int M>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     timeskew_kernel(const __grid_constant__ Args a) {
+  constexpr bool E = M != 0;
   constexpr int NT = 2 * T;   // tile levels 0 ... 2T - 1 (2T is only written)
   constexpr int NL = NT + 1;  // levels 0 ... 2T
   constexpr int H = K / 2;
@@ -268,27 +365,25 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   // in[0]: b at plane tn; in[l]: level l's RHS (fr for red, fb for black)
   // at plane tn - l; zero outside [ilo, vhi] and [vlo, vhi]
-  float in[NL][K];
+  Row<K, E> in[NL];
   // unchecked (interior steps): every plane loaded lies in the level
   auto load_in = [&](int l, int tn, auto checked) {
     constexpr bool kChecked = decltype(checked)::value;
     const int x = tn - l;
     if (!kChecked) {
-      ldg<K>((l == 0 ? a.b : (l & 1) ? a.fr : a.fb) + x * plane + col,
-             in[l]);
+      in[l].load(l == 0 ? a.b : (l & 1) ? a.fr : a.fb, x * plane + col);
       return;
     }
     if (l == 0) {
       if (!a.v_zero && x >= a.ilo && x <= a.vhi) {
-        ldg<K>(a.b + x * plane + col, in[0]);
+        in[0].load(a.b, x * plane + col);
         return;
       }
     } else if (x >= a.vlo && x <= a.vhi) {
-      ldg<K>(((l & 1) ? a.fr : a.fb) + x * plane + col, in[l]);
+      in[l].load((l & 1) ? a.fr : a.fb, x * plane + col);
       return;
     }
-#pragma unroll
-    for (int k = 0; k < K; ++k) in[l][k] = 0.0f;
+    in[l].zero();
   };
   if (active) {
 #pragma unroll
@@ -336,7 +431,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       constexpr int SE = P == 0 ? 1 : -1;
       float hi[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) hi[k] = in[0][k];
+      for (int k = 0; k < K; ++k) hi[k] = in[0].at(k);
       load_in(0, t + 1, checked);
 #pragma unroll
       for (int l = 1; l < NL; ++l) {
@@ -375,8 +470,25 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
             const float px = lo + hi[k];
             const float py = c[k] + yn;
             const float pz = zm + zp;
-            nv[k] = split_update(px, py, pz, in[l][k], a.w0, a.w1, a.w2,
-                                 a.inv_den);
+            if constexpr (E) {
+              // the error equation's folded update
+              nv[k] = folded_update(px, py, pz, in[l].at(k), M == 1, a.w0,
+                                    a.w1, a.w2, a.inv_den);
+            } else {
+              nv[k] = split_update(px, py, pz, in[l].at(k), a.w0, a.w1, a.w2,
+                                   a.inv_den);
+            }
+          }
+          if constexpr (E) {
+            // rounded to bf16 before any neighbour reads it, two values a
+            // conversion
+#pragma unroll
+            for (int k = 0; k < K; k += 2) {
+              const __nv_bfloat162 h2 = __floats2bfloat162_rn(nv[k], nv[k + 1]);
+              const unsigned w = *reinterpret_cast<const unsigned*>(&h2);
+              nv[k] = __uint_as_float(w << 16);
+              nv[k + 1] = __uint_as_float(w & 0xffff0000u);
+            }
           }
           if (row0 || zfirst) {  // a few threads: the masked points
 #pragma unroll
@@ -404,9 +516,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       if (owned) {
         const int xb = t - NT, xr = xb + 1;
         if (!kChecked || (xb >= x0 && xb < x1))
-          stg<K>(a.bo + (xb - a.out_lo) * plane + col, hi);
+          st_elems<K, E>(a.bo, (xb - a.out_lo) * plane + col, hi);
         if (a.r && (!kChecked || (xr >= x0 && xr < x1)))
-          stg<K>(a.r + (xr - a.out_lo) * plane + col, mid[NT - 1]);
+          st_elems<K, E>(a.r, (xr - a.out_lo) * plane + col, mid[NT - 1]);
       }
     }
     // the edge rows written (generic proxy) before the bulk copies
@@ -491,21 +603,23 @@ bool valid(const TimeskewLayout& L, int T, int W, int Y2, int Z) {
 
 using KernelFn = void (*)(Args);
 
-template <int K>
+template <int K, int M>
 KernelFn kernel_at(int T) {
   switch (T) {
-    case 1: return timeskew_kernel<1, K>;
-    case 2: return timeskew_kernel<2, K>;
-    case 3: return timeskew_kernel<3, K>;
-    case 4: return timeskew_kernel<4, K>;
+    case 1: return timeskew_kernel<1, K, M>;
+    case 2: return timeskew_kernel<2, K, M>;
+    case 3: return timeskew_kernel<3, K, M>;
+    case 4: return timeskew_kernel<4, K, M>;
     default: return nullptr;
   }
 }
 
-// The instantiation serving T and k (T in 1 ... 4 and k in {2, 4}: the
-// callers check).
-KernelFn kernel_for(int T, int K) {
-  return K == 4 ? kernel_at<4>(T) : kernel_at<2>(T);
+// The instantiation serving T, k and the mode M (T in 1 ... 4, k in {2,
+// 4}; the error modes are built for k = 4 only: null otherwise).
+KernelFn kernel_for(int T, int K, int M) {
+  if (M == 1) return K == 4 ? kernel_at<4, 1>(T) : nullptr;
+  if (M == 2) return K == 4 ? kernel_at<4, 2>(T) : nullptr;
+  return K == 4 ? kernel_at<4, 0>(T) : kernel_at<2, 0>(T);
 }
 
 // A kernel's attributes: the shared memory it may take, and clusters past
@@ -544,7 +658,8 @@ struct Launch {
   }
 };
 
-int launch(Args& a, const TimeskewLayout* lay, int T, cudaStream_t stream) {
+int launch(Args& a, const TimeskewLayout* lay, int T, int mode,
+           cudaStream_t stream) {
   if (!lay) return (int)cudaErrorInvalidValue;
   a.lay = *lay;
   if (!valid(a.lay, T, a.w_hi - a.w_lo, a.Y2, a.Z)) {
@@ -554,8 +669,9 @@ int launch(Args& a, const TimeskewLayout* lay, int T, cudaStream_t stream) {
       a.out_lo > a.w_lo) {
     return (int)cudaErrorInvalidValue;
   }
-  // the vector loads and stores: 16 bytes (K = 4) or 8
-  const uintptr_t align = 4u * (unsigned)a.lay.k;
+  // the vector loads and stores: K elements of 4 bytes (2 in the error
+  // mode)
+  const uintptr_t align = (mode ? 2u : 4u) * (unsigned)a.lay.k;
   const void* ptrs[5] = {a.b, a.fr, a.fb, a.r, a.bo};
   for (const void* p : ptrs) {
     if (reinterpret_cast<uintptr_t>(p) % align) {
@@ -565,7 +681,8 @@ int launch(Args& a, const TimeskewLayout* lay, int T, cudaStream_t stream) {
   if ((long long)a.X * a.Y2 * a.Z >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  const KernelFn fn = kernel_for(T, a.lay.k);
+  const KernelFn fn = kernel_for(T, a.lay.k, mode);
+  if (!fn) return (int)cudaErrorInvalidValue;
   cudaError_t e = opt_in(fn);
   if (e != cudaSuccess) return (int)e;
   Launch l(a.lay, stream);
@@ -593,7 +710,22 @@ __attribute__((visibility("default"))) int pdemg_timeskew(
   // the boundary); the whole level is the window
   Args a = {b, fr, fb, r, bo, X, Y2, Z, v_zero, 1, X - 1, 1, 0, X, 0,
             w0, w1, w2, inv_den, {}};
-  return launch(a, lay, T, (cudaStream_t)stream);
+  return launch(a, lay, T, 0, (cudaStream_t)stream);
+}
+
+// The error mode: (er, bo) = T red->black sweeps of the error equation
+// A e = r on bf16 halves from the black error half b (not read when
+// v_zero: b = 0) and the bf16 residual halves (rr, rb), with
+// Poisson.split_update_folded's constants (iso, a0 ... a2, inv_den), every
+// level-step rounded to bf16; er may be null.  k = 4 only.
+__attribute__((visibility("default"))) int pdemg_timeskew_error(
+    const TimeskewLayout* lay, const __nv_bfloat16* b,
+    const __nv_bfloat16* rr, const __nv_bfloat16* rb, __nv_bfloat16* er,
+    __nv_bfloat16* bo, int X, int Y2, int Z, int T, int v_zero, int iso,
+    float a0, float a1, float a2, float inv_den, void* stream) {
+  Args a = {b, rr, rb, er, bo, X, Y2, Z, v_zero, 1, X - 1, 1, 0, X, 0,
+            a0, a1, a2, inv_den, {}};
+  return launch(a, lay, T, iso ? 1 : 2, (cudaStream_t)stream);
 }
 
 // One launch of T sweeps on a shard's extended slab of XE planes whose
@@ -611,21 +743,23 @@ __attribute__((visibility("default"))) int pdemg_timeskew_shard(
   if (vlo > vhi) return (int)cudaErrorInvalidValue;
   Args a = {b, fr, fb, r, bo, XE, Y2, Z, 0, vlo, vhi, 0, w_lo, w_hi,
             out_lo, w0, w1, w2, inv_den, {}};
-  return launch(a, lay, T, (cudaStream_t)stream);
+  return launch(a, lay, T, 0, (cudaStream_t)stream);
 }
 
 // How many clusters of the launch shape `lay` (its k, ctas, threads and
-// shared memory) the card holds at once at T (0: it refuses the cluster),
-// into *clusters; a CUDA error code.
+// shared memory) the card holds at once at T, of the float32 kernel or
+// (err) the error mode's (0: it refuses the cluster), into *clusters; a
+// CUDA error code.
 __attribute__((visibility("default"))) int pdemg_timeskew_clusters(
-    const TimeskewLayout* lay, int T, int* clusters) {
+    const TimeskewLayout* lay, int T, int err, int* clusters) {
   if (!lay || T < 1 || T > 4 || (lay->k != 2 && lay->k != 4) ||
       lay->ctas < 1 || lay->ctas > kMaxCtas || lay->threads < 32 ||
       lay->threads > kMaxThreads || lay->smem_bytes < 0 ||
       lay->smem_bytes > kMaxDynSmem) {
     return (int)cudaErrorInvalidValue;
   }
-  const KernelFn fn = kernel_for(T, lay->k);
+  const KernelFn fn = kernel_for(T, lay->k, err ? 1 : 0);
+  if (!fn) return (int)cudaErrorInvalidValue;
   const cudaError_t e = opt_in(fn);
   if (e != cudaSuccess) return (int)e;
   TimeskewLayout L = *lay;

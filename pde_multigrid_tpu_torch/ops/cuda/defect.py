@@ -13,8 +13,12 @@ so one relax leg of nu sweeps becomes
     1. r = m_int * (f - L v) in float32, cast to bf16 and split into color
        halves (`residual_split`, replaces `make_residual_split`);
     2. nu red-black sweeps of A e = r from e = 0, halves stored in bf16 and
-       computed in float32 (`relax.error_sweeps`, replaces
-       `relax.make_split_resident_sweeps`);
+       computed in float32 (replaces `relax.make_split_resident_sweeps`):
+       one launch a leg with the four halves on chip where they fit
+       (`relax.error_leg`: 128^3 and below), else TIMESKEW_T sweeps a
+       launch on the wavefront's clusters (`relax.error_timeskew`: 256^3,
+       512^3), or a launch a half-sweep where neither fits
+       (`relax.error_chain`: 1024^3), as `relax.error_form` says;
     3. v += merge(e) in float32 (`merge_fold`, replaces `make_merge_fold`).
 
 The iterate stays float32, so the solve reaches the same float32 fixed
@@ -129,7 +133,10 @@ def plan_defect_relax(problem, geom: LevelGeometry, dtype):
     3D wrap storage, a Poisson problem, whose split_update_folded and
     kernel_operator the kernels compute, even extents).
     `relax.min_sweeps` is the leg length from which the caller should
-    take it (`dispatch.CudaKernels.relax`).
+    take it (`dispatch.CudaKernels.relax`), `relax.form` the error-sweep
+    kernel `relax.error_form` gives the level ("leg", "wavefront", or
+    "chain" where neither fits) and `relax.launches(nsweeps)` its
+    launches a leg.
 
     The JAX planner's TPU gates are dropped: the VMEM tier test
     (defect.py:270-274; on the TPU a level small enough to sit in VMEM
@@ -143,11 +150,15 @@ def plan_defect_relax(problem, geom: LevelGeometry, dtype):
         return None
     if any(n % 2 for n in geom.padded_shape):
         return None
+    form = relax_mod.error_form(geom)
+    sweeps = relax_mod.ERROR_SWEEPS[form]
 
     def relax(v, f, nsweeps: int):
         rr, rb = residual_split(v, f, problem, geom)
-        er, eb = relax_mod.error_sweeps(rr, rb, nsweeps, problem, geom)
+        er, eb = sweeps(rr, rb, nsweeps, problem, geom)
         return merge_fold(er, eb, v)
 
     relax.min_sweeps = RESIDENT_MIN_SWEEPS
+    relax.form = form
+    relax.launches = lambda nsweeps: relax_mod.error_launches(form, nsweeps)
     return relax

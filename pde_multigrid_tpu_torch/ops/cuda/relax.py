@@ -9,8 +9,11 @@ sweeps of the iterate, one half-sweep per launch here),
 `make_split_timeskew_relax` and `make_split_timeskew_relax_jb` (float32
 sweeps of the iterate, T sweeps per launch: the time-skewed wavefront on
 the large levels), `make_split_timeskew_relax_shard` (the same wavefront
-on one shard's extended slab, for `parallel/halo.py`) and `make_split_resident_sweeps` (bf16 sweeps of the
-error equation from zero, for `ops/cuda/defect.py`).  Halves layout: a
+on one shard's extended slab, for `parallel/halo.py`) and
+`make_split_resident_sweeps` (bf16 sweeps of the error equation from
+zero, for `ops/cuda/defect.py`: a whole leg a launch with the halves on
+chip where they fit, `error_leg`, else the wavefront's error mode,
+`error_timeskew`; `error_form` picks).  Halves layout: a
 dense (X, Y, Z) level becomes red/black (X, Y/2, Z) arrays; with
 q = (x + z) % 2, red (parity 0) sits at y = 2j + q and black at
 y = 2j + 1 - q.
@@ -58,8 +61,19 @@ TIMESKEW_SMEM_BYTES = 232448 - 16
 # (the wrapper asks the card once per launch shape)
 TIMESKEW_CLUSTERS = 8
 
+# the error leg's launch limits: threads per CTA, the dynamic shared memory
+# a CTA may hold (227 KB), and the SMs `error_leg_layout` assumes where no
+# card is asked (the H100 SXM's; the wrapper asks the card)
+ERROR_LEG_THREADS = 1024
+ERROR_LEG_SMEM_BYTES = 232448
+ERROR_LEG_SMS = 132
+# the most x planes a block of the error leg holds (csrc/relax.cu
+# kLegMaxPlanes: a thread keeps a j face's word a plane in registers)
+ERROR_LEG_MAX_PLANES = 4
+
 launches = {"split": 0, "merge": 0, "half_sweep": 0, "error_sweep": 0,
-            "timeskew": 0, "timeskew_shard": 0}
+            "error_leg": 0, "error_timeskew": 0, "timeskew": 0,
+            "timeskew_shard": 0}
 # wavefront launches by the level's halves shape (X, Y/2, Z), counted at
 # the same place as launches["timeskew"]
 timeskew_by_level: dict[tuple[int, int, int], int] = {}
@@ -362,14 +376,188 @@ def relax_halves(r, b, fr, fb, nsweeps: int, problem, geom: LevelGeometry):
     return r, b
 
 
-def error_sweeps(rr, rb, nsweeps: int, problem, geom: LevelGeometry):
-    """(er, eb) bf16 = `nsweeps` red-black sweeps of the error equation
-    A e = r from e = 0 on bf16 residual halves (rr, rb), computed in
-    float32 with the folded update; masked-off points are exactly 0.
-    2*nsweeps launches, the first red one without reading black."""
+def error_leg_layout(X: int, Y2: int, Z: int,
+                     sms: int = ERROR_LEG_SMS) -> dict | None:
+    """The error leg's launch geometry on bf16 halves (X, Y/2, Z) with
+    `sms` SMs, or None where the card's shared memory does not hold the
+    leg: the halves cut into blocks of "planes" x planes (at most
+    ERROR_LEG_MAX_PLANES) by "rows" j rows, every z, "yblocks" blocks
+    along j and one CTA a block, at most one an SM ("ctas"); "threads" a
+    CTA (a thread on a z pair of a row, the rows of a block as many as the
+    threads take, at least 2 where the blocks are more than one) and
+    "smem_bytes" (its block of er and eb with a halo row either side of
+    each plane's rows, and of rr and rb, 2 B a point; the faces a block
+    shares with its x and j neighbours go through device memory)."""
+    if X < 1 or Y2 < 1 or Z < 2 or Z % 2 or sms < 1:
+        return None
+    zh = Z // 2
+    if zh > ERROR_LEG_THREADS:
+        return None
+    rows = min(Y2, ERROR_LEG_THREADS // zh)
+    yblocks = -(-Y2 // rows)
+    if yblocks > sms or (yblocks > 1 and rows < 2):
+        return None
+    planes = -(-X // (sms // yblocks))
+    smem = 8 * planes * Z * (rows + 1)
+    if planes > ERROR_LEG_MAX_PLANES or smem > ERROR_LEG_SMEM_BYTES:
+        return None
+    return {"ctas": -(-X // planes) * yblocks, "planes": planes,
+            "rows": rows, "yblocks": yblocks,
+            "threads": -(-rows * zh // 32) * 32, "smem_bytes": smem}
+
+
+def error_form(geom: LevelGeometry, sms: int = ERROR_LEG_SMS) -> str | None:
+    """Which kernel runs a leg of the error sweeps on the 3D wrap level
+    `geom`: "leg" (`error_leg`, one launch a leg) where its four halves fit
+    the shared memory of the card's SMs (`error_leg_layout`: 128^3 and
+    below), "wavefront" (`error_timeskew`, TIMESKEW_T sweeps a launch)
+    where the wavefront's tile holds a half-plane row at k = 4 (Z % 4 ==
+    0), else
+    "chain" (`error_chain`, one launch a half-sweep: 1024^3, or Z % 4 != 0
+    past the leg's shared memory); None off even 3D wrap levels."""
+    if not (geom.wrap and geom.ndim == 3):
+        return None
+    X, Y, Z = geom.padded_shape
+    if X % 2 or Y % 2 or Z % 2:
+        return None
+    if error_leg_layout(X, Y // 2, Z, sms) is not None:
+        return "leg"
+    if Z % 4 or X * (Y // 2) * Z >= 2**31:
+        return "chain"
+    try:
+        _timeskew_tile(Y // 2, Z, TIMESKEW_T, 4)
+    except ValueError:
+        return "chain"
+    return "wavefront"
+
+
+def error_launches(form: str, nsweeps: int) -> int:
+    """Launches of one nsweeps leg of the error sweeps in `form`."""
+    if form == "chain":
+        return 2 * nsweeps
+    return 1 if form == "leg" else len(leg_launches(nsweeps))
+
+
+def _check_error_args(rr, rb, nsweeps: int, geom: LevelGeometry):
+    """(on_cuda, zeros): the operands checked; zeros is the result of a
+    leg of no sweep, else None."""
     on_cuda = _check_sweep_args(rr, rb, rr, geom, dtype=torch.bfloat16)
     if nsweeps < 1:
-        return torch.zeros_like(rr), torch.zeros_like(rb)
+        return on_cuda, (torch.zeros_like(rr), torch.zeros_like(rb))
+    return on_cuda, None
+
+
+class ErrorLegLayout(ctypes.Structure):
+    """csrc/relax.cu `ErrorLegLayout`: the error leg's launch geometry."""
+
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("ctas", "planes", "rows", "yblocks", "threads",
+                 "smem_bytes")]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _error_leg_launch(X: int, Y2: int, Z: int, sms: int) -> ErrorLegLayout:
+    lay = error_leg_layout(X, Y2, Z, sms)
+    if lay is None:
+        raise ValueError(
+            f"halves {(X, Y2, Z)}: the error leg's four halves do not fit "
+            f"the shared memory of {sms} SMs")
+    return ErrorLegLayout(*(lay[n] for n, _ in ErrorLegLayout._fields_))
+
+
+@_cached
+def _leg_words(n: int, dtype, device) -> torch.Tensor:
+    """The error leg's outboxes (int64 words) or barrier counters (int32):
+    zero, and left zero by every launch (cached per size and device outside
+    a capture; a capture gets its own, zeroed by a captured fill)."""
+    return torch.zeros(n, dtype=dtype, device=device)
+
+
+def error_leg(rr, rb, nsweeps: int, problem, geom: LevelGeometry):
+    """(er, eb) bf16 = `nsweeps` red-black sweeps of the error equation
+    A e = r from e = 0 on bf16 residual halves (rr, rb), computed in
+    float32 with the folded update; masked-off points are exactly 0.  One
+    cooperative launch of csrc/relax.cu's leg on `error_leg_layout` with the
+    card's SMs; a grid the card cannot co-schedule raises.  The legs of
+    one device share their outboxes (2 (rows + planes) Z words of 8 B a
+    CTA) and counters: they run on one stream."""
+    on_cuda, zeros = _check_error_args(rr, rb, nsweeps, geom)
+    if zeros is not None:
+        return zeros
+    if not on_cuda:
+        return error_sweeps_plain(rr, rb, nsweeps, problem, geom)
+    _check_poisson(problem)
+    X, Y2, Z = rr.shape
+    sms = _sm_count(rr.device.index)
+    lay = _error_leg_launch(X, Y2, Z, sms)
+    iso, (a0, a1, a2), inv_den = folded_constants(geom)
+    er, eb = torch.empty_like(rr), torch.empty_like(rb)
+    box = _leg_words(2 * lay.ctas * (lay.rows + lay.planes) * Z, torch.int64,
+                     rr.device)
+    bar = _leg_words(2, torch.int32, rr.device)
+    rc = build.load().lib.pdemg_error_leg(
+        ctypes.byref(lay), er.data_ptr(), eb.data_ptr(), rr.data_ptr(),
+        rb.data_ptr(), box.data_ptr(), bar.data_ptr(), X, Y2, Z, nsweeps,
+        int(iso), a0, a1, a2, inv_den, _stream())
+    launches["error_leg"] += 1
+    build.check(rc, "error_leg")
+    return er, eb
+
+
+def error_timeskew(rr, rb, nsweeps: int, problem, geom: LevelGeometry):
+    """(er, eb) bf16: `error_leg`'s function through the wavefront's error
+    mode (csrc/timeskew.cu), as `timeskew_relax_halves` chains it:
+    nsweeps // T launches of T = TIMESKEW_T sweeps, then one of the
+    nsweeps % T left, each from the previous launch's black half (the
+    first from zero); only the last launch writes er.  k = 4 z points a
+    thread: Z % 4 == 0."""
+    on_cuda, zeros = _check_error_args(rr, rb, nsweeps, geom)
+    if zeros is not None:
+        return zeros
+    if not on_cuda:
+        return error_sweeps_plain(rr, rb, nsweeps, problem, geom)
+    _check_poisson(problem)
+    X, Y2, Z = rr.shape
+    if Z % 4 or X * Y2 * Z >= 2**31:
+        raise ValueError(
+            f"halves {(X, Y2, Z)}: the wavefront's error mode takes Z % 4 "
+            "== 0 and X * Y/2 * Z < 2^31 points")
+    if rr.data_ptr() % 8 or rb.data_ptr() % 8:
+        raise ValueError("the wavefront's error mode reads 8-byte aligned "
+                         "halves")
+    iso, (a0, a1, a2), inv_den = folded_constants(geom)
+    fn = build.load().lib.pdemg_timeskew_error
+    stream = _stream()
+    er = torch.empty_like(rr)
+    bufs = (torch.empty_like(rb), torch.empty_like(rb))  # ping-pong eb
+    src = None
+    ts = leg_launches(nsweeps)
+    for i, t in enumerate(ts):
+        dst = bufs[i % 2]
+        lay = _timeskew_launch(X, Y2, Z, t, 4, X, True)
+        rc = fn(ctypes.byref(lay), None if src is None else src.data_ptr(),
+                rr.data_ptr(), rb.data_ptr(),
+                er.data_ptr() if i == len(ts) - 1 else None, dst.data_ptr(),
+                X, Y2, Z, t, int(src is None), int(iso), a0, a1, a2, inv_den,
+                stream)
+        launches["error_timeskew"] += 1
+        build.check(rc, "error_timeskew")
+        src = dst
+    return er, src
+
+
+def error_chain(rr, rb, nsweeps: int, problem, geom: LevelGeometry):
+    """(er, eb) bf16: `error_leg`'s function as 2*nsweeps launches of one
+    half-sweep each, the first red one without reading black (the levels
+    that fit neither `error_leg` nor `error_timeskew`)."""
+    on_cuda, zeros = _check_error_args(rr, rb, nsweeps, geom)
+    if zeros is not None:
+        return zeros
     if not on_cuda:
         return error_sweeps_plain(rr, rb, nsweeps, problem, geom)
     _check_poisson(problem)
@@ -395,6 +583,23 @@ def error_sweeps(rr, rb, nsweeps: int, problem, geom: LevelGeometry):
         launches["error_sweep"] += 1
         build.check(rc, "error_sweep")
     return er, eb
+
+
+ERROR_SWEEPS = {"leg": error_leg, "wavefront": error_timeskew,
+                "chain": error_chain}
+
+
+def error_sweeps(rr, rb, nsweeps: int, problem, geom: LevelGeometry):
+    """(er, eb) bf16 = `nsweeps` red-black sweeps of the error equation
+    from e = 0 (`error_sweeps_plain`'s function), by the kernel
+    `error_form` gives the level: `error_leg`, `error_timeskew` or
+    `error_chain`."""
+    on_cuda, zeros = _check_error_args(rr, rb, nsweeps, geom)
+    if zeros is not None:
+        return zeros
+    if not on_cuda:
+        return error_sweeps_plain(rr, rb, nsweeps, problem, geom)
+    return ERROR_SWEEPS[error_form(geom)](rr, rb, nsweeps, problem, geom)
 
 
 class TimeskewLayout(ctypes.Structure):
@@ -529,17 +734,19 @@ _TIMESKEW_CLUSTERS: dict = {}
 
 @functools.lru_cache(maxsize=None)
 def timeskew_launch_layout(X: int, Y2: int, Z: int, T: int, k: int,
-                           window: int) -> dict:
+                           window: int, err: bool = False) -> dict:
     """`timeskew_layout` of a launch on the card, its x chunks sized for
     the clusters the card holds of its tile (cudaOccupancyMaxActiveClusters,
-    asked once per launch shape, in "clusters"); raises where the card runs
-    no such cluster (there is no smaller layout to fall back to)."""
+    asked once per launch shape and mode, `err` the error mode, in
+    "clusters"); raises where the card runs no such cluster (there is no
+    smaller layout to fall back to)."""
     tile = timeskew_layout(X, Y2, Z, T, k=k, window=window)
-    shape = (T, k, tile["ctas"], tile["threads"], tile["smem_bytes"])
+    shape = (T, k, tile["ctas"], tile["threads"], tile["smem_bytes"], err)
     if shape not in _TIMESKEW_CLUSTERS:
         n = ctypes.c_int(0)
         build.check(build.load().lib.pdemg_timeskew_clusters(
-            ctypes.byref(_layout_struct(tile)), T, ctypes.byref(n)),
+            ctypes.byref(_layout_struct(tile)), T, int(err),
+            ctypes.byref(n)),
             "timeskew (cudaOccupancyMaxActiveClusters)")
         if n.value < 1:
             raise RuntimeError(
@@ -554,8 +761,9 @@ def timeskew_launch_layout(X: int, Y2: int, Z: int, T: int, k: int,
 
 @functools.lru_cache(maxsize=None)
 def _timeskew_launch(X: int, Y2: int, Z: int, T: int, k: int,
-                     window: int) -> TimeskewLayout:
-    return _layout_struct(timeskew_launch_layout(X, Y2, Z, T, k, window))
+                     window: int, err: bool = False) -> TimeskewLayout:
+    return _layout_struct(timeskew_launch_layout(X, Y2, Z, T, k, window,
+                                                 err))
 
 
 def _launch_k(Z: int, *ts: torch.Tensor) -> int:

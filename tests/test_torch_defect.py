@@ -221,15 +221,18 @@ class _NotPoisson:
 
 def test_mixed_plan_pins():
     """(f) CudaKernels(mixed=True) on the 129^3 exact-coarsest geometries:
-    a defect plan on level 0 with min_sweeps 4, none on the exact level;
-    a leg of < 4 sweeps takes the f32 split relax.  float64, padded
-    storage and other problems still raise."""
+    a defect plan on level 0 with min_sweeps 4, its error sweeps the
+    whole-leg kernel (one launch a leg at any nu), none on the exact
+    level; a leg of < 4 sweeps takes the f32 split relax.  float64,
+    padded storage and other problems still raise."""
     prob = TPoisson(3)
     geoms = TG.build_geometries((129,) * 3, DOM, 2, wrap=True)
     k = CudaKernels(prob, geoms, torch.float32, range(len(geoms) - 1),
                     mixed=True)
     assert k._defect[0] is not None and k._defect[-1] is None
     assert k._defect[0].min_sweeps == D.RESIDENT_MIN_SWEEPS == 4
+    assert k._defect[0].form == R.error_form(geoms[0]) == "leg"
+    assert [k._defect[0].launches(n) for n in (4, 100, 3000)] == [1, 1, 1]
     assert D.MIXED_MIN_SWEEPS == JD.MIXED_MIN_SWEEPS
     assert D.RESIDENT_MIN_SWEEPS == JD.RESIDENT_MIN_SWEEPS
     taken = []
