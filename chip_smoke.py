@@ -137,24 +137,27 @@ Phases, in order; any failure exits non-zero without the final result line:
      `MultigridSolver.solve_to_tolerance()` on "cuda", the same residual
      history and error_linf within 1e-5, the kernels of each plan launched
      (FAS: the whole-leg resident kernel on every level);
- 10. the Galerkin path: stencil_resident and stencil_slab2d bitwise
-     against their plain version at every level of the varcoef2d 1025^2
-     hierarchy with its own coefficients (slab on all ten, 1024^2 K = 5
-     and 512^2 ... 2^2 K = 9; resident on the eight it holds), over 1,
-     40 and 7 sweeps (7: not a multiple of T), and the resident kernel on
-     3D levels (Galerkin Poisson(3): the constant 7-point 32^3, the
-     27-point 16^3) and 1D levels (Galerkin varcoef1d, 1024 and 512), a
-     40-sweep leg of each kernel timed on every level; then the bench's
-     varcoef2d row, 1025^2, FMG(2, 40,
-     40), coarse_operator="galerkin", coarsest="relax", f32, through
+ 10. the Galerkin path: the plan's form (stencil_slab2d on 1024^2-256^2,
+     stencil_resident's leg below) and stencil_slab2d on all ten levels of
+     the varcoef2d 1025^2 hierarchy with their own coefficients (1024^2
+     K = 5, 512^2 ... 2^2 K = 9), bitwise against their plain version over
+     1, 40 and 7 sweeps (7: not a multiple of T), and the plan's form on
+     an odd 2D level (65^2 padded), 1D levels (Galerkin varcoef1d, 1024
+     and 512; 8192, the general form's), 3D levels (Galerkin Poisson(3):
+     the constant 7-point 32^3, the 27-point 16^3; 33^3 padded, the
+     general form's) and the slab on 128^2 (Galerkin Poisson(2), constant),
+     a 40-sweep leg of the plan's form timed on every level; then the
+     bench's varcoef2d row, 1025^2, FMG(2, 40, 40),
+     coarse_operator="galerkin", coarsest="relax", f32, through
      `MultigridSolver.solve()` on "cuda": error_linf under the bench's
      gate max(50 h^2, 5e-5), exactly the launches of the plan (ceil(40 /
      T) slab launches per 40-sweep leg on 1024^2, 512^2 and 256^2, one
      resident launch per leg below) and no other kernel, ms per step eager
      and as one CUDA graph, the profiler's busy time split into the two
-     kernels and plain ops; and the float64 solve of the same schedule
-     (`MultigridSolver(dtype="float64", device="cuda")`, the plain tier):
-     error_linf and max|v - v_float64| within VARCOEF_F32_FLOOR;
+     kernels and plain ops, kernel ms by level; and the float64 solve of
+     the same schedule (`MultigridSolver(dtype="float64", device="cuda")`,
+     the plain tier): error_linf and max|v - v_float64| within
+     VARCOEF_F32_FLOOR;
  11. the presets' schedule, FMG(2, 3000, 3000) relaxed to 2^3, at 17^3,
      33^3 and 65^3 in float32 on the card against float64 on the host CPU
      (the plain tier, in child processes started after the build that run
@@ -3228,6 +3231,9 @@ VARCOEF_F32_FLOOR = 5e-5
 # per level of the varcoef2d row: ms of one 40-sweep leg by its planned
 # kernel (phase_kernels_stencil), for the step's share by level
 VARCOEF_LEG_MS = {}
+# ms of one 40-sweep leg by the plan's kernel on phase_kernels_stencil's
+# other levels (1D, 3D, odd 2D), by level
+STENCIL_LEG_MS = {}
 
 
 def _galerkin_solver(prob, n: int, nus=VARCOEF_NUS):
@@ -3252,109 +3258,134 @@ def _stencil_leg_cost(lvl, K: int, nsweeps: int, constant: bool):
     return nbytes, (2 * K + 1) * n_int * nsweeps
 
 
+def _random_stencil(torch, rng, g, offs):
+    """Random coefficients for a level of no hierarchy (the odd 2D and 3D
+    levels and the large 1D one), one set a point: off-center terms in
+    [-1, 0), the center 2K, so a leg stays bounded."""
+    import numpy as np
+
+    K = len(offs)
+    c = -rng.random(tuple(g.padded_shape) + (K,)).astype(np.float32)
+    c[..., offs.index((0,) * g.ndim)] = 2.0 * K
+    return torch.tensor(c, device="cuda")
+
+
 def phase_kernels_stencil(torch):
     """The stencil-operator kernels against their plain version on the
-    card, bit for bit, on the levels of the varcoef2d 1025^2 hierarchy with
-    their own coefficients: stencil_slab2d on all ten (1024^2 K = 5, 512^2
-    to 2^2 K = 9), stencil_resident on the eight it holds (256^2 to 2^2),
-    each over 1, 40 and 7 sweeps; then the resident kernel on Galerkin
-    Poisson(3) 33^3 (32^3, the constant 7-point operator: coefficient
-    stride 0; 16^3, 27 points) and Galerkin varcoef1d 1025 (1024 and 512
-    points), and the slab kernel on Galerkin Poisson(2) 129^2 (128^2, the
-    constant 5-point operator).  A 40-sweep leg of each kernel is timed on
-    every varcoef2d level it runs (graph-replayed; both kernels at 256^2
-    down to 2^2, and the resident kernel on the other CTA count where
-    that holds the level too).  Returns {name: record}: stencil_slab2d per
-    40-sweep leg at 1024^2, stencil_resident per 40-sweep leg at 128^2
-    (8 CTAs)."""
+    card, bit for bit, over 1, 40 and 7 sweeps: on the levels of the
+    varcoef2d 1025^2 hierarchy with their own coefficients, the plan's form
+    (stencil_slab2d on 1024^2-256^2, stencil_resident's leg on 128^2-2^2)
+    and stencil_slab2d in its form on all ten (1024^2 K = 5, 512^2 to 2^2
+    K = 9); then the plan's form on an odd 2D level (65^2 padded, K = 9,
+    random coefficients, and the slab there), Galerkin varcoef1d 1025
+    (1024 and 512 points, K = 3), a 1D level only the general form holds
+    (8192, K = 3), Galerkin Poisson(3) 33^3 (32^3, the constant 7-point
+    operator: coefficient stride 0; 16^3, 27 points), a padded 3D level
+    only the general form holds (33^3, K = 7, random coefficients), and the
+    slab on Galerkin Poisson(2) 129^2 (128^2, the constant 5-point
+    operator).  A 40-sweep leg of the plan's form is timed on every level
+    (graph-replayed; VARCOEF_LEG_MS for the varcoef2d row, STENCIL_LEG_MS
+    for the others).  Returns {name: record}: stencil_slab2d per 40-sweep
+    leg at 1024^2, stencil_resident per 40-sweep leg at 128^2 (the plan's
+    leg)."""
     import numpy as np
 
     from pde_multigrid_tpu_torch import Poisson, VariableCoefficientPoisson
+    from pde_multigrid_tpu_torch import grid as TG
     from pde_multigrid_tpu_torch.ops.cuda import stencilop as SO
+    from pde_multigrid_tpu_torch.ops.galerkin import neighborhood_offsets
 
     rng = np.random.default_rng(2028)
     nsw = VARCOEF_NUS[1]
-    fns = {"stencil_resident": SO.stencil_resident,
-           "stencil_slab2d": SO.stencil_slab2d}
     out = {}
 
-    def check(name, g, lvl, offs, tag):
-        """Random v and f on the level; the kernel against the plain
-        version over 1, 40 and 7 sweeps, bit for bit."""
-        c = lvl.aux["stencil_coeffs"]
-        v, f = (torch.tensor(rng.standard_normal(g.padded_shape).astype(
-            np.float32), device="cuda") for _ in range(2))
+    def check(label, fn, v, f, c, offs, g, tag):
+        """fn(v, f, c, nsweeps) against the plain version over 1, 40 and 7
+        sweeps (7: not a multiple of T), bit for bit; returns the last
+        max|kernel - plain|."""
+        err = 0.0
         for ns in (1, nsw, 7):
-            k = fns[name](v.clone(), f, c, offs, g, ns)
+            k = fn(v.clone(), f, c, ns)
             p = SO.stencil_relax_plain(v.clone(), f, c, offs, g, ns)
             err = _max_err(torch, k, p)
-            require(torch.equal(k, p), f"{name} at {tag}, {ns} sweeps, not "
+            require(torch.equal(k, p), f"{label} at {tag}, {ns} sweeps, not "
                     f"bitwise: max diff {err!r}")
-        return v, f, c, err
+        return err
+
+    def rand_vf(g):
+        return (torch.tensor(rng.standard_normal(g.padded_shape).astype(
+            np.float32), device="cuda") for _ in range(2))
+
+    def slab(offs, g):
+        return lambda v, f, c, n: SO.stencil_slab2d(v, f, c, offs, g, n)
 
     solver = _galerkin_solver(VariableCoefficientPoisson(2), VARCOEF_N)
     kern = solver.program.kernels
     for l, (g, lvl) in enumerate(zip(solver.geoms, solver.fresh_levels())):
         offs = kern.offsets[l]
         plan = kern.plans[l]
-        tag = f"{g.padded_shape[0]}^2 K = {len(offs)}"
-        names = ["stencil_slab2d"]
-        if SO.resident_ctas(g):
-            names.append("stencil_resident")
-        legs = {}
-        for name in names:
-            v, f, c, err = check(name, g, lvl, offs, tag)
-            w = v.clone()
-            fn = fns[name]
-            kern_fn = lambda: fn(w, f, c, offs, g, nsw)  # noqa: E731
-            cost = _stencil_leg_cost(lvl, len(offs), nsw, False)
-            big = (l == 0 and name == "stencil_slab2d") or (
-                g.padded_shape[0] == 128 and name == "stencil_resident")
-            if big:
-                t = paired_times(torch, kern_fn, lambda: SO.stencil_relax_plain(
-                    w, f, c, offs, g, nsw), 1)
-                res = {"max_abs_err": err, "ms": t["ms"],
-                       "plain_ms": t["plain_ms"], **bound(*cost),
-                       "library_ms": None}
-                out[name] = res
-                log(f"kernel {name} ({tag}, one {nsw}-sweep leg): "
-                    f"max|kernel - plain| = {err!r}; device {t['ms']!r} ms "
-                    f"vs plain {t['plain_ms']!r} ms (bound "
-                    f"{res['bound_ms']!r} ms by {res['bound_by']}); eager "
-                    f"call {t['eager_ms']!r} ms vs plain "
-                    f"{t['eager_plain_ms']!r} ms")
-                legs[name] = t["ms"]
-                continue
-            legs[name] = device_ms(torch, kern_fn, 3)
-        # the resident kernel on the other CTA count, where that holds the
-        # level too (the plan's one-or-eight choice)
-        ctas = SO.resident_ctas(g)
-        other = {1: SO.CLUSTER_CTAS, SO.CLUSTER_CTAS: 1}.get(ctas)
-        if other and SO.resident_smem_bytes(g, other) <= SO.MAX_SMEM_BYTES:
-            w = v.clone()
-            legs[f"stencil_resident on {other} CTA(s)"] = device_ms(
-                torch, lambda: SO._launch_resident(w, f, c, offs, g, nsw,
-                                                   other, False), 3)
-        VARCOEF_LEG_MS[l] = legs[plan.kernel]
-        log(f"stencil legs at {tag} (one {nsw}-sweep leg, device ms): "
-            + ", ".join(f"{k} {x!r}" for k, x in legs.items())
-            + f"; the plan takes {plan!r}")
+        K = len(offs)
+        tag = f"{g.padded_shape[0]}^2 K = {K}"
+        c = lvl.aux["stencil_coeffs"]
+        v, f = rand_vf(g)
+        err = check(f"{plan!r}", plan, v, f, c, offs, g, tag)
+        if plan.kernel != "stencil_slab2d":
+            check("stencil_slab2d", slab(offs, g), v, f, c, offs, g, tag)
+        w = v.clone()
+        kern_fn = lambda: plan(w, f, c, nsw)  # noqa: E731
+        big = (l == 0 and plan.kernel == "stencil_slab2d") or (
+            g.padded_shape[0] == 128 and plan.kernel == "stencil_resident")
+        if big:
+            cost = _stencil_leg_cost(lvl, K, nsw, False)
+            t = paired_times(torch, kern_fn, lambda: SO.stencil_relax_plain(
+                w, f, c, offs, g, nsw), 1)
+            res = {"max_abs_err": err, "ms": t["ms"],
+                   "plain_ms": t["plain_ms"], **bound(*cost),
+                   "library_ms": None}
+            out[plan.kernel] = res
+            log(f"kernel {plan.kernel} ({tag}, {plan!r}, one {nsw}-sweep "
+                f"leg): max|kernel - plain| = {err!r}; device {t['ms']!r} "
+                f"ms vs plain {t['plain_ms']!r} ms (bound "
+                f"{res['bound_ms']!r} ms by {res['bound_by']}); eager call "
+                f"{t['eager_ms']!r} ms vs plain {t['eager_plain_ms']!r} ms")
+            VARCOEF_LEG_MS[l] = t["ms"]
+        else:
+            VARCOEF_LEG_MS[l] = device_ms(torch, kern_fn, 3)
+        log(f"stencil leg at {tag} (one {nsw}-sweep leg, device ms; bitwise"
+            f" over 1, {nsw}, 7 sweeps, and the slab): {plan!r} "
+            f"{VARCOEF_LEG_MS[l]!r}")
 
-    for prob, n, ls, names in (
-            (Poisson(3), 33, (0, 1), ("stencil_resident",)),
-            (VariableCoefficientPoisson(1), 1025, (0, 1),
-             ("stencil_resident",)),
-            (Poisson(2), 129, (0,), ("stencil_slab2d", "stencil_resident"))):
+    # the resident kernel's other views: an odd 2D level, 1D, 3D; the slab
+    # on a constant operator
+    odd = TG.build_geometries((65, 65), ((0.0, 1.0),) * 2, 1)[0]
+    big1 = TG.build_geometries((8193,), ((0.0, 1.0),), 1, wrap=True)[0]
+    odd3 = TG.build_geometries((33,) * 3, ((0.0, 1.0),) * 3, 1)[0]
+    cases = [(odd, neighborhood_offsets(2), None),
+             (big1, ((0,), (-1,), (1,)), None),
+             (odd3, tuple(o for o in neighborhood_offsets(3)
+                          if sum(map(abs, o)) <= 1), None)]
+    for prob, n, ls in ((VariableCoefficientPoisson(1), 1025, (0, 1)),
+                        (Poisson(3), 33, (0, 1)), (Poisson(2), 129, (0,))):
         s3 = _galerkin_solver(prob, n)
         lv = s3.fresh_levels()
         for l in ls:
-            g, lvl, offs = s3.geoms[l], lv[l], s3.program.kernels.offsets[l]
-            tag = (f"{prob.name} level {g.padded_shape} K = {len(offs)} "
-                   f"coefficients {tuple(lvl.aux['stencil_coeffs'].shape)}")
-            for name in names:
-                check(name, g, lvl, offs, tag)
-            log(f"stencil kernels {names} at {tag}: bitwise; the plan takes "
-                f"{s3.program.kernels.plans[l]!r}")
+            cases.append((s3.geoms[l], s3.program.kernels.offsets[l],
+                          lv[l].aux["stencil_coeffs"]))
+    for g, offs, c in cases:
+        if c is None:
+            c = _random_stencil(torch, rng, g, tuple(offs))
+        plan = SO.plan_stencil_relax(offs, g)
+        tag = (f"level {g.padded_shape} (wrap {g.wrap}) K = {len(offs)} "
+               f"coefficients {tuple(c.shape)}")
+        v, f = rand_vf(g)
+        check(f"{plan!r}", plan, v, f, c, offs, g, tag)
+        if g.ndim == 2 and plan.kernel != "stencil_slab2d":
+            check("stencil_slab2d", slab(offs, g), v, f, c, offs, g, tag)
+        w = v.clone()
+        STENCIL_LEG_MS[tag] = device_ms(
+            torch, lambda: plan(w, f, c, nsw), 3)
+        log(f"stencil leg at {tag} (one {nsw}-sweep leg, device ms; bitwise"
+            f" over 1, {nsw}, 7 sweeps): {plan!r} {STENCIL_LEG_MS[tag]!r}")
     torch.cuda.synchronize()
     return out
 
@@ -3403,7 +3434,7 @@ def phase_varcoef(torch):
     summary.update(time_step(torch, tag, solver, levels, 3, 1))
     busy = busy_split_ms(
         torch, lambda: solver.program.solve_step(levels),
-        {"stencil_resident": "stencil_resident_kernel",
+        {"stencil_resident": "stencil_resident",
          "stencil_slab2d": "stencil_slab2d_kernel"})
     summary["busy_ms_per_step"] = busy
     by_level = {solver.geoms[l].padded_shape[0]: legs[l] * ms

@@ -109,7 +109,8 @@ SIGNATURES = {
     # the stencil-operator kernels take the operator and the level as a
     # pointer to a host struct (stencilop.StencilOpParams)
     "pdemg_stencil_resident": (_P, _P, _P, _I, _I, _I, _P, _P),
-    "pdemg_stencil_slab2d": (_P, _P, _P, _P, _I, _P, _P),
+    "pdemg_stencil_leg": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "pdemg_stencil_slab2d": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # the fused subtree V-cycle takes its levels as a pointer to a host
     # struct (subtree.SubtreeParams)
     "pdemg_subtree": (_P, _P, _P, _P),

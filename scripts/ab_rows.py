@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""A/B of rows of the port between two checkouts, on one card, in turns.
+
+    python3 scripts/ab_rows.py PARENT_DIR CHANGE_DIR ROW [ROW ...]
+
+A ROW is
+  mixed:N   `chip_smoke.phase_main_path(torch, N, "mixed")`: the 3D row at
+            N^3, FMG(2, 100, 100), exact coarsest, the solve with its gate
+            and launch checks, ms a step eager and as one CUDA graph;
+  varcoef   `chip_smoke.phase_kernels_stencil(torch)` then
+            `chip_smoke.phase_varcoef(torch)`: the varcoef2d 1025^2
+            Galerkin row (its gate, the plan's launches, ms a step, the
+            busy split) and a 40-sweep leg of each level's planned kernel;
+  stencil   a 40-sweep leg of `plan_stencil_relax`'s kernel, timed
+            graph-replayed, on every level of the Galerkin varcoef1d 1025,
+            Poisson(3) 33 and varcoef3d 33 hierarchies and on an odd 2D
+            (65^2, K = 9) and a padded 3D (33^3, K = 7) level with random
+            coefficients.
+Each side runs every ROW in its own process with its own kernels build,
+in the order PARENT, CHANGE, CHANGE, PARENT, and prints one `AB` JSON line
+a row (its summary, launch counts and the result's SHA-256).  Then one
+line a row: whether every side's result is bitwise the first parent
+run's, and the mean of each side for every number in the summaries.
+Exits 1 if any side failed or a result differs.  Imports nothing of JAX;
+needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+SIDE = r"""
+import hashlib, json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+
+
+def sha(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def stencil_row():
+    import numpy as np
+    from pde_multigrid_tpu_torch import (Poisson, VariableCoefficientPoisson,
+                                         grid as TG)
+    from pde_multigrid_tpu_torch.ops.cuda import stencilop as SO
+    from pde_multigrid_tpu_torch.ops.galerkin import neighborhood_offsets
+
+    rng = np.random.default_rng(2029)
+    cases = []
+    for prob, n in ((VariableCoefficientPoisson(1), 1025), (Poisson(3), 33),
+                    (VariableCoefficientPoisson(3), 33)):
+        s = c._galerkin_solver(prob, n)
+        for g, o, lvl in zip(s.geoms, s.program.kernels.offsets,
+                             s.fresh_levels()):
+            cases.append((f"{prob.name} {g.padded_shape}", g, o,
+                          lvl.aux["stencil_coeffs"]))
+    for shape, K in (((65, 65), 9), ((33,) * 3, 7)):
+        g = TG.build_geometries(shape, ((0.0, 1.0),) * len(shape), 1)[0]
+        o = tuple(x for x in neighborhood_offsets(len(shape))
+                  if K == 3 ** len(shape) or sum(map(abs, x)) <= 1)
+        cc = -rng.random(g.padded_shape + (K,)).astype(np.float32)
+        cc[..., o.index((0,) * len(shape))] = 2.0 * K  # a bounded leg
+        cases.append((f"random {g.padded_shape} K {K}", g, o,
+                      torch.tensor(cc, device="cuda")))
+    summary, outs = {}, []
+    for tag, g, o, cc in cases:
+        plan = SO.plan_stencil_relax(o, g)
+        v, f = (torch.tensor(rng.standard_normal(g.padded_shape).astype(
+            np.float32), device="cuda") for _ in range(2))
+        outs.append(plan(v.clone(), f, cc, 40))
+        w = v.clone()
+        summary[tag] = {"plan": repr(plan), "ms": c.device_ms(
+            torch, lambda: plan(w, f, cc, 40), 3)}
+    return {}, summary, sha(*outs)
+
+
+c.phase_card(torch)
+c.phase_build()
+for row in sys.argv[2:]:
+    if row.startswith("mixed:"):
+        counts, s, v = c.phase_main_path(torch, int(row[6:]), "mixed")
+        digest = sha(v)
+    elif row == "varcoef":
+        legs = c.phase_kernels_stencil(torch)
+        counts, s, v = c.phase_varcoef(torch)
+        s["leg_ms"] = {k: r["ms"] for k, r in legs.items()}
+        s["leg_ms_by_level"] = {str(k): x
+                                for k, x in c.VARCOEF_LEG_MS.items()}
+        digest = sha(v)
+    elif row == "stencil":
+        counts, s, digest = stencil_row()
+    else:
+        raise SystemExit(f"unknown row {row}")
+    print("AB " + json.dumps({"side": sys.argv[1], "row": row,
+                              "sha256": digest, "summary": s,
+                              "counts": counts}, default=str), flush=True)
+"""
+
+
+def run_side(path: str, label: str, rows: list[str]) -> dict:
+    proc = subprocess.run([sys.executable, "-c", SIDE, label, *rows],
+                          cwd=path, capture_output=True, text=True)
+    sys.stderr.write(proc.stderr[-4000:])
+    got = {}
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("AB "):
+            rec = json.loads(ln[3:])
+            got[rec["row"]] = rec
+            print(ln)
+        else:
+            print(f"  [{label}] {ln}"[:600])
+    if proc.returncode != 0 or len(got) != len(rows):
+        raise SystemExit(f"side {label} ({path}) failed: rc "
+                         f"{proc.returncode}")
+    return got
+
+
+def numbers(d, prefix=""):
+    """The numbers in a nested summary, by dotted key."""
+    out = {}
+    for k, x in d.items():
+        key = f"{prefix}{k}"
+        if isinstance(x, dict):
+            out.update(numbers(x, key + "."))
+        elif isinstance(x, (int, float)) and not isinstance(x, bool):
+            out[key] = x
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) < 4:
+        print(__doc__)
+        return 2
+    parent, change = (os.path.abspath(p) for p in sys.argv[1:3])
+    rows = sys.argv[3:]
+    order = (("P1", parent), ("C1", change), ("C2", change), ("P2", parent))
+    runs = {label: run_side(path, label, rows) for label, path in order}
+    ok = True
+    for row in rows:
+        ref = runs["P1"][row]["sha256"]
+        same = {lb: r[row]["sha256"] == ref for lb, r in runs.items()}
+        ok &= all(same.values())
+        nums = {lb: numbers(r[row]["summary"]) for lb, r in runs.items()}
+        keys = [k for k in nums["P1"] if all(k in n for n in nums.values())]
+        print(json.dumps({
+            "row": row, "bitwise_vs_P1": same, "sha256_P1": ref,
+            "mean": {k: {s: sum(n[k] for lb, n in nums.items()
+                                if lb[0] == s) / 2 for s in "PC"}
+                     for k in keys}}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -177,48 +177,245 @@ def test_params_describe_the_level():
         SO.params(((0, 0), (2, 0)), gw, False)
 
 
-def test_plan_of_the_varcoef2d_row():
-    """varcoef2d at 1025^2 in wrap storage, Galerkin: the slab kernel on
-    1024^2 (K = 5, T = 2), 512^2 and 256^2 (K = 9, T = 4), where no
-    resident CTA set holds the level with its coefficients, the resident
-    kernel below (8 CTAs 128^2 and 64^2, one CTA 32^2-2^2, coefficients
-    staged); per FMG(2, 40, 40) step 280 slab launches (4 legs of 20, 8
-    and 12 of 10) and 196 resident legs.  3D and 1D levels beyond the
-    resident kernel raise, naming their ROADMAP item; a 3D level it holds
-    takes it, coefficients staged or not."""
+def _row_levels():
+    """The varcoef2d 1025^2 hierarchy in wrap storage and each level's
+    offsets: the 5-point finest operator, then the 9-point Galerkin ones."""
     prob = T.VariableCoefficientPoisson(2)
     geoms = TG.build_geometries((1025, 1025), prob.domain, wrap=True)
     offs = [prob._offsets()] + [JGal.neighborhood_offsets(2)] * 9
+    return geoms, offs
+
+
+def test_plan_of_the_varcoef2d_row():
+    """varcoef2d at 1025^2 in wrap storage, Galerkin: the slab kernel on
+    1024^2 (K = 5, T = 3, 32 x 64 tiles), 512^2 (K = 9, T = 4, 32 x 32)
+    and 256^2 (16 x 32: 32 x 32 tiles would leave SMs idle), which no leg
+    holds; the resident kernel's leg below, its coefficients in registers:
+    128^2 on 16 CTAs of 448 threads (two
+    points of each colour a thread) and 64^2 on 16 of 320 (one), both with
+    4 halo rows a side refreshed every 2 sweeps, 32^2-2^2 on one CTA of
+    512, 128 and 32 threads; per FMG(2, 40, 40) step 256 slab
+    launches (4 legs of 14, 8 and 12 of 10) and 196 resident legs.  3D
+    and 1D levels beyond the resident kernel raise, naming their ROADMAP
+    item; a 3D level the leg does not hold takes the general form,
+    coefficients staged or not, as does a 1D level of 4096 slots a
+    colour."""
+    geoms, offs = _row_levels()
     plans = [SO.plan_stencil_relax(o, g) for o, g in zip(offs, geoms)]
     assert [p.kernel for p in plans] == (
         ["stencil_slab2d"] * 3 + ["stencil_resident"] * 7)
-    assert [p.ctas for p in plans] == [None] * 3 + [8] * 2 + [1] * 5
+    assert [p.form for p in plans[:3]] == [SO.SlabForm(3, 32, 64),
+                                           SO.SlabForm(4, 32, 32),
+                                           SO.SlabForm(4, 16, 32)]
+    assert [tuple(p.layout) for p in plans[3:]] == [
+        (16, 448, 2, 2), (16, 320, 1, 2), (1, 512, 1, 0), (1, 128, 1, 0)] + [
+        (1, 32, 1, 0)] * 3
+    assert [p.ctas for p in plans] == [None] * 3 + [16, 16] + [1] * 5
+    # the general form would hold 256^2 only without its coefficients
     assert SO.resident_ctas(geoms[2]) == 8
     assert not SO.resident_staged(geoms[2], 8, 9, False)
-    assert all(SO.resident_staged(g, p.ctas, 9, False)
-               for g, p in zip(geoms[3:], plans[3:]))
-    # 128^2 on 8 CTAs: 16 rows and two ghost rows of 129 points
-    assert SO.resident_smem_bytes(geoms[3], 8, 9, False, True) == (
-        4 * 12 * 18 * 129)
-    assert SO.slab_smem_bytes(9, False) == 4 * 49 * 81 * 12 <= (
-        SO.MAX_SMEM_BYTES)
-    assert SO.slab_smem_bytes(5, False) == 4 * 41 * 73 * 8
+    # 128^2 on 16 CTAs: 8 rows and two ghost rows of 129 points, twice (a
+    # barrier every half-sweep); 64^2: 4 rows and 4 halo rows a side as
+    # two colours' halves of 33, twice, and two inboxes of both sides' rows
+    assert SO.leg_smem_bytes(geoms[3], 16) == 8 * 10 * 129
+    assert SO.leg_smem_bytes(geoms[4], 16, 2) == 4 * (
+        4 * 12 + 32) * 33
+    assert SO.slab_smem_bytes(9, False) == 4 * (2 * 49 * 49 * 11 + 49 * 49)
+    assert SO.slab_smem_bytes(5, False) == 4 * (2 * 45 * 77 * 7 + 45 * 77)
+    assert SO.slab_smem_bytes(5, False, double=False) == 4 * 45 * 77 * 8
     legs = [2 * 2 * (l + 1) for l in range(len(geoms))]
     launches = {}
     for n, p in zip(legs, plans):
         launches[p.kernel] = launches.get(p.kernel, 0) + n * p.launches(40)
-    assert launches == {"stencil_slab2d": 280, "stencil_resident": 196}
-    assert plans[0].launches(7) == 4 and plans[1].launches(7) == 2
+    assert launches == {"stencil_slab2d": 256, "stencil_resident": 196}
+    assert plans[0].launches(7) == 3 and plans[1].launches(7) == 2
     assert plans[3].launches(0) == 0
     g3 = TG.build_geometries((65,) * 3, ((0.0, 1.0),) * 3, 2, wrap=True)
     with pytest.raises(NotImplementedError, match="queue 2 item 36"):
         SO.plan_stencil_relax(JGal.neighborhood_offsets(3), g3[0])
     p3 = SO.plan_stencil_relax(JGal.neighborhood_offsets(3), g3[1])
     assert p3.kernel == "stencil_resident" and p3.ctas == 8
+    assert p3.layout is None
     assert not SO.resident_staged(g3[1], 8, 27, False)
+    p7 = SO.plan_stencil_relax(P3_OFFSETS, g3[1])
+    assert p7.layout == SO.LegLayout(16, 512, 2, 0)
     g1 = TG.build_geometries((32769,), ((0.0, 1.0),), 1, wrap=True)[0]
     with pytest.raises(NotImplementedError, match="queue 2 item 36"):
         SO.plan_stencil_relax(((0,), (-1,), (1,)), g1)
+    g1 = TG.build_geometries((8193,), ((0.0, 1.0),), 1, wrap=True)[0]
+    p1 = SO.plan_stencil_relax(((0,), (-1,), (1,)), g1)
+    assert p1.layout is None and p1.ctas == 1
+
+
+def _leg_levels():
+    """(name, geometry, K) of every level the leg serves on the varcoef2d
+    row, and 1D, 3D and odd 2D levels the resident kernel serves."""
+    geoms, offs = _row_levels()
+    out = [(f"row{g.padded_shape[0]}", g, len(o))
+           for g, o in zip(geoms, offs) if SO.leg_layout(g, len(o))]
+    for shape, wrap, K in (((1025,), True, 3), ((2049,), True, 3),
+                           ((513,), False, 2), ((65, 65), False, 9),
+                           ((33, 33), False, 5), ((33,) * 3, True, 7),
+                           ((17,) * 3, True, 27), ((9,) * 3, True, 27),
+                           ((17,) * 3, False, 7), ((9,) * 3, False, 27)):
+        dom = ((0.0, 1.0),) * len(shape)
+        g = TG.build_geometries(shape, dom, 1, wrap=wrap)[0]
+        out.append((f"{'x'.join(map(str, shape))}{'w' if wrap else ''}"
+                    f"K{K}", g, K))
+    return out
+
+
+LEG_LEVELS = _leg_levels()
+
+
+@pytest.mark.parametrize("name,g,K", LEG_LEVELS,
+                         ids=[c[0] for c in LEG_LEVELS])
+def test_leg_points_cover_each_owned_point_once(name, g, K):
+    """Every form of the leg that holds the level (the plan's among them)
+    updates each interior point of each colour exactly once, from the CTA
+    that owns its row; its threads cover the slots in whole warps within
+    the form's register budget, and a CTA's v (and its inboxes) stays
+    within 227 KB."""
+    aux = TG.base_aux(g, torch.float32, "cpu")
+    want = [np.flatnonzero(aux[m].numpy().ravel()) for m in
+            ("m_red", "m_black")]
+    forms = SO.leg_layouts(g, K)
+    assert SO.leg_layout(g, K) in forms
+    X = g.padded_shape[0] if g.ndim > 1 else 1
+    plane = int(np.prod(g.padded_shape)) // X
+    for lay in forms:
+        assert lay.threads % 32 == 0
+        assert lay.threads <= SO.leg_max_threads(K, lay.P)
+        assert lay.threads * lay.P >= SO.leg_slots(g, lay.ctas, lay.te)
+        assert SO.leg_smem_bytes(g, lay.ctas, lay.te) <= SO.MAX_SMEM_BYTES
+        pts = SO.leg_points(g, lay)
+        assert len(pts) == lay.ctas
+        rows = SO.leg_rows(g, lay.ctas)
+        for c in (0, 1):
+            got = np.concatenate([p[c][0][p[c][1]] for p in pts])
+            assert len(np.unique(got)) == len(got), (lay, c)
+            assert np.array_equal(np.sort(got), want[c]), (lay, c)
+            for r, (flat, own) in enumerate(p[c] for p in pts):
+                assert len(np.unique(flat)) == len(flat), (lay, c, r)
+                x = flat // plane
+                end = min((r + 1) * rows, X)
+                assert ((x[own] >= r * rows) & (x[own] < end)).all()
+                # halo rows: at most 2 te - 1 rows past the CTA's own
+                d = np.minimum((r * rows - x) % X, (x - end + 1) % X)
+                assert (d[~own] < max(2 * lay.te, 1)).all(), (lay, c, r)
+                assert lay.te or own.all()
+
+
+def test_leg_capacity_and_refusals():
+    """256^2 at K = 9 on 16 CTAs of 16 rows: v fits (37 KB a CTA), but a
+    colour's 2048 slots a CTA outrun 512 threads of two points each with
+    their coefficients in registers, so no leg holds the level (nor on 8
+    CTAs) and the plan leaves it to the slab.  512^2 fits no leg.  The
+    leg refuses K = 27 on more than one point a thread, clusters on a 1D
+    level or with a CTA owning no row, halo rows a CTA does not own or
+    longer than the level, an odd te, P other than 1 or 2, and levels
+    whose v exceeds a CTA."""
+    geoms, offs = _row_levels()
+    g256, g512 = geoms[2], geoms[1]
+    assert SO.leg_smem_bytes(g256, 16) == 8 * 18 * 257
+    assert SO.leg_smem_bytes(g256, 16) <= SO.MAX_SMEM_BYTES
+    assert SO.leg_slots(g256, 16) == 16 * 128 > 2 * SO.leg_max_threads(9, 2)
+    assert SO.leg_layouts(g256, 9) == [] and SO.leg_layout(g256, 9) is None
+    assert SO.plan_stencil_relax(offs[2], g256).kernel == "stencil_slab2d"
+    assert all(SO.leg_fits(g256, 9, c, P, te) is None
+               for c in (8, 16) for P in (1, 2) for te in (0, 2))
+    assert SO.leg_layout(g512, 9) is None and SO.leg_layout(geoms[0], 5) is (
+        None)
+    g3 = TG.build_geometries((17,) * 3, ((0.0, 1.0),) * 3, 1, wrap=True)[0]
+    assert SO.leg_fits(g3, 27, 8, 1) == 256
+    assert SO.leg_fits(g3, 27, 8, 2) is None
+    g1 = TG.build_geometries((1025,), ((0.0, 1.0),), 1, wrap=True)[0]
+    assert SO.leg_fits(g1, 3, 8, 1) is None
+    assert SO.leg_fits(g1, 3, 1, 1, te=2) is None  # halo rows: a cluster
+    assert SO.leg_fits(geoms[7], 9, 16, 1) is None  # 4^2: 16 CTAs, 4 rows
+    assert SO.leg_fits(geoms[7], 9, 1, 3) is None  # P must be 1 or 2
+    assert SO.leg_fits(geoms[4], 9, 16, 1, te=3) is None  # odd te
+    assert SO.leg_fits(geoms[4], 9, 16, 1, te=4) is None  # 4 rows < 8
+    assert SO.leg_fits(geoms[6], 9, 2, 1, te=2) is None  # 8 + 8 > 16 rows
+    g4k = TG.build_geometries((4097,), ((0.0, 1.0),), 1, wrap=True)[0]
+    assert SO.leg_layout(g4k, 3) is None  # 2048 slots of a colour
+    g33 = TG.build_geometries((33,) * 3, ((0.0, 1.0),) * 3, 1)[0]
+    assert SO.leg_layout(g33, 7) is None  # 3 rows a CTA: 1683 slots
+    for g, offs_ in ((g4k, ((0,), (-1,), (1,))), (g33, P3_OFFSETS)):
+        p = SO.plan_stencil_relax(offs_, g)
+        assert p.kernel == "stencil_resident" and p.layout is None
+    big = TG.build_geometries((257,) * 3, ((0.0, 1.0),) * 3, 1, wrap=True)[0]
+    assert SO.leg_layout(big, 7) is None  # v exceeds a CTA on 16
+
+
+SLAB_LEVELS = [(f"row{g.padded_shape[0]}K{len(o)}", g, len(o))
+               for g, o in list(zip(*_row_levels()))[:4]] + [
+    (f"{n}x{n}{'w' if w else ''}K{K}",
+     TG.build_geometries((n, n), ((0.0, 1.0),) * 2, 1, wrap=w)[0], K)
+    for n, w, K in ((65, False, 9), (129, False, 5), (97, True, 3),
+                    (3, True, 9))]
+
+
+@pytest.mark.parametrize("name,g,K", SLAB_LEVELS,
+                         ids=[c[0] for c in SLAB_LEVELS])
+def test_slab_walk_covers_every_tile_once(name, g, K):
+    """The slab's persistent walk, in its K's form and in the level's
+    (`slab_form`, its tiles' rows halved where they would leave SMs idle):
+    one CTA an SM (of 132) takes every tile
+    exactly once; the tiles' owned boxes cover the level once; each
+    tile's slots update every point of its loaded region that is interior
+    and off its rim once per colour (so every owned interior point), and
+    its two buffers and the second copy of v fit 227 KB."""
+    X, Y = g.padded_shape
+    aux = TG.base_aux(g, torch.float32, "cpu")
+    interior = aux["m_int"].numpy().astype(bool)
+    forms = {SO.SLAB_FORMS[K], SO.slab_form(g, K)}
+    for form in sorted(forms):
+        assert SO.slab_fits(K, form)
+        walk = SO.slab_walk(g, form)
+        ntx, nty = SO.slab_tiles(g, form)
+        tiles = sorted(t for w in walk for t in w)
+        assert tiles == list(range(ntx * nty))
+        assert len(walk) == min(ntx * nty, SO.H100_SMS)
+        owned = np.zeros((X, Y), int)
+        for t in tiles:
+            ((gx0, gx1), (gy0, gy1)), ((ox, LX), (oy, LY)) = SO.slab_box(
+                g, form, t)
+            owned[gx0:gx1, gy0:gy1] += 1
+            RX, S = SO.slab_region(form)
+            assert LX <= RX and LY <= S
+            # the updatable points: loaded, off the rim, interior
+            xs = np.arange(ox + 1, min(ox + LX - 1, X))
+            ys = np.arange(oy + 1, min(oy + LY - 1, Y))
+            xx, yy = np.meshgrid(xs, ys, indexing="ij")
+            h = 2 * form.T
+            # the owned points lie 2T inside the loaded region (or at the
+            # level's edge)
+            assert gx0 - ox >= min(h, gx0) and gy0 - oy >= min(h, gy0)
+            for c, pts in enumerate(SO.slab_points(g, form, t)):
+                assert len(np.unique(pts)) == len(pts)
+                on = interior[xx, yy] & ((xx + yy) % 2 == c)
+                assert np.array_equal(np.sort(pts), (xx * Y + yy)[on])
+        assert (owned == 1).all()
+        assert SO.slab_smem_bytes(K, False, form) <= SO.MAX_SMEM_BYTES
+
+
+def test_slab_refuses_forms_it_does_not_take():
+    """The kernel does not take a form whose buffers exceed 227 KB (K = 9,
+    T = 4 on 32 x 64 tiles) or whose tile rows outrun the threads' slots;
+    every K's form, and its form on every level of the row, fits; a K the
+    slab is not built for raises before any launch, on any device."""
+    geoms, offs = _row_levels()
+    for form in (SO.SlabForm(4, 32, 64), SO.SlabForm(1, 120, 120)):
+        assert not SO.slab_fits(9, form)
+    assert all(SO.slab_fits(K, form) for K, form in SO.SLAB_FORMS.items())
+    assert all(SO.slab_fits(len(o), SO.slab_form(g, len(o)))
+               for g, o in zip(geoms, offs))
+    g = geoms[5]
+    v = torch.zeros(g.padded_shape)
+    offs7 = offs[5][:7]
+    with pytest.raises(ValueError, match="built for K"):
+        SO.stencil_slab2d(v, v, torch.zeros(*g.padded_shape, 7), offs7, g, 1)
 
 
 def test_galerkin_tier_with_plans_on_cpu_is_the_plain_tier():
