@@ -37,12 +37,13 @@ Phases, in order; any failure exits non-zero without the final result line:
      64^3 level alone, the 32^3 root on 8 and on 16 CTAs; the
      transfer kernels on the sub-lane pairs
      32^3 -> 16^3 ... 4^3 -> 2^3 (rows 23 and 24) bitwise; then the
-     whole-leg 3D resident kernel (resident3d.cu) in its three modes
-     (dense on 64^3, 32^3, 16^3 and on colour halves there: rows 4 and 5;
-     dense on one CTA on 8^3, 4^3, 2^3: row 1's 3D mode) bitwise against
-     its plain versions and the half-sweep chain over nu = 1, 2, 3 and 100,
-     a 100-sweep leg timed beside the chain on every level, and the layout
-     A/B its gate rests on (32^3 on 1 or 8 CTAs, 64^3 on 8 or 16); then
+     whole-leg 3D resident kernel (resident3d.cu, on the subtree's leg:
+     64^3, 32^3, 16^3 on a 16-CTA cluster, 8^3 and below on one CTA) in
+     its three modes (dense on 64^3, 32^3, 16^3 and on colour halves
+     there: rows 4 and 5; dense on one CTA on 8^3, 4^3, 2^3: row 1's 3D
+     mode) bitwise against its plain versions and the half-sweep chain
+     over nu = 1, 2, 3 and 100, a 100-sweep leg timed beside the chain and
+     beside the fused subtree's rate a half-sweep on every level; then
      the 2D Lyapunov kernels, bitwise: split2d and merge2d at 4097^2;
      row 16 as the colour slab's one-rank chunk on the level's halves
      (JAX's sweeps_per_call = T form) at 4097^2, 2049^2, 1025^2 and 513^2,
@@ -168,9 +169,13 @@ Phases, in order; any failure exits non-zero without the final result line:
      ranks at t = 1, 2, 4 and 2T + 1 sweeps and on odd-tiled small
      levels, the
      shards' owned windows composed against the single-chip wavefront, the
-     masked block (masked_block.cu) on the 128^3 level's extended blocks
-     over 1, 2 and 4 ranks at t = 1 and 4, each chunk timed beside its
-     plain version; then 257^3 FMG(2, 100, 100), exact coarsest, f32,
+     masked block (masked_block.cu: one launch a chunk) on the extended
+     blocks of every shard of the 257^3 row's 128^3 level and of the FAS
+     65^3 row's levels over 1, 2 and 4 ranks at t = 1 and T, the whole
+     block, and the one-colour form kept for blocks the chunk cannot
+     hold, each chunk timed (the one-rank 128^3 one beside its plain
+     version and the one-colour form); then 257^3 FMG(2, 100, 100), exact
+     coarsest, f32,
      `--mesh 1` through the CLI in process: error_linf < 50 h^2, finite
      residuals, exactly the schedule's launches of the time-skew chunk,
      the masked block, split and merge and no other kernel
@@ -1407,6 +1412,12 @@ def phase_kernels_subtree(torch):
     return out
 
 
+# the masked block's t = T chunk by extended block shape (and at the
+# one-rank 128^3 block the one-colour form's 2T launches), ms (printed
+# with the summaries)
+MASKED_AB = {}
+
+
 # the whole-leg 3D resident kernel: the levels of the 65^3 wrap hierarchy
 # (64^3 ... 2^3), the sweep counts it is held bitwise at, and its 100-sweep
 # leg per level beside the half-sweep chain (row 9), ms (printed with the
@@ -1434,7 +1445,9 @@ def phase_kernels_resident3d(torch):
     (`split_merged_relax`, row 5; against `relax_halves` on the same
     halves) on the merged gate's levels 64^3, 32^3, 16^3, the one-CTA
     dense mode (`resident3d_relax`, row 1) on 8^3, 4^3, 2^3.  A 100-sweep
-    leg timed on every level beside the chain (graph-replayed).  Returns
+    leg timed on every level beside the chain (graph-replayed), and its
+    rate a half-sweep beside the fused subtree's on the same level (from
+    phase_kernels_subtree, where it ran before).  Returns
     the records of "merged_resident" and
     "split_merged" (64^3) and "resident3d" (8^3), each per 100-sweep
     leg."""
@@ -1454,6 +1467,14 @@ def phase_kernels_resident3d(torch):
     nsw = RESIDENT3D_NUS[-1]
     out, errs = {}, {"merged_resident": 0.0, "split_merged": 0.0,
                      "resident3d": 0.0}
+    # the fused subtree's rate a half-sweep by level (row 22's, from
+    # phase_kernels_subtree's nu = SUBTREE_LONG calls: a root's call less
+    # the next root's, over its 4 nu half-sweeps)
+    roots = [SUBTREE_AB.get(f"{r}^3 nu={SUBTREE_LONG}", {}).get("kernel_ms")
+             for r in SUBTREE_ROOTS] + [0.0]
+    row22 = {r: (a - b) * 1e3 / (4 * SUBTREE_LONG)
+             for r, a, b in zip(SUBTREE_ROOTS, roots, roots[1:])
+             if a is not None and b is not None}
 
     def rand(shape, interior):
         a = rng.standard_normal(shape).astype(np.float32)
@@ -1502,11 +1523,15 @@ def phase_kernels_resident3d(torch):
                                                         g), 2),
             "chain_ms": device_ms(torch, lambda: row9(vc, f, nsw), 2),
             "layout": RS3.layout(g)}
+        ab["us_per_half_sweep"] = ab["kernel_ms"] * 1e3 / (2 * nsw)
+        ab["row22_us_per_half_sweep"] = row22.get(g.padded_shape[0])
         log(f"{tag}: {name} bitwise against the row-9 chain and the plain "
             f"version at nu = {list(RESIDENT3D_NUS)}"
             f"{' (and split_merged on halves)' if merged else ''}; "
             f"{nsw}-sweep leg device ms {ab['kernel_ms']!r} vs chain "
-            f"{ab['chain_ms']!r}")
+            f"{ab['chain_ms']!r}; {ab['us_per_half_sweep']!r} us a "
+            f"half-sweep vs the fused subtree's level "
+            f"{ab['row22_us_per_half_sweep']!r}")
         records = {"merged_resident": 64, "split_merged": 64,
                    "resident3d": 8}
         for rec in [k for k, s in records.items()
@@ -3804,10 +3829,17 @@ def phase_kernels_shard(torch):
     ranks at t = 1, 2, 4 and 2T + 1 (random slabs, the raw halo planes
     included) and on odd-tiled small levels; the shards' owned windows composed equal
     the single-chip wavefront's t sweeps; the masked block
-    (`masked_block.masked_block`) on the 128^3 level's extended blocks of
-    every shard over 1, 2 and 4 ranks at t = 1 and 4 with the shards' own
-    masks.  One chunk of each at the one-rank main path's shapes (t = 4)
-    timed beside its plain version.  Returns the two records."""
+    (`masked_block.masked_block`) on the extended blocks of every shard
+    of the 257^3 row's 128^3 level and of the FAS 65^3 row's sharded
+    levels over 1, 2 and 4 ranks at t = 1 and T with the shards' own
+    masks, the whole block, in the form `masked_block.form` plans and in
+    the chunk form wherever its layout holds the block, a t = T chunk of
+    both forms timed at each block shape (`masked_ab`), the one-colour
+    form also at the one-rank 128^3 block.  One chunk of each kernel at
+    the one-rank main path's shapes (t = 4) timed beside its plain
+    version.  Returns the two records."""
+    from types import SimpleNamespace
+
     import numpy as np
 
     from pde_multigrid_tpu_torch.grid import build_geometries
@@ -3815,6 +3847,7 @@ def phase_kernels_shard(torch):
     from pde_multigrid_tpu_torch.ops.cuda import masked_block as MB
     from pde_multigrid_tpu_torch.ops.cuda import relax as R
     from pde_multigrid_tpu_torch.parallel import halo
+    from pde_multigrid_tpu_torch.parallel.mesh import level_sharding
 
     dev = torch.device("cuda")
     prob = Poisson3D()
@@ -3909,30 +3942,70 @@ def phase_kernels_shard(torch):
         f"(bound {out['timeskew_shard']['bound_ms']!r} ms by "
         f"{out['timeskew_shard']['bound_by']}); eager {tm['eager_ms']!r} ms")
 
+    # the masked block: the blocks of every shard of the 257^3 row's 128^3
+    # level and of the FAS 65^3 row's sharded levels over 1, 2, 4 ranks
+    # (x_loc + 4T planes, T = min(4, x_loc // 2)), t = 1 and T sweeps, the
+    # whole block bitwise in the planned form and in the chunk form where
+    # its layout holds the block; each block's t = T chunk timed in both
+    # forms (the A/B `masked_block.form` rests on)
+    sms = R._sm_count(0)
+    err, blocks = 0.0, []
+    for size, sizes in ((129, (128,)), (65, (64, 32, 16, 8, 4, 2))):
+        for lvl in sizes:
+            g = geom((lvl + 1,) * 3)
+            X, Y, Z = g.padded_shape
+            for n in (1, 2, 4):
+                if not level_sharding(SimpleNamespace(n=n), g):
+                    continue  # replicated: the single-device tier's
+                x_loc = X // n
+                T = min(4, x_loc // 2)
+                shape = (x_loc + 4 * T, Y, Z)
+                v, f = rand(shape), rand(shape)
+                lay = MB.chunk_layout(*shape, sms)
+                for i in range(n):
+                    pre, mr, mb = halo.coords_and_masks(
+                        prob, g, shape, i * x_loc - 2 * T, torch.float32, dev)
+                    for t in sorted({1, T}):
+                        p = MB.masked_block_plain(v, f, pre, mr, mb, t, prob,
+                                                  g)
+                        k = MB.masked_block(v.clone(), f, pre, mr, mb, t,
+                                            prob, g)
+                        outs = [k]
+                        if lay is not None:  # the chunk form, planned or not
+                            kc = v.clone()
+                            MB._chunk(kc, f, mr, mb, t, g,
+                                      MB._chunk_launch(*shape, sms))
+                            outs.append(kc)
+                        for o in outs:
+                            err = max(err, _max_err(torch, o, p))
+                            require(torch.equal(o, p),
+                                    f"masked_block {shape} n={n} shard {i} "
+                                    f"t={t} not bitwise: max diff {err!r}")
+                vk = v.clone()
+                MASKED_AB[str(shape)] = {
+                    "T": T, "form": MB.form(shape, sms), "layout": lay,
+                    "chunk_ms": None if lay is None else device_ms(
+                        torch, lambda: MB._chunk(
+                            vk, f, mr, mb, T, g, MB._chunk_launch(
+                                *shape, sms)), 5),
+                    "half_sweeps_ms": device_ms(torch, lambda: MB.
+                                                _half_sweeps(vk, f, mr, mb,
+                                                             T, g), 5)}
+                blocks.append(shape)
+    # the one-colour form (planned where the chunk form loses) also on the
+    # one-rank 128^3 block, bitwise
     g128 = geom((129,) * 3)
     X, Y, Z = g128.padded_shape
-    err = 0.0
-    for n in (1, 2, 4):
-        x_loc = X // n
-        T = min(4, x_loc // 2)
-        shape = (x_loc + 4 * T, Y, Z)
-        v, f = rand(shape), rand(shape)
-        for i in range(n):
-            pre, mr, mb = halo.coords_and_masks(prob, g128, shape,
-                                                i * x_loc - 2 * T,
-                                                torch.float32, dev)
-            for t in (1, T):
-                k = MB.masked_block(v.clone(), f, pre, mr, mb, t, prob, g128)
-                p = MB.masked_block_plain(v, f, pre, mr, mb, t, prob, g128)
-                err = max(err, _max_err(torch, k, p))
-                require(torch.equal(k, p),
-                        f"masked_block 128^3 n={n} shard {i} t={t} not "
-                        f"bitwise: max diff {err!r}")
     x_loc, t = X, 4
     shape = (x_loc + 4 * t, Y, Z)
     v, f = rand(shape), rand(shape)
     pre, mr, mb = halo.coords_and_masks(prob, g128, shape, -2 * t,
                                         torch.float32, dev)
+    p = MB.masked_block_plain(v, f, pre, mr, mb, t, prob, g128)
+    k = v.clone()
+    MB._half_sweeps(k, f, mr, mb, t, g128)
+    require(torch.equal(k, p), "masked_block's one-colour form (128^3, t = 4)"
+            " not bitwise")
     tm = paired_times(
         torch, lambda: MB.masked_block(v, f, pre, mr, mb, t, prob, g128),
         lambda: MB.masked_block_plain(v, f, pre, mr, mb, t, prob, g128), 1)
@@ -3944,11 +4017,21 @@ def phase_kernels_shard(torch):
                                    13 * t * updated_points((x_loc, Y, Z))),
                            "library_ms": None}
     log(f"kernel masked_block: bitwise against its plain version on every "
-        f"shard's extended block of 128^3 over 1, 2, 4 ranks at t = 1 and "
-        f"4; one t = {t} chunk ({shape}, {2 * t} launches): device "
+        f"shard's extended block {blocks} (the 257^3 row's 128^3 level and "
+        f"the FAS 65^3 row's levels over 1, 2, 4 ranks) at t = 1 and T, "
+        f"in the form `masked_block.form` gives each; the one-colour form "
+        f"bitwise at {shape}; one "
+        f"t = {t} chunk ({shape}, "
+        f"{MB.chunk_launches(shape, t, sms)} launch): device "
         f"{tm['ms']!r} ms vs plain {tm['plain_ms']!r} ms (bound "
         f"{out['masked_block']['bound_ms']!r} ms by "
-        f"{out['masked_block']['bound_by']}); eager {tm['eager_ms']!r} ms")
+        f"{out['masked_block']['bound_by']}), the one-colour form's "
+        f"{2 * t} launches {MASKED_AB[str(shape)]['half_sweeps_ms']!r} ms; "
+        f"eager {tm['eager_ms']!r} ms")
+    by_block = {k: (a["T"], a["form"], a["chunk_ms"], a["half_sweeps_ms"])
+                for k, a in MASKED_AB.items()}
+    log(f"kernel masked_block: a t = T chunk by block (T, the planned "
+        f"form, the chunk form's ms, the one-colour form's ms): {by_block}")
     torch.cuda.synchronize()
     return out
 
@@ -3959,12 +4042,15 @@ def sharded_launches(solver) -> dict:
     sweeps runs nu // T chunks of T sweeps and one of nu % T; on a
     time-skew level each chunk of t sweeps is ceil(t / 2) launches and the
     leg splits v's black half and f and merges once; on a masked-block
-    level each chunk is 2t launches; on a split2d level each chunk is one
-    launch (a level that runs whole legs on chip: one launch a leg) and
+    level each chunk is `masked_block.chunk_launches` of its block (one
+    where `masked_block.form` plans the chunk form, else 2t); on a
+    split2d level each chunk is one launch (a level that runs whole legs
+    on chip: one launch a leg) and
     the leg splits v and f and merges once; a replicated 3D
     level ("whole") relaxes by the single-device plan, here one resident
     kernel launch a leg.  The transfers, residuals, FAS's injection and
     the exact coarse solve launch no kernel."""
+    from pde_multigrid_tpu_torch.ops.cuda import masked_block as MB
     from pde_multigrid_tpu_torch.ops.cuda import relax as R
 
     cyc = solver.config.cycle
@@ -4002,7 +4088,10 @@ def sharded_launches(solver) -> dict:
                 add("split2d", legs // 2 * 2)
                 add("merge2d", legs // 2)
             else:
-                add("masked_block", legs // 2 * sum(2 * t for t in ts))
+                X, Y, Z = kern.geoms[l].padded_shape
+                shape = (X // kern.mesh.n + 4 * T, Y, Z)
+                add("masked_block", legs // 2 * sum(
+                    MB.chunk_launches(shape, t, R._sm_count(0)) for t in ts))
     return want
 
 
@@ -4741,6 +4830,7 @@ def main() -> int:
                     "barrier_floors": FLOORS, "timeskew_ab": TIMESKEW_AB,
                     "subtree_ab": SUBTREE_AB, "shard2d_ab": SHARD2D_AB,
                     "resident3d_ab": RESIDENT3D_AB, "fas_ab": FAS_AB,
+                    "masked_ab": MASKED_AB,
                     "reduced_ab": REDUCED_AB, "blocked_ab": BLOCKED_AB,
                     "lyap2d_ab": LYAP2D_AB, "error_ab": ERROR_AB,
                     "phase_s": PHASE_S}))

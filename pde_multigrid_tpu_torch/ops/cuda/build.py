@@ -75,6 +75,11 @@ SIGNATURES = {
     ),
     "pdemg_timeskew_clusters": (_P, _I, _I, _P),
     "pdemg_masked_block": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
+    # the masked chunk takes its launch geometry as a pointer to a host
+    # struct (masked_block.MaskedChunkLayout)
+    "pdemg_masked_chunk": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,
+    ),
     "pdemg_blocked3d": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,
     ),
@@ -114,9 +119,11 @@ SIGNATURES = {
     # the fused subtree V-cycle takes its levels as a pointer to a host
     # struct (subtree.SubtreeParams)
     "pdemg_subtree": (_P, _P, _P, _P),
+    "pdemg_subtree_clusters": (_P, _P),
     # the whole-leg 3D resident kernel: v (or its halves r, b), f (or fr,
     # fb) and a pointer to a host struct (resident3d.Resident3DParams)
     "pdemg_resident3d": (_P, _P, _P, _P, _P, _P),
+    "pdemg_resident3d_clusters": (_P, _P),
 }
 
 

@@ -61,8 +61,9 @@
 // Full cluster barriers remain where a phase reads more than the adjacent
 // planes or changes level: after the load, after each split level's relax
 // leg, after each transfer, and around CTA 0's small levels.  The level
-// views, the transfers' addressing and the root's copies are halves3d.cuh's
-// (shared with resident3d.cu, unchanged).
+// views, the relax leg (these half-sweeps and Halo), the transfers'
+// addressing and the root's copies are halves3d.cuh's, shared with
+// resident3d.cu's whole-leg kernel.
 //
 // Bytes and operations per V-cycle: the root's v read and written and its
 // f read, 12 B per root point (3 MB at 64^3) from device memory; 13 float
@@ -83,7 +84,7 @@
 
 #include <cstdint>
 
-#include "halves3d.cuh"  // SubLevel, View, view_of, plane_of, root_copy
+#include "halves3d.cuh"  // SubLevel, View, relax_level, Halo, root_copy
 
 namespace {
 
@@ -94,7 +95,6 @@ constexpr int kMaxSmem = 232448;  // 227 KB, the most one CTA may hold
 // shared memory gets the rest (ops/cuda/subtree.py MAX_SMEM_BYTES)
 constexpr int kSyncBytes = 16;
 constexpr int kMaxDynSmem = kMaxSmem - kSyncBytes;
-constexpr int kRun = 4;  // the longest run of z-pairs a thread walks along x
 
 // ops/cuda/subtree.py SubtreeParams
 struct SubtreeParams {
@@ -236,251 +236,6 @@ __device__ __forceinline__ void prolong_add(const View& F, const View& C,
   }
 }
 
-// A level's half-sweep constants on this CTA, hoisted out of the sweeps.
-struct Sweep {
-  float w0, w1, w2, inv_den;  // the level's split_update constants
-  int lp, lz;                 // log2 of a half's plane, log2 Z
-  int zmask, jmask;           // Z - 1, Y / 2 - 1
-  int x0;                     // this CTA's first plane
-  int runs, items;            // runs of NX planes; (run, z-pair) items
-};
-
-// One point's update from its pair sums and f: the new value, or the old
-// one off the updated points (the boundary planes x, y, z = 0).
-__device__ __forceinline__ float update(float p0, float p1, float p2,
-                                        float f, float old, bool keep,
-                                        const Sweep& q) {
-  const float upd = split_update(p0, p1, p2, f, q.w0, q.w1, q.w2, q.inv_den);
-  return keep ? old + (upd - old) : old;  // m = 1: v + m (upd - v)
-}
-
-// The run of NX x 2 points of colour c at the z-pair (z0, z0 + 1) of row
-// j (col = j Z + z0 in a half's plane, Y / 2 x Z) of the planes [lx0, lx0
-// + NX) from x0, in the halves u (this colour), o (the other) and fu (f of
-// this colour) in shared memory; ep / en: the other colour at the pair of
-// the planes before and after the run.  Every point off the boundary
-// planes becomes old + (upd - old), relax.cu's half_sweep_kernel on the
-// halves: its pair sums in its order.  The pair's loads and its store are
-// 8 bytes wide; a point y = 2 j + s has its other y-neighbour in row j + 1
-// (s = 1) or j - 1, and s alternates along z.
-template <int NX>
-__device__ __forceinline__ void sweep_run(float* __restrict__ u,
-                                          const float* __restrict__ o,
-                                          const float* __restrict__ fu,
-                                          int lx0, int col, float2 ep,
-                                          float2 en, int c, const Sweep& q) {
-  const int z0 = col & q.zmask;
-  const int j = col >> q.lz;
-  const int row = j << q.lz;
-  const int zm = row + ((z0 - 1) & q.zmask);  // z0 - 1, wrapped
-  const int zp = row + ((z0 + 2) & q.zmask);  // z0 + 2, wrapped
-  const int jm = (((j - 1) & q.jmask) << q.lz) + z0;
-  const int jp = (((j + 1) & q.jmask) << q.lz) + z0;
-  const int x = q.x0 + lx0;
-  const int s0 = (x + z0 + c) & 1;  // the run's first point at z0: y = 2j + s0
-  // the other colour at the pair of rows x from the run's first plane - 1
-  // to its last + 1: the x-pairs, each point's own-plane y-term and its
-  // z-neighbour inside the pair
-  float2 a[NX + 2];
-  a[0] = ep;
-#pragma unroll
-  for (int t = 0; t < NX; ++t) {
-    a[t + 1] = *reinterpret_cast<const float2*>(o + ((lx0 + t) << q.lp) + col);
-  }
-  a[NX + 1] = en;
-#pragma unroll
-  for (int t = 0; t < NX; ++t) {
-    const int s = s0 ^ (t & 1);  // at z0; 1 - s at z0 + 1
-    const int pb = (lx0 + t) << q.lp;
-    const float2 fv = *reinterpret_cast<const float2*>(fu + pb + col);
-    const float2 old = *reinterpret_cast<const float2*>(u + pb + col);
-    // neighbour pair sums in relax.cu's order: x, y, z (minus, plus)
-    const float p0x = a[t].x + a[t + 2].x;
-    const float p1x = a[t + 1].x + o[pb + (s ? jp : jm)];
-    const float p2x = o[pb + zm] + a[t + 1].y;
-    const float p0y = a[t].y + a[t + 2].y;
-    const float p1y = a[t + 1].y + o[pb + 1 + (s ? jm : jp)];
-    const float p2y = a[t + 1].x + o[pb + zp];
-    const bool xin = x + t != 0;
-    float2 out;
-    out.x = update(p0x, p1x, p2x, fv.x, old.x,
-                   xin && z0 != 0 && (j != 0 || s != 0), q);
-    out.y = update(p0y, p1y, p2y, fv.y, old.y, xin && (j != 0 || s == 0), q);
-    *reinterpret_cast<float2*>(u + pb + col) = out;
-  }
-}
-
-// One half-sweep of colour c on this CTA's planes of a level in shared
-// memory (halves at u, o, fu): runs of NX planes along x, a thread per
-// (run, z-pair).  hprev / hnext: the other colour's planes beside this
-// CTA's first and last: the halo planes of a split level, the level's own
-// last and first plane (wrapped) on CTA 0.
-template <int NX>
-__device__ __forceinline__ void half_sweep_runs(float* __restrict__ u,
-                                                const float* __restrict__ o,
-                                                const float* __restrict__ fu,
-                                                const float* hprev,
-                                                const float* hnext, int c,
-                                                const Sweep& q) {
-  const int pmask = (1 << (q.lp - 1)) - 1;  // z-pairs of a half's plane
-  for (int i = threadIdx.x; i < q.items; i += blockDim.x) {
-    const int col = 2 * (i & pmask), r = i >> (q.lp - 1);
-    const float* pe = r == 0 ? hprev : o + ((r * NX - 1) << q.lp);
-    const float* pn = r + 1 == q.runs ? hnext : o + ((r * NX + NX) << q.lp);
-    sweep_run<NX>(u, o, fu, r * NX, col,
-                  *reinterpret_cast<const float2*>(pe + col),
-                  *reinterpret_cast<const float2*>(pn + col), c, q);
-  }
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The address of this CTA's shared `p` in CTA `cta` of the cluster.
-__device__ __forceinline__ unsigned remote_addr(const void* p, int cta) {
-  unsigned a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(a)
-               : "r"(smem_addr(p)), "r"(cta));
-  return a;
-}
-
-// This thread's writes to shared memory (the generic proxy) ordered
-// before the bulk copies (the async proxy) that read them.
-__device__ __forceinline__ void fence_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// The halo exchange of a split level's half-sweeps (Hopper's bulk copies
-// between the shared memories of a cluster, completion on an mbarrier).
-// After a half-sweep of colour c each CTA copies its first plane of colour
-// c into the x - 1 neighbour's `next` halo and its last into the x + 1
-// neighbour's `prev` halo, each copy completing on the receiver's bar[c];
-// before a half-sweep of colour c a CTA waits on bar[1 - c] for its two
-// halo planes of colour 1 - c.  The copies are the only signal: a CTA
-// copies after its half-sweep, which read its halos of the other colour,
-// so a neighbour's next copy of that colour lands after the reads; and it
-// overwrites a plane it copied only after a half-sweep that waited for
-// its neighbours' copies, each issued once its copy had landed.
-struct Halo {
-  float* buf;        // [colour][prev, next][plane] floats
-  int plane;         // floats per halo plane
-  uint64_t* bar;     // bar[c]: the two halo planes of colour c landed
-  unsigned parity;   // bit c: the parity of bar[c]'s phase to wait for
-  int left, right;   // the CTAs holding x0 - 1 and x0 + nx
-
-  __device__ __forceinline__ float* at(int c, int side) const {
-    return buf + (2 * c + side) * plane;
-  }
-
-  // Thread 0, after every thread's fence_async and a block barrier: this
-  // CTA's first and last planes of colour c (at `first`, `last`, hp floats
-  // each) to the neighbours; expects theirs on bar[c].
-  __device__ __forceinline__ void send(int c, const float* first,
-                                       const float* last, int hp) const {
-    const unsigned bytes = 4u * (unsigned)hp;
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :
-                 : "r"(smem_addr(bar + c)), "r"(2 * bytes)
-                 : "memory");
-    const float* src[2] = {first, last};
-    const int cta[2] = {left, right};
-#pragma unroll
-    for (int d = 0; d < 2; ++d) {
-      // the first plane is the left CTA's `next`, the last the right's
-      // `prev`
-      asm volatile(
-          "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx"
-          "::bytes [%0], [%1], %2, [%3];"
-          :
-          : "r"(remote_addr(at(c, 1 - d), cta[d])), "r"(smem_addr(src[d])),
-            "r"(bytes), "r"(remote_addr(bar + c, cta[d]))
-          : "memory");
-    }
-  }
-
-  // Every thread: wait until the halo planes of colour c have landed.
-  __device__ __forceinline__ void wait(int c) {
-    const unsigned ph = (parity >> c) & 1u;
-    unsigned done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n\t.reg .pred p;\n\t"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-          "selp.u32 %0, 1, 0, p;\n\t}"
-          : "=r"(done)
-          : "r"(smem_addr(bar + c)), "r"(ph)
-          : "memory");
-    }
-    parity ^= 1u << c;
-  }
-};
-
-// `nsweeps` red-then-black sweeps of this CTA's planes of a level (v and
-// f in shared memory).  A level on CTA 0 ends each half-sweep with a block
-// barrier.  A split level sends its black edge planes first, then waits
-// for its halos before each half-sweep and sends the new edge planes after
-// each but the last (Halo); the leg ends with a cluster barrier, as every
-// phase after it reads more than the adjacent planes.
-__device__ __forceinline__ void relax_level(float* smem, const View& w,
-                                            const SubLevel& L, int nsweeps,
-                                            Halo& halo) {
-  if (w.nx == 0 || nsweeps == 0) return;
-  const bool split = w.nctas > 1;
-  const int nx = w.nx < kRun ? w.nx : kRun;
-  Sweep q;
-  q.w0 = L.w0;
-  q.w1 = L.w1;
-  q.w2 = L.w2;
-  q.inv_den = L.inv_den;
-  q.lp = w.lyz - 1;
-  q.lz = w.lz;
-  q.zmask = w.Z - 1;
-  q.jmask = (w.Y >> 1) - 1;
-  q.x0 = w.x0;
-  q.runs = w.nx / nx;
-  q.items = q.runs << (q.lp - 1);
-  const int hp = 1 << q.lp;
-  float* const v = smem + L.v_off;
-  const float* const f = smem + L.f_off;
-  const float* last = v + ((w.nx - 1) << q.lp);  // of the red half
-  if (split) {
-    fence_async();
-    __syncthreads();
-    if (threadIdx.x == 0) halo.send(1, v + w.hs, last + w.hs, hp);
-  }
-  for (int h = 0; h < 2 * nsweeps; ++h) {
-    const int c = h & 1;
-    float* u = v + c * w.hs;
-    const float* o = v + (1 - c) * w.hs;
-    const float* fu = f + c * w.hs;
-    const float* hprev = o + ((w.nx - 1) << q.lp);
-    const float* hnext = o;
-    if (split) {
-      halo.wait(1 - c);
-      hprev = halo.at(1 - c, 0);
-      hnext = halo.at(1 - c, 1);
-    }
-    if (nx == 4) {
-      half_sweep_runs<4>(u, o, fu, hprev, hnext, c, q);
-    } else if (nx == 2) {
-      half_sweep_runs<2>(u, o, fu, hprev, hnext, c, q);
-    } else {
-      half_sweep_runs<1>(u, o, fu, hprev, hnext, c, q);
-    }
-    if (!split) {
-      __syncthreads();
-    } else if (h + 1 < 2 * nsweeps) {
-      fence_async();
-      __syncthreads();  // this CTA's half-sweep written
-      if (threadIdx.x == 0) halo.send(c, u, last + c * w.hs, hp);
-    } else {
-      cg::this_cluster().sync();
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
     subtree_kernel(float* vg, const float* fg,
                    const __grid_constant__ SubtreeParams p) {
@@ -489,16 +244,7 @@ __global__ void __launch_bounds__(kThreads)
   const int rank = p.nctas > 1 ? (int)cg::this_cluster().block_rank() : 0;
   Halo halo = {smem + p.halo_off, p.halo_plane, bar, 0u,
                (rank + p.nctas - 1) % p.nctas, (rank + 1) % p.nctas};
-  if (p.nctas > 1 && threadIdx.x == 0) {
-    for (int c = 0; c < 2; ++c) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   :
-                   : "r"(smem_addr(bar + c))
-                   : "memory");
-    }
-    // the initialised barriers seen by the cluster's bulk copies
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  if (p.nctas > 1 && threadIdx.x == 0) halo_init(bar);
   const int K = p.nlev;
   const View root = view_of(p.lev[0], rank, smem, vg, fg);
   const long long at0 = (long long)root.x0 << root.lyz;

@@ -17,8 +17,13 @@ each a mode of the one kernel:
     `launches["resident3d"]`.
 
 All sweeps of a leg run in one launch with the level's v and f in
-shared memory: 16^3 and below on one CTA, 32^3 on a cluster of 8 CTAs,
-64^3 on 16 (`layout`).
+shared memory, on the fused subtree's relax leg (`csrc/halves3d.cuh`,
+shared with `csrc/subtree.cu`): a level of more than 8^3 points on one
+non-portable cluster of 16 CTAs, x-slabs whose edge planes the
+neighbours bulk-copy into each other's halo planes every half-sweep
+(64^3: 4 planes a CTA, 32^3: 2, 16^3: 1), 8^3 and below on one CTA
+(`layout`).  A card that refuses the cluster makes the launch raise
+(`cudaOccupancyMaxActiveClusters`, asked once per launch shape).
 The merged (X, Y Z / 128, 128) view is TPU tiling only and has no
 counterpart here.  The update is Poisson's `merged_update` (dense,
 `v + m (upd - v)`, red x + y + z even first) or, on halves,
@@ -30,7 +35,7 @@ Each wrapper launches the kernel for CUDA tensors, runs the plain version
 for CPU tensors, and raises for anything else; there is no fallback from
 a CUDA tensor to the plain version.  v (or r, b) is updated in place on
 both devices.  The gate `fits` is the kernel's capacity (one CTA, or one
-cluster of 8 or 16 CTAs), not JAX's VMEM budget.
+cluster of 16 CTAs), not JAX's VMEM budget.
 """
 
 from __future__ import annotations
@@ -49,20 +54,28 @@ from pde_multigrid_tpu_torch.ops.cuda.relax import (
     _on_cuda,
     _stream,
 )
-from pde_multigrid_tpu_torch.ops.cuda.subtree import SubLevelParams
+from pde_multigrid_tpu_torch.ops.cuda.subtree import (
+    CLUSTER_CTAS,
+    MAX_SMEM_BYTES,
+    RUN,
+    THREADS,
+    SubLevelParams,
+    _split,
+    check_cluster,
+)
 
 launches = {"merged_resident": 0, "split_merged": 0, "resident3d": 0}
 
-# shared memory one CTA may hold, and the clusters a larger level may run
-# on: the portable 8 CTAs and the non-portable 16 the card allows
-MAX_SMEM_BYTES = 232448
-CLUSTERS = (8, 16)
-# a level of at most this many points lives on one CTA (block barriers);
-# larger levels are cut into x-slabs over a cluster.  f is held in shared
-# memory beside v: on the card that beat fewer CTAs reading f through the
-# L2 (32^3 on 1 or 8 CTAs, 64^3 on 8 or 16; PERF.md section 6 row 4)
-LOCAL_MAX_POINTS = 16**3
-THREADS = 1024
+# The layout is the fused subtree's (subtree.py): its 16-CTA cluster and
+# shared memory a CTA, its cut of a level into x-slabs (`_split`), its
+# runs of RUN planes and THREADS a CTA (a 64^3 leg on 1024 threads ran
+# slower on the card: scripts/probe_resident_masked.py).  On one CTA a
+# thread walks a single plane (the shortest chain a half-sweep).
+ONE_CTA_RUN = 1
+# a level of at most this many points keeps the port's first form, a point
+# a thread (run 0): on 2^3 it beat the runs of one plane in the same call
+# on the card (scripts/ab_rows.py resident3d; PERF.md section 6 row 1)
+POINT_MAX_POINTS = 2**3
 
 
 class Resident3DParams(ctypes.Structure):
@@ -70,7 +83,8 @@ class Resident3DParams(ctypes.Structure):
 
     _fields_ = [("lev", SubLevelParams)]
     _fields_ += [(n, ctypes.c_int) for n in
-                 ("nsweeps", "halves", "threads", "smem_bytes")]
+                 ("nsweeps", "halves", "threads", "smem_bytes", "halo_off",
+                  "halo_plane", "run")]
 
 
 def reset_launches() -> None:
@@ -93,11 +107,20 @@ def merged_gate(geom: LevelGeometry) -> bool:
 
 def layout(geom: LevelGeometry):
     """The kernel's layout of the level, or None when it cannot hold it:
-    {"nctas": 1 or one of CLUSTERS, "smem_bytes": per CTA, "threads": per
-    CTA}.  The kernel takes 3D wrap levels with power-of-two extents, v
-    and f as colour halves in shared memory.  A level of at most
-    LOCAL_MAX_POINTS points lives on one CTA; a larger one on the smallest
-    cluster whose CTAs (one plane each at least) hold v and f."""
+    {"nctas": 1 or CLUSTER_CTAS, "smem_bytes": per CTA, "threads": per
+    CTA, "halo": (float offset, floats a plane) of the 2 colours x 2 sides
+    of halo planes, (0, 0) on one CTA, "run": the longest run of planes a
+    thread walks, 0 for a point a thread}.  The kernel takes 3D wrap levels
+    with power-of-two extents, v and f as colour halves in shared memory.
+    A level the subtree splits (`subtree._split`: more than 8^3 points,
+    at least one x-plane a CTA; and a half's plane a whole number of
+    16-byte bulk copies) is cut into x-slabs over the cluster, each CTA
+    holding its v and f and the halo planes; a smaller one lives on one
+    CTA.  A thread runs a
+    (run of up to `run` planes, z-pair) item of each colour, at most
+    THREADS: runs of RUN planes on a split level, ONE_CTA_RUN on one CTA,
+    and a point a thread (the port's first form) on a level of at most
+    POINT_MAX_POINTS points."""
     if not (geom.wrap and geom.ndim == 3):
         return None
     shape = geom.padded_shape
@@ -105,15 +128,23 @@ def layout(geom: LevelGeometry):
         return None
     X, Y, Z = shape
     pts = X * Y * Z
-    cands = ((1,) if pts <= LOCAL_MAX_POINTS
-             else tuple(c for c in CLUSTERS if X >= c))
-    nctas = next((c for c in cands if 8 * (pts // c) <= MAX_SMEM_BYTES),
-                 None)
-    if nctas is None:
-        return None
+    # a half's plane goes to a neighbour as a whole number of 16-byte
+    # bulk copies
+    split = _split(geom, CLUSTER_CTAS) and (Y * Z // 2) % 4 == 0
+    nctas = CLUSTER_CTAS if split else 1
     held = pts // nctas
-    threads = min(THREADS, max(32, -(-(held // 2) // 32) * 32))
-    return {"nctas": nctas, "smem_bytes": 8 * held, "threads": threads}
+    halo = (2 * held, Y * Z // 2) if split else (0, 0)
+    smem = 4 * (2 * held + 4 * halo[1])
+    if smem > MAX_SMEM_BYTES:
+        return None
+    planes = X // nctas
+    run = (RUN if split else 0 if pts <= POINT_MAX_POINTS
+           else ONE_CTA_RUN)
+    items = (held // 2 if run == 0
+             else planes // min(run, planes) * (Y * Z // 4))
+    threads = min(THREADS, max(32, -(-items // 32) * 32))
+    return {"nctas": nctas, "smem_bytes": smem, "threads": threads,
+            "halo": halo, "run": run}
 
 
 def fits(geom: LevelGeometry) -> bool:
@@ -132,12 +163,15 @@ def _params(geom: LevelGeometry, nsweeps: int,
             halves: bool) -> Resident3DParams:
     lay = layout(geom)
     (w0, w1, w2), inv_den = split_constants(geom)
-    lx, ly, lz = (n.bit_length() - 1 for n in geom.padded_shape)
+    X, Y, Z = geom.padded_shape
+    lx, ly, lz = (n.bit_length() - 1 for n in (X, Y, Z))
     lev = SubLevelParams(lx, ly, lz, lay["nctas"], 0,
-                         lay["smem_bytes"] // 8, w0, w1, w2, inv_den)
+                         X * Y * Z // lay["nctas"], w0, w1, w2, inv_den)
     return Resident3DParams(lev=lev, nsweeps=nsweeps, halves=int(halves),
                             threads=lay["threads"],
-                            smem_bytes=lay["smem_bytes"])
+                            smem_bytes=lay["smem_bytes"],
+                            halo_off=lay["halo"][0],
+                            halo_plane=lay["halo"][1], run=lay["run"])
 
 
 # ------------------------------------------------------ plain versions
@@ -201,13 +235,17 @@ def _check(ts, shape, geom: LevelGeometry, nsweeps: int, what: str) -> bool:
     if not fits(geom):
         raise ValueError(f"{what}: the kernel cannot hold level "
                          f"{geom.padded_shape} (power-of-two extents, one "
-                         f"CTA or one cluster of {CLUSTERS} CTAs)")
+                         f"CTA or one cluster of {CLUSTER_CTAS} CTAs)")
     return _on_cuda(*ts)
 
 
 def _launch(name, v, vb, f, fb, nsweeps, problem, geom, halves):
     _check_poisson(problem)
     params = _params(geom, nsweeps, halves)
+    if params.lev.nctas > 1:
+        check_cluster(build.load().lib.pdemg_resident3d_clusters, params,
+                      (params.lev.nctas, params.threads, params.smem_bytes),
+                      "resident3d")
     rc = build.load().lib.pdemg_resident3d(
         v.data_ptr(), None if vb is None else vb.data_ptr(), f.data_ptr(),
         None if fb is None else fb.data_ptr(), ctypes.byref(params),

@@ -184,35 +184,37 @@ def _params(geoms, nu1: int, nu2: int, with_root_relax: bool,
     return p
 
 
-# the launch shapes (CTAs, threads, shared memory) the card runs a cluster of
+# the kernels and launch shapes (CTAs, threads, shared memory) the card
+# runs a cluster of
 _CLUSTERS_OK: set = set()
 
 
-def _check_cluster(params: SubtreeParams) -> None:
-    """Raise unless the card runs a cluster of this launch: asked once per
-    launch shape (cudaOccupancyMaxActiveClusters), at its first call."""
-    shape = (params.nctas, params.threads, params.smem_bytes)
-    if shape in _CLUSTERS_OK:
+def check_cluster(fn, params, shape, what: str) -> None:
+    """Raise unless the card runs a cluster of the launch `params` of
+    `shape` (CTAs, threads, shared memory): asked once per kernel and
+    shape, at its first call, through `fn` (the kernel's
+    cudaOccupancyMaxActiveClusters entry point).  Shared with
+    resident3d.py, whose 16-CTA leg is this kernel's."""
+    if (what, shape) in _CLUSTERS_OK:
         return
-    fn = build.load().lib.pdemg_subtree_clusters
-    fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
-    fn.restype = ctypes.c_int
     clusters = ctypes.c_int(0)
     build.check(fn(ctypes.byref(params), ctypes.byref(clusters)),
-                "subtree (cudaOccupancyMaxActiveClusters)")
+                f"{what} (cudaOccupancyMaxActiveClusters)")
     if clusters.value < 1:
         raise RuntimeError(
             f"the card runs no cluster of {shape[0]} CTAs of {shape[1]} "
-            f"threads and {shape[2]} B of shared memory each (the subtree "
+            f"threads and {shape[2]} B of shared memory each (the {what} "
             "kernel's launch); there is no smaller layout to fall back to")
-    _CLUSTERS_OK.add(shape)
+    _CLUSTERS_OK.add((what, shape))
 
 
 def _launch(v, f, params: SubtreeParams) -> None:
     """One launch of the kernel on the root's dense v (updated in place)
     and f, CUDA tensors the wrapper checked."""
     if params.nctas > 1:
-        _check_cluster(params)
+        check_cluster(build.load().lib.pdemg_subtree_clusters, params,
+                      (params.nctas, params.threads, params.smem_bytes),
+                      "subtree")
     rc = build.load().lib.pdemg_subtree(v.data_ptr(), f.data_ptr(),
                                         ctypes.byref(params), _stream())
     launches["subtree"] += 1

@@ -46,8 +46,11 @@ shapes that is the same on either device:
     convention;
   * "masked-block" (every other level): t dense masked sweeps of the
     problem's `kernel_update` on the halo-extended block
-    (`masked_block.masked_block`, csrc/masked_block.cu), masks from the
-    global row offset, built once per level and rank.
+    (`masked_block.masked_block`, csrc/masked_block.cu: one launch a chunk
+    on the blocks its chunk form holds with enough planes a CTA, the
+    128^3 level's on 1, 2 and 4 ranks; else one launch a colour
+    half-sweep), masks from the global row offset, built once per level
+    and rank.
 
 JAX's TPU gates are left out: the lane alignment (Z % 128, Y/2 % 8, and
 x_loc % 8 with the 8-row halo rounding of the 2D engine), the VMEM budget

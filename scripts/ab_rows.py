@@ -15,7 +15,21 @@ A ROW is
             graph-replayed, on every level of the Galerkin varcoef1d 1025,
             Poisson(3) 33 and varcoef3d 33 hierarchies and on an odd 2D
             (65^2, K = 9) and a padded 3D (33^3, K = 7) level with random
-            coefficients.
+            coefficients;
+  fas257    `chip_smoke.phase_fas3d_257(torch)`: the 3D FAS row at 257^3
+            (its gate, `fas_launches`, ms a step eager and as one CUDA
+            graph, the same step with the resident kernel's levels on the
+            half-sweeps, `row9_below_128` and `row9_at_64`), the SHA-256
+            of a fresh solve's solution;
+  sharded257  `chip_smoke.phase_main_path(torch, 257, "f32")` (the
+            unsharded solve it is held against), then
+            `chip_smoke.phase_sharded(torch)`: the 257^3 row on `--mesh 1`
+            (its gate, `sharded_launches`, ms a step eager and as one CUDA
+            graph), the SHA-256 of its logical solution;
+  resident3d  a 100-sweep dense leg of the whole-leg 3D resident kernel
+            (`merged_resident_relax`, or `resident3d_relax` off the merged
+            gate) on every level of 65^3, timed graph-replayed, and the
+            SHA-256 of the legs' results on seeded inputs.
 Each side runs every ROW in its own process with its own kernels build,
 in the order PARENT, CHANGE, CHANGE, PARENT, and prints one `AB` JSON line
 a row (its summary, launch counts and the result's SHA-256).  Then one
@@ -81,6 +95,30 @@ def stencil_row():
     return {}, summary, sha(*outs)
 
 
+def resident3d_row():
+    import numpy as np
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.models import Poisson3D
+    from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
+
+    prob = Poisson3D()
+    rng = np.random.default_rng(2031)
+    summary, outs = {}, []
+    for g in build_geometries((65,) * 3, prob.domain, wrap=True):
+        fn = (RS3.merged_resident_relax if RS3.merged_gate(g)
+              else RS3.resident3d_relax)
+        shape = g.padded_shape
+        v = torch.tensor((rng.standard_normal(shape) * wrap_interior(shape))
+                         .astype(np.float32), device="cuda")
+        f = torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device="cuda")
+        outs.append(fn(v.clone(), f, 100, prob, g))
+        w = v.clone()
+        summary[f"{shape[0]}^3"] = {"ms": c.device_ms(
+            torch, lambda: fn(w, f, 100, prob, g), 3)}
+    return {}, summary, sha(*outs)
+
+
 c.phase_card(torch)
 c.phase_build()
 for row in sys.argv[2:]:
@@ -96,6 +134,21 @@ for row in sys.argv[2:]:
         digest = sha(v)
     elif row == "stencil":
         counts, s, digest = stencil_row()
+    elif row == "fas257":
+        from pde_multigrid_tpu_torch import MultigridSolver, Poisson3D
+        counts, s = c.phase_fas3d_257(torch)
+        digest = sha(MultigridSolver(Poisson3D(), c.FAS_N, c._fas_cfg(),
+                                     device="cuda").solve().v)
+    elif row == "sharded257":
+        _, s32, v32 = c.phase_main_path(torch, c.SHARD_N, "f32")
+        c.UNSHARDED["f32"] = (s32, v32)
+        counts, s, digest = c.phase_sharded(torch)
+        c.UNSHARDED.clear()
+        import torch.distributed as dist
+        if dist.is_initialized():  # the one-rank group of phase_sharded
+            dist.destroy_process_group()
+    elif row == "resident3d":
+        counts, s, digest = resident3d_row()
     else:
         raise SystemExit(f"unknown row {row}")
     print("AB " + json.dumps({"side": sys.argv[1], "row": row,

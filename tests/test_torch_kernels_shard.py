@@ -182,3 +182,97 @@ def test_masked_block_wrapper_writes_back():
                         mb.double(), 1, TPoisson(3), tg)
     with pytest.raises(ValueError, match="shape"):
         MB.masked_block(v[1:], f, pre, mr, mb, 1, TPoisson(3), tg)
+
+
+# ------------------------------------------------ the masked block's form
+
+
+class _Ranks:
+    """A mesh of `n` ranks seen from rank 0, for plans (no collective)."""
+
+    def __init__(self, n):
+        self.n, self.rank, self.device = n, 0, torch.device("cpu")
+
+
+def _masked_blocks(size, n, scheme):
+    """The extended blocks (x_loc + 4T, Y, Z) of the masked-block levels of
+    the size^3 row's hierarchy (to 64^3, solved exactly, in the correction
+    scheme; relaxed to 2^3 in FAS) sharded over n ranks, as the sharded
+    tier plans them."""
+    from pde_multigrid_tpu_torch.parallel.sharded import ShardedKernels
+
+    geoms = TG.build_geometries((size,) * 3, DOM, wrap=True)
+    relaxed = range(len(geoms))
+    if scheme == "cs":
+        geoms = [g for g in geoms if g.padded_shape[0] >= 64]
+        relaxed = range(len(geoms) - 1)
+    k = ShardedKernels(TPoisson(3), geoms, _Ranks(n), torch.float32,
+                       relaxed_levels=relaxed, scheme=scheme)
+    return [(g.padded_shape[0] // n + 4 * fn.T,) + g.padded_shape[1:]
+            for g, fn, e in zip(geoms, k._relax, k.plan)
+            if e == "masked-block"]
+
+
+@pytest.mark.parametrize("size,scheme,blocks", [
+    (257, "cs", {1: [(144, 128, 128)], 2: [(80, 128, 128)],
+                 4: [(48, 128, 128)]}),
+    (65, "fas", {1: [(80, 64, 64), (48, 32, 32), (32, 16, 16),
+                     (24, 8, 8), (12, 4, 4), (6, 2, 2)],
+                 2: [(48, 64, 64), (32, 32, 32), (24, 16, 16),
+                     (12, 8, 8)],
+                 4: [(32, 64, 64), (24, 32, 32), (12, 16, 16)]}),
+])
+def test_masked_block_form_on_the_rows_blocks(size, scheme, blocks):
+    """Every masked-block level of the sharded 257^3 row (exact coarsest)
+    and of the sharded FAS 65^3 row (relaxed to 2^3), over 1, 2 and 4
+    ranks: the chunk form (one launch a chunk of t = 1 ... 4 sweeps) where
+    its layout gives a CTA at least CHUNK_MIN_PLANES planes, the 128^3
+    level's blocks on 1, 2 and 4 ranks (9, 5 and 3 planes a CTA, 128 CTAs
+    of 512 threads); the one-colour form (2t launches) on the FAS row's
+    blocks, 1 or 2 planes a CTA (where the chunk's layout exists it
+    covers the block once in whole blocks of planes x rows, every z, one
+    CTA an SM of the 132, within the kernel's threads, shared memory and
+    planes)."""
+    for n, want in blocks.items():
+        got = _masked_blocks(size, n, scheme)
+        assert got == want, (n, got)
+        for shape in got:
+            XB, Y, Z = shape
+            chunk = size == 257
+            assert MB.form(shape) == ("chunk" if chunk else "half-sweeps")
+            assert [MB.chunk_launches(shape, t) for t in (0, 1, 2, 3, 4)] == (
+                [0, 1, 1, 1, 1] if chunk else [0, 2, 4, 6, 8])
+            lay = MB.chunk_layout(*shape)
+            if lay is None:
+                assert Z % 4  # the (6, 2, 2) block: z quads do not fit
+                continue
+            P, J = lay["planes"], lay["rows"]
+            assert (P >= MB.CHUNK_MIN_PLANES) == chunk
+            assert (lay["xblocks"] - 1) * P < XB <= lay["xblocks"] * P
+            assert (lay["yblocks"] - 1) * J < Y <= lay["yblocks"] * J
+            assert lay["ctas"] == lay["xblocks"] * lay["yblocks"] <= 132
+            assert lay["threads"] == -(-J * Z // 4 // 32) * 32 <= 512
+            assert P <= MB.CHUNK_MAX_PLANES
+            assert lay["yblocks"] == 1 or P <= J
+            assert lay["smem_bytes"] == 4 * P * Z * (2 * J + 2) <= 232448
+            if chunk:
+                assert (lay["ctas"], lay["threads"]) == (128, 512)
+                assert P == {1: 9, 2: 5, 4: 3}[n]
+
+
+def test_masked_block_form_elsewhere():
+    """Blocks the chunk's layout cannot hold keep the one-colour launches,
+    2t a chunk: more than CHUNK_MAX_PLANES planes a CTA (the 256^3
+    level's one-rank block), Z not a multiple of 4, fewer SMs than y
+    blocks; a chunk of more than CHUNK_MAX_SWEEPS sweeps is split."""
+    for shape, sms in (((272, 256, 256), 132), ((17, 28, 38), 132),
+                       ((48, 64, 2048), 1)):
+        assert MB.chunk_layout(*shape, sms) is None
+        assert MB.form(shape, sms) == "half-sweeps"
+        assert [MB.chunk_launches(shape, t, sms) for t in (1, 2, 3, 4)] == [
+            2, 4, 6, 8]
+    assert MB.chunk_layout(16, 4, 8, 1) == {
+        "ctas": 1, "planes": 16, "rows": 4, "xblocks": 1, "yblocks": 1,
+        "threads": 32, "smem_bytes": 4 * 16 * 8 * 10}
+    assert MB.form((16, 4, 8), 1) == "chunk"
+    assert MB.chunk_launches((144, 128, 128), 300) == 3

@@ -187,18 +187,37 @@ def test_plan_pins_match_jax_plan_relax(n):
 
 
 def test_gate_and_layout():
-    """The kernel holds 64^3 on the 16-CTA cluster and 32^3 on the 8-CTA
-    one, 16^3 and below on one CTA, f in shared memory beside v on each;
+    """The kernel holds 64^3, 32^3 and 16^3 as x-slabs over the 16-CTA
+    cluster (4, 2 and 1 planes a CTA), each CTA's v and f halves followed
+    by the 2 colours x 2 sides of halo planes (a half's plane each) inside
+    the 227 KB less the halo mbarriers, and 8^3 and below on one CTA
+    without halo planes; a thread per (run of planes, z-pair): runs of up
+    to 4 planes on the cluster, of one plane on one CTA, and on 2^3 a point
+    a thread (the port's first form, faster there on the card);
     128^3 (whose v alone would fit 16 CTAs) and non-power-of-two extents
     not at all."""
     tg = TG.build_geometries((257,) * 3, DOM, wrap=True)
     lays = {g.padded_shape[0]: RS3.layout(g) for g in tg}
     assert lays[256] is None and lays[128] is None
-    assert lays[64] == {"nctas": 16, "smem_bytes": 131072, "threads": 1024}
-    assert lays[32] == {"nctas": 8, "smem_bytes": 32768, "threads": 1024}
-    assert all(lays[s]["nctas"] == 1 and lays[s]["smem_bytes"] == 8 * s**3
-               for s in (16, 8, 4, 2))
-    assert lays[2]["threads"] == 32
+    assert lays[64] == {"nctas": 16, "smem_bytes": 163840, "threads": 512,
+                        "halo": (32768, 2048), "run": 4}
+    assert lays[32] == {"nctas": 16, "smem_bytes": 24576, "threads": 256,
+                        "halo": (4096, 512), "run": 4}
+    assert lays[16] == {"nctas": 16, "smem_bytes": 4096, "threads": 64,
+                        "halo": (512, 128), "run": 4}
+    for s in (64, 32, 16):
+        held = s**3 // 16
+        off, plane = lays[s]["halo"]
+        assert off == 2 * held and plane == s * s // 2 and plane % 4 == 0
+        assert lays[s]["smem_bytes"] == 4 * (off + 4 * plane)
+        assert lays[s]["smem_bytes"] <= RS3.MAX_SMEM_BYTES == 232448 - 16
+    assert all(lays[s] == {"nctas": 1, "smem_bytes": 8 * s**3,
+                           "threads": max(32, s**3 // 4), "halo": (0, 0),
+                           "run": 1}
+               for s in (8, 4))
+    assert lays[2] == {"nctas": 1, "smem_bytes": 64, "threads": 32,
+                       "halo": (0, 0), "run": 0}  # a point a thread
+    assert [RS3.one_cta(g) for g in tg] == [False] * 5 + [True] * 3
     odd = TG.LevelGeometry(shape=(97,) * 3, spacing=(0.1,) * 3,
                            origin=(0.0,) * 3, domain=DOM, wrap=True)
     assert odd.padded_shape == (96,) * 3 and RS3.merged_gate(odd)
@@ -233,6 +252,10 @@ def test_refusals():
         RS3.resident3d_relax(big, big, 1, prob, g64)
     with pytest.raises(ValueError, match="one CTA"):
         RS3.resident3d_relax(vt, ft, 1, prob, tg)  # 32^3: a cluster's
+    _, g16, v16, f16 = _level(33, seed=7, l=1)
+    with pytest.raises(ValueError, match="one CTA"):  # 16^3: a cluster's
+        RS3.resident3d_relax(torch.tensor(v16), torch.tensor(f16), 1, prob,
+                             g16)
     with pytest.raises(ValueError, match="nsweeps"):
         RS3.merged_resident_relax(vt, ft, -1, prob, tg)
     g2 = TG.build_geometries((17, 17), DOM[:2], wrap=True)[0]
@@ -243,3 +266,30 @@ def test_refusals():
         RS3.split_merged_relax(r, b, vt, ft, 1, prob, tg)
     v0 = vt.clone()
     assert torch.equal(RS3.merged_resident_relax(v0, ft, 0, prob, tg), vt)
+
+
+def test_refused_cluster_raises(monkeypatch):
+    """Where the card runs no 16-CTA cluster of a split level's launch
+    (cudaOccupancyMaxActiveClusters 0), the leg raises before any kernel
+    is launched: no fallback to one CTA or to the plain version.  The
+    card is asked once per launch shape, and a refusal is not
+    remembered; a level on one CTA asks nothing."""
+    asked = []
+
+    def clusters(params, out):
+        asked.append(params._obj.lev.nctas)
+        out._obj.value = 0
+        return 0
+
+    lib = type("Lib", (), {"pdemg_resident3d_clusters":
+                           staticmethod(clusters)})
+    monkeypatch.setattr(RS3.build, "load",
+                        lambda: type("L", (), {"lib": lib}))
+    g64 = TG.build_geometries((65,) * 3, DOM, wrap=True)[0]
+    v = torch.zeros(g64.padded_shape)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="no cluster of 16 CTAs"):
+            RS3._launch("merged_resident", v, None, v, None, 1,
+                        TPoisson(3), g64, False)
+    assert asked == [16, 16]
+    assert not any(RS3.launches.values())
