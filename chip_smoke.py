@@ -100,15 +100,17 @@ Phases, in order; any failure exits non-zero without the final result line:
      the plan's kernels launched and no other, each against the float64
      solve of its schedule (and the 1025^2 one under max(10 h, 5e-5)), ms
      per step eager and as one CUDA graph;
-  7. the 1D family: relax1d bitwise against its plain version over
-     1000-sweep legs (Ode1D at 8193, 4097, 16385 and 3, 5, 9, 17 points;
-     Poisson(1) at 8193 and 16385 in wrap storage), timed beside its
-     plain version; then the bench's ode1d row, 8193 points,
+  7. the 1D family: relax1d bitwise against its plain version at 1,
+     T - 1, T, T + 1 and 1000 sweeps in the layout of its plan (Ode1D on
+     every level 8193 down to 3 points, 16385 and 65537; Poisson(1) at
+     8193 and 16385 in wrap storage), a 1000-sweep leg timed on each;
+     then the bench's ode1d row, 8193 points,
      FMG(2, 1000, 1000), exact (dense inverse) coarsest level 2049,
      precision="mixed", through `MultigridSolver.solve()` on "cuda":
      error_linf < max(10 h, 5e-5), finite residuals, exactly 12 relax1d
-     launches and no other kernel, ms per step and DOF-updates/s eager and
-     as one CUDA graph, and the float64 solve of the same schedule
+     launches and no other kernel, the solution's SHA-256, ms per step
+     and DOF-updates/s eager and as one CUDA graph, the profiler's busy
+     time, and the float64 solve of the same schedule
      (error_linf within 1 % of its, the solution within 10 % of that
      error, each plus 16 ulp of max|u|, the float32 floor);
      then `--preset ode1d` through the CLI (13 levels down to 3 points:
@@ -120,16 +122,18 @@ Phases, in order; any failure exits non-zero without the final result line:
      16385 points, each within its row's gate of its float64 solve) and
      their control (Ode1D on [0, 0.9], which the ODE gate must reject);
   8. the HJB path: slab2d bitwise against its plain version at 513^2 and
-     257^2 with 1, T and 30 sweeps, and resident_hjb over 30-sweep legs at
-     257^2 down to 3^2 on the CTAs of its plan, the ring and the pinned
-     ball unchanged (a 30-sweep leg timed on each level); then the bench's
+     257^2 with 1, T and 30 sweeps, and resident_hjb at 1, T - 1, T,
+     T + 1 and 30 sweeps on 257^2 down to 3^2 in the layout of its plan,
+     the ring and the pinned ball unchanged (a 30-sweep leg timed on each
+     level); then the bench's
      hjb2d
      row, 513^2, FMG(2, 30, 30), scheme="fas", coarsest="relax", f32,
      through `MultigridSolver.solve()` on "cuda": error_linf under the
      bench's gate 1.15 * 0.2032 * (32 h)^0.17, the ring and ball exact,
      exactly 4 ceil(30 / T) slab2d and 176 resident_hjb launches and no
-     other kernel, ms per step eager and as one CUDA graph, DOF-updates/s,
-     the profiler's busy time split into slab, resident and plain ops;
+     other kernel, the solution's SHA-256, ms per step eager and as one
+     CUDA graph, DOF-updates/s, the profiler's busy time split into slab,
+     resident and plain ops;
      and the float64 solve of the same schedule (plain tier on the card):
      error_linf within 1 % of its, max|v - v_float64| under
      HJB_DV_LIMIT;
@@ -1771,14 +1775,15 @@ def phase_kernels2d(torch):
 
 
 def phase_kernels1d(torch):
-    """relax1d against its plain version on the card, bitwise, over
-    1000-sweep legs: Ode1D at 8193 and 4097 (the ode1d row's relaxed
-    levels), 16385 (the one-CTA capacity: 1024 threads, 64 KB of staging
-    shared memory) and 3, 5, 9, 17 (one to seven interior points, one
-    warp), and Poisson(1) in wrap storage at 8193 and 16385 (8192 and
-    16384 stored points).  Returns {"relax1d": the record of the 8193
-    leg}; the other legs' times (kernel and plain version, graph-replayed)
-    are logged, the 3-point leg's as the per-sweep barrier floor."""
+    """relax1d against its plain version on the card, bitwise, at 1,
+    T - 1, T, T + 1 and 1000 sweeps (T the layout's sweeps between halo
+    refreshes, `relax1d.layout`; 1000 on one warp): Ode1D on every level
+    of the ode1d preset's hierarchy, 8193 down to 3 points, and at 16385
+    and 65537 (the cluster's capacity: K = 8), and Poisson(1) in wrap
+    storage at 8193 and 16385 (8192 and 16384 stored points).  Returns
+    {"relax1d": the record of the 8193 leg}; the other legs' times
+    (graph-replayed; the plain version's where it is quick) go to the log
+    and RELAX1D_LEG_MS, the 3-point leg's as the per-sweep floor."""
     import numpy as np
 
     from pde_multigrid_tpu_torch.grid import build_geometries
@@ -1789,21 +1794,27 @@ def phase_kernels1d(torch):
     rng = np.random.default_rng(2026)
     out = {}
     nsw = 1000
-    cases = [(Ode1D(), n, False) for n in (8193, 4097, 16385, 3, 5, 9, 17)]
+    cases = [(Ode1D(), n, False) for n in (8193, 4097, 16385, 65537, 2049,
+                                           1025, 513, 257, 129, 65, 33, 17,
+                                           9, 5, 3)]
     cases += [(Poisson(1), n, True) for n in (8193, 16385)]
     for prob, n, wrap in cases:
         g = build_geometries((n,), prob.domain, 1, wrap=wrap)[0]
         (N,) = g.padded_shape
+        lay = R1.layout(g, prob)
         v, f = (torch.tensor(rng.standard_normal(N).astype(np.float32),
                              device=dev) for _ in range(2))
         if wrap:
             v[0] = 0.0  # the wrap invariant: the zero plane
-        k = R1.relax1d(v.clone(), f, nsw, prob, g)
-        p = R1.relax1d_plain(v.clone(), f, nsw, prob, g)
-        err = _max_err(torch, k, p)
-        tag = f"{prob.name} {n} ({N} stored)"
-        require(torch.equal(k, p), f"relax1d {nsw} sweeps, {tag}, not "
-                f"bitwise: max diff {err!r}")
+        T = lay.T or nsw
+        tag = (f"{prob.name} {n} ({N} stored) on {lay.nctas} CTA(s) of "
+               f"{lay.wpc} warp(s), K = {lay.K}, T = {T}")
+        for ns in sorted({1, T - 1, T, T + 1, nsw} - {0}):
+            k = R1.relax1d(v.clone(), f, ns, prob, g)
+            p = R1.relax1d_plain(v.clone(), f, ns, prob, g)
+            err = _max_err(torch, k, p)
+            require(torch.equal(k, p), f"relax1d {ns} sweeps, {tag}, not "
+                    f"bitwise: max diff {err!r}")
         w = v.clone()
         kern = lambda: R1.relax1d(w, f, nsw, prob, g)  # noqa: E731
         if n == 8193 and not wrap:
@@ -1817,6 +1828,7 @@ def phase_kernels1d(torch):
                    **bound(5 * v.nbytes, 4 * (n - 2) * nsw + N),
                    "library_ms": None}
             out["relax1d"] = res
+            RELAX1D_LEG_MS[f"{prob.name} {n}"] = t["ms"]
             log(f"kernel relax1d ({tag}, one {nsw}-sweep leg): max|kernel "
                 f"- plain| = {err!r}; device {t['ms']!r} ms vs plain "
                 f"{t['plain_ms']!r} ms (bound {res['bound_ms']!r} ms by "
@@ -1824,15 +1836,20 @@ def phase_kernels1d(torch):
                 f"plain {t['eager_plain_ms']!r} ms")
             continue
         ms = device_ms(torch, kern, 3)
-        plain_ms = device_ms(
-            torch, lambda: R1.relax1d_plain(w, f, nsw, prob, g), 1)
-        log(f"kernel relax1d ({tag}, one {nsw}-sweep leg): bitwise; device "
-            f"{ms!r} ms ({ms / nsw * 1e3!r} us per sweep) vs plain "
-            f"{plain_ms!r} ms")
+        RELAX1D_LEG_MS[f"{prob.name} {n}"] = ms
+        plain = ("" if N > 16385 else "vs plain " + repr(device_ms(
+            torch, lambda: R1.relax1d_plain(w, f, nsw, prob, g), 1)) + " ms")
+        log(f"kernel relax1d ({tag}, one {nsw}-sweep leg): bitwise at 1, "
+            f"T - 1, T, T + 1 and {nsw} sweeps; device {ms!r} ms "
+            f"({ms / nsw * 1e3!r} us per sweep) {plain}")
         if n == 3:
             FLOORS["relax1d_us_per_sweep"] = ms / nsw * 1e3
     torch.cuda.synchronize()
     return out
+
+
+# ms of a 1000-sweep relax1d leg by problem and level (phase_kernels1d)
+RELAX1D_LEG_MS = {}
 
 
 def _counter_modules():
@@ -2716,6 +2733,8 @@ def phase_ode1d(torch):
                "setup_s": setup_s, "error_linf": res.error_linf,
                "residual_l2": res.residual_l2}
     v = res.v.clone()
+    summary["sha256"] = _sha(v)
+    log(f"{tag}: solution SHA-256 {summary['sha256']}")
     summary.update(time_step(torch, tag, solver, levels, 5, 2))
     busy = busy_split_ms(torch, lambda: solver.program.solve_step(levels),
                          {"relax1d": "relax1d_kernel"})
@@ -2860,8 +2879,11 @@ HJB_NUS = (2, 30, 30)
 # float32 drift: the sound drift is 6e-7 on the CPU at 129^2 and 257^2
 # (tests/test_torch_hjb.py) and 9.85e-7 on the card at 513^2 (PERF.md).
 HJB_DV_LIMIT = 1e-5
-# the resident levels of the HJB kernel check
-HJB_RESIDENT_SIZES = (257, 129, 65, 33, 17, 9, 3)
+# the resident levels of the HJB kernel check: every level of the 513^2
+# hierarchy the leg kernel serves
+HJB_RESIDENT_SIZES = (257, 129, 65, 33, 17, 9, 5, 3)
+# ms of a 30-sweep leg of the HJB leg kernel by level (phase_kernels_hjb)
+HJB_LEG_MS = {}
 
 
 def _hjb_inputs(torch, rng, prob, g):
@@ -2896,8 +2918,10 @@ def phase_kernels_hjb(torch):
     """The HJB kernels against their plain versions on the card, bitwise,
     with the boundary ring and the pinned target ball unchanged: slab2d at
     513^2 and 257^2 with nsweeps 1, T and 30 (a 30-sweep leg timed on
-    each); resident_hjb over 30-sweep legs at 257^2 down to 3^2 on the
-    CTAs of the plan (a leg timed on each).
+    each); resident_hjb on every level from 257^2 to 3^2 in the layout of
+    the plan (`resident.hjb_leg_layout`) at 1, T - 1, T, T + 1 and 30
+    sweeps (T the layout's sweeps between halo refreshes, 30 on one CTA),
+    a 30-sweep leg timed on each (ms and us per sweep into HJB_LEG_MS).
     Returns {name: record}: slab2d per 30-sweep leg at 513^2,
     resident_hjb per 30-sweep leg at 257^2."""
     import numpy as np
@@ -2947,14 +2971,20 @@ def phase_kernels_hjb(torch):
     for n in HJB_RESIDENT_SIZES:
         g = build_geometries((n, n), prob.domain, 1)[0]
         v, f, fixed = _hjb_inputs(torch, rng, prob, g)
-        k = RS.resident_relax(v.clone(), f, nsw, prob, g)
-        p = RS.resident_relax_plain(v.clone(), f, nsw, prob, g)
-        err = _max_err(torch, k, p)
-        tag = f"{n}^2 on {RS.hjb_ctas(g)} CTA(s)"
-        require(torch.equal(k, p), f"resident_hjb {nsw} sweeps at {tag} not "
-                f"bitwise: max diff {err!r}")
-        require(torch.equal(k[fixed], v[fixed]),
-                f"resident_hjb at {tag}: a ring or pinned point changed")
+        lay = RS.hjb_leg_layout(g)
+        # one CTA runs the leg as one chunk; a cluster refreshes its halos
+        # every T sweeps
+        T = lay.T or nsw
+        tag = (f"{n}^2 on {lay.nctas} CTA(s) of {lay.threads} threads, "
+               f"T = {T}, {lay.G} segment(s) of {lay.L} rows")
+        for ns in sorted({1, T - 1, T, T + 1, nsw} - {0}):
+            k = RS.resident_relax(v.clone(), f, ns, prob, g)
+            p = RS.resident_relax_plain(v.clone(), f, ns, prob, g)
+            err = _max_err(torch, k, p)
+            require(torch.equal(k, p), f"resident_hjb {ns} sweeps at {tag} "
+                    f"not bitwise: max diff {err!r}")
+            require(torch.equal(k[fixed], v[fixed]),
+                    f"resident_hjb at {tag}: a ring or pinned point changed")
         w = v.clone()
         if n == 257:
             t = paired_times(
@@ -2963,11 +2993,14 @@ def phase_kernels_hjb(torch):
             out["resident_hjb"] = record(
                 "resident_hjb", err, t, f"{tag}, one {nsw}-sweep leg",
                 _hjb_leg_cost(g, nsw))
-            continue
-        ms = device_ms(torch, lambda: RS.resident_relax(w, f, nsw, prob, g),
-                       3)
-        log(f"kernel resident_hjb ({tag}, one {nsw}-sweep leg): bitwise; "
-            f"device {ms!r} ms, {ms / nsw * 1e3!r} us per sweep")
+            ms = t["ms"]
+        else:
+            ms = device_ms(
+                torch, lambda: RS.resident_relax(w, f, nsw, prob, g), 3)
+        HJB_LEG_MS[n] = ms
+        log(f"kernel resident_hjb ({tag}, one {nsw}-sweep leg): bitwise at "
+            f"1, T - 1, T, T + 1 and {nsw} sweeps; device {ms!r} ms, "
+            f"{ms / nsw * 1e3!r} us per sweep")
         if n == 3:
             FLOORS["resident_hjb_us_per_sweep"] = ms / nsw * 1e3
     torch.cuda.synchronize()
@@ -3033,6 +3066,8 @@ def phase_hjb(torch):
                "error_linf": res.error_linf,
                "residual_l2": res.residual_l2}
     v = res.v.clone()
+    summary["sha256"] = _sha(v)
+    log(f"{tag}: solution SHA-256 {summary['sha256']}")
     summary.update(time_step(torch, tag, solver, levels, 3, 1))
     busy = busy_split_ms(
         torch, lambda: solver.program.solve_step(levels),
@@ -4833,6 +4868,8 @@ def main() -> int:
                     "masked_ab": MASKED_AB,
                     "reduced_ab": REDUCED_AB, "blocked_ab": BLOCKED_AB,
                     "lyap2d_ab": LYAP2D_AB, "error_ab": ERROR_AB,
+                    "hjb_leg_ms": HJB_LEG_MS,
+                    "relax1d_leg_ms": RELAX1D_LEG_MS,
                     "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

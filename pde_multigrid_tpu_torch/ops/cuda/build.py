@@ -104,13 +104,17 @@ SIGNATURES = {
     ),
     "pdemg_reduced2d": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # the HJB kernels take their fields as a pointer to a host struct
-    # (resident.HJB2DParams)
-    "pdemg_resident2d_hjb": (_P, _P, _I, _I, _I, _I, _P, _P),
+    # (resident.HJB2DParams), the leg its layout as another
+    # (resident.HJBLegLayout)
+    "pdemg_resident2d_hjb": (_P, _P, _I, _P, _P, _P),
+    "pdemg_resident2d_hjb_clusters": (_P, _P),
     "pdemg_slab2d": (_P, _P, _P, _I, _I, _I, _P, _P),
-    # the 1D whole-leg kernel: Ode1D reads its coefficient fields, Poisson
-    # takes a pointer to a host struct (relax1d.Poisson1DParams)
-    "pdemg_relax1d_ode": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "pdemg_relax1d_poisson": (_P, _P, _I, _I, _I, _P, _P),
+    # the 1D whole-leg kernel: its layout as a pointer to a host struct
+    # (relax1d.Relax1DLayout); Ode1D reads its coefficient fields, Poisson
+    # takes a pointer to another (relax1d.Poisson1DParams)
+    "pdemg_relax1d_ode": (_P, _P, _P, _P, _I, _P, _P),
+    "pdemg_relax1d_poisson": (_P, _P, _I, _P, _P, _P),
+    "pdemg_relax1d_clusters": (_P, _I, _P),
     # the stencil-operator kernels take the operator and the level as a
     # pointer to a host struct (stencilop.StencilOpParams)
     "pdemg_stencil_resident": (_P, _P, _P, _I, _I, _I, _P, _P),

@@ -10,177 +10,397 @@
 // half-sweep the legs would be launch-bound.  So, as the Pallas kernel keeps
 // the level in VMEM for the whole leg, this kernel keeps it on chip for the
 // whole leg.  Device memory is read once at the start of the leg and written
-// once at its end.  What bounds it: barrier and instruction latency, not
-// bytes.
+// once at its end.
 //
-// HJB (resident2d_hjb_kernel): the update reads both x neighbours, both y
-// neighbours and four per-column coefficients (hjb2d.cuh).  Shared memory
-// holds v, f and the update mask (the interior without the pinned target
-// ball), 9 B per point, and the four coefficient columns; storing the
-// coefficients per point would not fit at 257^2.  The CTA count is set at
-// launch: one CTA (block barriers) where a color fits one pass of its
-// threads (33^2 and below: 140 of the 176 legs of the 513^2 FMG step), a
-// cluster of 8 above (65^2 to 257^2, 76 KB per CTA at 257^2), where a CTA
-// reads the previous CTA's last row and the next CTA's first row through
-// distributed shared memory.  Bytes per point per
-// leg: 9 read (v, f, mask) + 4 written.
+// The update (hjb2d.cuh) reads both x neighbours, both y neighbours, f and
+// four coefficients of the point's column.  Red are the points with x + y
+// even; a colour's points read the other colour alone, so the points of a
+// half-sweep are independent.
 //
-// Update form: the Pallas kernel's v + m * (kernel_update - v); red are the
-// interior points with (x + y) even.  Points off the color or the mask are
-// not written (the Pallas form adds m * (...) = 0 to them).  Built with
-// --fmad=false, in the plain version's operation order: bitwise equal.
+// Design (the layout, resident.hjb_leg_layout, picks every number):
+//   * Columns in registers.  A thread owns the column y of a segment of
+//     rows (y = 1 .. Y - 2: columns 0 and Y - 1 are the boundary): its
+//     values, f, and the update-mask bit of each of its rows, and its
+//     column's four coefficients, for the whole leg.  So the x neighbours
+//     (e, w) and the old value come from registers, and a point's update is
+//     two shared loads (the y neighbours, owned by the lanes beside it) and
+//     one shared store.  The thread's rows start on a parity chosen so that
+//     red sits at even register rows: every index is a compile-time one, no
+//     slot walk, no mask byte or coefficient reloaded.  A warp's lanes are
+//     consecutive columns; their rows alternate in parity, and the band's
+//     row stride is even, so each load and store of a warp hits 32 banks.
+//   * A band in shared memory: the level's rows [xs, xe) dense (two zero
+//     guard rows each side), the neighbours' source.  Block barriers (a
+//     warp barrier on a one-warp CTA) between half-sweeps.  A band of many
+//     rows is cut into G segments of L rows (the last may hold fewer), a
+//     thread each column and segment; L is a template instance, so before
+//     each half-sweep a thread reloads, at fixed register rows, the two
+//     rows past its segment that the other segments wrote.
+//   * Small levels (one CTA): the whole level, one warp where the interior
+//     columns fit one (33^2 and below), a segment of rows each.
+//   * Large levels (a cluster of up to 16 CTAs, non-portable): the level
+//     in x bands of B owned rows, each band loaded with H = 2T halo rows on
+//     both sides (the update reads both x neighbours).  A stale halo value
+//     spreads one row per half-sweep, so after T sweeps the owned rows are
+//     exact (the trapezoid argument), and the halos are refreshed: each CTA
+//     pushes its first and last H owned rows into its neighbours' inboxes
+//     through distributed shared memory, one cluster barrier, and each CTA
+//     copies its inboxes into its halo rows and reloads its registers.
+//     Inboxes come in two sets used in turns, so a refresh never writes an
+//     inbox its owner has not emptied.  The cluster barrier after the load
+//     is split: arrive after the load, wait before the first remote store
+//     or the store of v, so no CTA writes v before every CTA has read it.
+//
+// What bounds it: per point and half-sweep of its colour, 15 float
+// operations on a level that fits on chip; the legs are short (30 sweeps),
+// so barrier latency and the issue of each half-sweep's dependent loads
+// and products bound them, not bytes (read v, f, the mask byte once, write
+// v once).  The cluster form recomputes the halo rows (2H per band) to
+// trade a cluster barrier every half-sweep for one every T sweeps.
+//
+// Update form: the Pallas kernel's v + m * (kernel_update - v) with m = 1
+// on the update mask (the interior without the pinned target ball).  Points
+// off the colour or the mask are never written.  Built with --fmad=false,
+// in the plain version's operation order: bitwise equal.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "hjb2d.cuh"       // HJB2D, hjb_update
+#include "hjb2d.cuh"  // HJB2D, hjb_update
 
 namespace cg = cooperative_groups;
 
+// The layout of a leg (resident.HJBLegLayout fills it in).
+struct HJBLeg {
+  int X, Y;         // the level
+  int nctas;        // CTAs; a cluster when > 1
+  int B;            // owned rows a CTA (the last may own fewer)
+  int H;            // halo rows each side: 2T on a cluster, 0 on one CTA
+  int T;            // sweeps between halo refreshes (a cluster)
+  int G;            // row segments of a band
+  int L;            // rows a segment (the last may hold fewer): a template
+                    // instance
+  int NC;           // threads a segment: Y - 2 rounded up to a warp
+  int S;            // the band's row stride in floats (even, >= NC + 2)
+  int rows;         // the band's rows in shared memory: G L + 4
+  int threads;      // G NC
+  int smem_bytes;   // the band and, on a cluster, two sets of inboxes
+};
+
 namespace {
 
-constexpr int kCtas = 8;  // the portable cluster size
-constexpr int kThreads = 1024;
+constexpr int kMaxThreads = 512;
+constexpr int kUnroll = 4;  // the band's loads in flight a thread
+constexpr int kMaxCtas = 16;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most one CTA may hold
 
-// Shared memory of the HJB kernel for `rows` rows of Y points: v, f, the
-// four coefficient columns, the mask bytes.
-inline size_t hjb_smem(int rows, int Y) {
-  return (size_t)rows * Y * (2 * sizeof(float) + 1) + 4 * (size_t)Y * sizeof(float);
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
-// the barrier between half-sweeps: the block's, or the cluster's
-__device__ __forceinline__ void level_sync(int nctas) {
-  if (nctas > 1) {
-    cg::this_cluster().sync();
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void block_sync(bool one_warp) {
+  if (one_warp) {
+    __syncwarp();
   } else {
     __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    resident2d_hjb_kernel(float* __restrict__ v, const float* __restrict__ f,
-                          int X, int Y, int rows, int nctas, int nsweeps,
-                          HJB2D p) {
-  const int rank = nctas > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  const int x0 = rank * rows;
-  const int nr = max(0, min(rows, X - x0));
-  extern __shared__ float smem[];
-  const int n = rows * Y;
-  float* sv = smem;
-  float* sf = sv + n;
-  float* sc1 = sf + n;
-  float* ss1 = sc1 + Y;
-  float* sinv = ss1 + Y;
-  float* sact = sinv + Y;
-  uint8_t* sm = reinterpret_cast<uint8_t*>(sact + Y);
-
-  for (int i = threadIdx.x; i < nr * Y; i += blockDim.x) {
-    const long long g = (long long)x0 * Y + i;
-    sv[i] = v[g];
-    sf[i] = f[g];
-    sm[i] = p.mask[g];
-  }
-  for (int y = threadIdx.x; y < Y; y += blockDim.x) {
-    sc1[y] = p.c1[y];
-    ss1[y] = p.s1[y];
-    sinv[y] = p.inv_in[y];
-    sact[y] = p.inv_act[y];
-  }
-  level_sync(nctas);  // every CTA loaded before any reads a neighbor's rows
-  // a masked point never lies on the level's first or last row, so these
-  // are read only where they exist
-  const float* next = nullptr;
-  const float* prev = nullptr;
-  if (nctas > 1) {
-    cg::cluster_group cluster = cg::this_cluster();
-    if (rank + 1 < nctas) next = cluster.map_shared_rank(sv, rank + 1);
-    if (rank > 0) prev = cluster.map_shared_rank(sv, rank - 1) + (rows - 1) * Y;
-  }
-
-  // each thread walks slots (lx, k) of one color, y = 2k + ((x + c) & 1),
-  // stepping blockDim slots at a time without division
-  const int Yh = (Y + 1) / 2;
-  const int dq = blockDim.x / Yh;
-  const int dr = blockDim.x - dq * Yh;
-  const int lx0 = threadIdx.x / Yh;
-  const int k0 = threadIdx.x - lx0 * Yh;
-  for (int s = 0; s < nsweeps; ++s) {
-    for (int color = 0; color < 2; ++color) {
-      int lx = lx0, k = k0;
-      while (lx < nr) {
-        const int y = 2 * k + ((x0 + lx + color) & 1);
-        const int i = lx * Y + y;
-        if (y < Y && sm[i]) {
-          const float e = lx + 1 < nr ? sv[i + Y] : next[y];
-          const float w = lx > 0 ? sv[i - Y] : prev[y];
-          const float upd = hjb_update(e, w, sv[i + 1], sv[i - 1], sf[i],
-                                       sc1[y], ss1[y], sinv[y], sact[y], p.c2);
-          const float old = sv[i];
-          sv[i] = old + (upd - old);  // m = 1: v + m * (upd - v)
-        }
-        lx += dq;
-        k += dr;
-        if (k >= Yh) {
-          k -= Yh;
-          ++lx;
-        }
-      }
-      level_sync(nctas);  // this color done before the other reads it
+// `rows` rows of Y floats, each dst[k S + y] = src[k S + y], by the CTA's
+// threads along y.
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int rows, int Y, int S) {
+  for (int k = 0; k < rows; ++k) {
+    for (int y = threadIdx.x; y < Y; y += blockDim.x) {
+      dst[k * S + y] = src[k * S + y];
     }
-  }
-  for (int i = threadIdx.x; i < nr * Y; i += blockDim.x) {
-    v[(long long)x0 * Y + i] = sv[i];
   }
 }
 
-int launch_resident_hjb(float* v, const float* f, int X, int Y, int nctas,
-                        int nsweeps, const HJB2D& p, cudaStream_t stream) {
-  if (nctas != 1 && nctas != kCtas) {
-    return (int)cudaErrorInvalidValue;
+// Shared row of global row x: two guard rows before the band's first.
+__device__ __forceinline__ int srow(int x, int xs) { return x - xs + 2; }
+
+template <int L>
+__global__ void __launch_bounds__(kMaxThreads)
+    resident2d_hjb_kernel(float* __restrict__ v, const float* __restrict__ f,
+                          int nsweeps, HJBLeg g, HJB2D p) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const bool one_warp = nt == 32;
+  const bool cluster = g.nctas > 1;
+  const int rank = cluster ? (int)cg::this_cluster().block_rank() : 0;
+  const int X = g.X, Y = g.Y, S = g.S;
+  const int xo = rank * g.B;                 // first owned row
+  const int xo_end = min(xo + g.B, X);       // past the last owned row
+  const int xs = max(0, xo - g.H);           // first loaded row
+  const int xe = min(X, xo_end + g.H);       // past the last loaded row
+  float* sv = smem;
+  float* inbox = sv + g.rows * S;  // [2 sets][2 sides][H rows][S]
+
+  // the band: zeros, then the loaded rows, kUnroll loads in flight
+  for (int i = tid; i < g.rows * S; i += nt) sv[i] = 0.0f;
+  block_sync(one_warp);
+  const int nband = (xe - xs) * Y;
+  const float* vs = v + (long long)xs * Y;
+  for (int i0 = tid; i0 < nband; i0 += kUnroll * nt) {
+    float t[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int i = i0 + j * nt;
+      t[j] = vs[i < nband ? i : 0];
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int i = i0 + j * nt;
+      const int k = i / Y;
+      if (i < nband) sv[(k + 2) * S + i - k * Y] = t[j];
+    }
   }
-  const int rows = (X + nctas - 1) / nctas;
-  const size_t smem = hjb_smem(rows, Y);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  static bool opted_in = false;  // once per process, outside any capture
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        resident2d_hjb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+
+  // this thread's column and segment; its register rows r = 0 .. L + 2
+  // are the rows xr0 + r, with xr0 + y even: red at even r
+  const int seg = tid / g.NC;
+  const int y = tid - seg * g.NC + 1;
+  const bool col = y <= Y - 2;
+  const int seg0 = xs + seg * L;
+  const int seg1 = min(seg0 + L, xe);
+  const int xr0 = seg0 - 1 - ((seg0 - 1 + y) & 1);
+  float* b = sv + srow(xr0, xs) * S + y;
+  const int yc = col ? y : 1;
+  const float c1 = p.c1[yc], s1 = p.s1[yc];
+  const float inv_in = p.inv_in[yc], inv_act = p.inv_act[yc];
+  // bit r: the thread updates row xr0 + r (its segment, strictly inside
+  // the loaded rows, on the mask); every load issued before any is used
+  unsigned long long bits = 0;
+  float fr[L + 3];
+  uint8_t mk[L + 3];
+#pragma unroll
+  for (int r = 0; r < L + 3; ++r) {
+    const int x = xr0 + r;
+    const bool in = col && x >= seg0 && x < seg1 && x > xs && x < xe - 1;
+    const long long gi = in ? (long long)x * Y + y : 0;
+    mk[r] = in ? p.mask[gi] : 0;
+    fr[r] = f[gi];
   }
-  // enough warps for one slot of each color per thread, at most 1024: the
-  // small levels' barriers then span few warps
-  const int slots = rows * ((Y + 1) / 2);
-  int threads = (slots + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : (threads > kThreads ? kThreads : threads);
+#pragma unroll
+  for (int r = 0; r < L + 3; ++r) {
+    if (mk[r]) bits |= 1ull << r;
+  }
+  block_sync(one_warp);
+  if (cluster) cluster_arrive();  // this CTA read its rows of v
+  bool waited = !cluster;
+
+  float vr[L + 3];
+#pragma unroll
+  for (int r = 0; r < L + 3; ++r) vr[r] = b[r * S];
+
+  const int T = cluster ? g.T : max(nsweeps, 1);
+  const int nchunks = (nsweeps + T - 1) / T;
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int tc = min(T, nsweeps - ch * T);
+    for (int s = 0; s < tc; ++s) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (g.G > 1) {
+          // the rows past the segment of the other colour, which the
+          // segments beside it wrote: a segment holds L rows, so they sit
+          // at fixed register rows (the last segment's top one lies past
+          // the band, never read by an update)
+          vr[1 - c] = b[(1 - c) * S];
+          vr[L + 1 + c] = b[(L + 1 + c) * S];
+        }
+        // the y neighbours of this colour's rows r = 2 i + 2 - c <= L + 1
+        // (L / 2 red, L / 2 + 1 black), all loaded before any store: a
+        // store may not pass a load the compiler cannot prove apart
+        constexpr int NR = L / 2 + 1;
+        const int nr = L / 2 + c;
+        float nn[NR], ss[NR];
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          if (i >= nr) break;
+          const int r = 2 * i + 2 - c;
+          nn[i] = b[r * S + 1];
+          ss[i] = b[r * S - 1];
+        }
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          if (i >= nr) break;
+          const int r = 2 * i + 2 - c;
+          const float upd = hjb_update(vr[r + 1], vr[r - 1], nn[i], ss[i],
+                                       fr[r], c1, s1, inv_in, inv_act, p.c2);
+          const float old = vr[r];
+          // m = 1: v + m * (upd - v); off the mask the point stays
+          vr[r] = (bits >> r) & 1ull ? old + (upd - old) : old;
+        }
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          if (i >= nr) break;
+          const int r = 2 * i + 2 - c;
+          if ((bits >> r) & 1ull) b[r * S] = vr[r];
+        }
+        block_sync(one_warp);  // this colour done before the other reads it
+      }
+    }
+    if (ch + 1 < nchunks) {
+      // the halo refresh, inboxes of set ch & 1 ([2 sides][H rows][S]): my
+      // first and last H owned rows, exact after the chunk, into side 1 of
+      // rank - 1's and side 0 of rank + 1's
+      cg::cluster_group cl = cg::this_cluster();
+      const int H = g.H;
+      float* mine = inbox + (ch & 1) * 2 * H * S;
+      if (!waited) {
+        cluster_wait();  // every CTA started and read its rows of v
+        waited = true;
+      }
+      if (rank > 0) {
+        copy_rows(cl.map_shared_rank(mine, rank - 1) + H * S,
+                  sv + srow(xo, xs) * S, min(H, X - xo), Y, S);
+      }
+      if (rank + 1 < g.nctas) {
+        copy_rows(cl.map_shared_rank(mine, rank + 1),
+                  sv + srow(xo_end - H, xs) * S, H, Y, S);
+      }
+      cluster_arrive();
+      cluster_wait();
+      if (rank > 0) copy_rows(sv + srow(xo - H, xs) * S, mine, H, Y, S);
+      if (rank + 1 < g.nctas) {
+        copy_rows(sv + srow(xo_end, xs) * S, mine + H * S,
+                  min(H, X - xo_end), Y, S);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < L + 3; ++r) vr[r] = b[r * S];
+    }
+  }
+  if (!waited) cluster_wait();  // no CTA writes v before all have read it
+  for (int x = xo; x < xo_end; ++x) {
+    const float* src = sv + srow(x, xs) * S;
+    for (int yy = tid; yy < Y; yy += nt) v[(long long)x * Y + yy] = src[yy];
+  }
+}
+
+bool valid(const HJBLeg& g) {
+  if (g.X < 3 || g.Y < 3 || g.nctas < 1 || g.nctas > kMaxCtas) return false;
+  if (g.B < 1 || (g.nctas - 1) * g.B >= g.X || g.nctas * g.B < g.X) {
+    return false;
+  }
+  const bool cluster = g.nctas > 1;
+  if (cluster ? (g.T < 1 || g.H != 2 * g.T || g.B < g.H)
+              : (g.H != 0 || g.B != g.X)) {
+    return false;
+  }
+  const int nload = min(g.B + 2 * g.H, g.X);
+  if (g.G < 1 || g.G * g.L < nload || (g.G - 1) * g.L >= nload) {
+    return false;
+  }
+  if (g.NC < g.Y - 2 || g.NC % 32 || g.S < g.NC + 2 || g.S < g.Y ||
+      g.S % 2 || g.rows != g.G * g.L + 4 ||
+      g.threads != g.G * g.NC ||
+      g.threads > kMaxThreads) {
+    return false;
+  }
+  const long long floats =
+      (long long)g.rows * g.S + (cluster ? 4LL * g.H * g.S : 0);
+  return g.smem_bytes == 4 * floats && g.smem_bytes <= kMaxSmem;
+}
+
+template <int L>
+struct Kernel {
+  static cudaError_t opt_in() {
+    static const cudaError_t status = [] {
+      const cudaError_t e = cudaFuncSetAttribute(
+          resident2d_hjb_kernel<L>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (e != cudaSuccess) return e;
+      return cudaFuncSetAttribute(
+          resident2d_hjb_kernel<L>,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }();
+    return status;
+  }
+};
+
+struct Launch {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nctas, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = nctas > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, resident2d_hjb_kernel, v, f,
-                                           X, Y, rows, nctas, nsweeps, p);
+
+  Launch(const HJBLeg& g, cudaStream_t stream) {
+    cfg.gridDim = dim3(g.nctas, 1, 1);
+    cfg.blockDim = dim3(g.threads, 1, 1);
+    cfg.dynamicSmemBytes = g.smem_bytes;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = g.nctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = g.nctas > 1 ? 1 : 0;
+  }
+};
+
+// the kernel's register rows: the template instances
+template <int L>
+int run(float* v, const float* f, int nsweeps, const HJBLeg& g,
+        const HJB2D& p, cudaStream_t stream, int* clusters) {
+  cudaError_t e = Kernel<L>::opt_in();
+  if (e != cudaSuccess) return (int)e;
+  Launch l(g, stream);
+  if (clusters != nullptr) {
+    return (int)cudaOccupancyMaxActiveClusters(
+        clusters, resident2d_hjb_kernel<L>, &l.cfg);
+  }
+  e = cudaLaunchKernelEx(&l.cfg, resident2d_hjb_kernel<L>, v, f, nsweeps,
+                         g, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+int dispatch(float* v, const float* f, int nsweeps, const HJBLeg& g,
+             const HJB2D& p, cudaStream_t stream, int* clusters) {
+  if (!valid(g) || nsweeps < 0) return (int)cudaErrorInvalidValue;
+  switch (g.L) {
+    case 4:
+      return run<4>(v, f, nsweeps, g, p, stream, clusters);
+    case 6:
+      return run<6>(v, f, nsweeps, g, p, stream, clusters);
+    case 8:
+      return run<8>(v, f, nsweeps, g, p, stream, clusters);
+    case 10:
+      return run<10>(v, f, nsweeps, g, p, stream, clusters);
+    case 12:
+      return run<12>(v, f, nsweeps, g, p, stream, clusters);
+    case 14:
+      return run<14>(v, f, nsweeps, g, p, stream, clusters);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int pdemg_resident2d_hjb(float* v, const float* f, int X, int Y, int nctas,
-                         int nsweeps, const HJB2D* p, void* stream) {
-  return launch_resident_hjb(v, f, X, Y, nctas, nsweeps, *p,
-                             (cudaStream_t)stream);
+// One leg of nsweeps on the level v (in place) with RHS f, in the layout
+// *g (resident.hjb_leg_layout), the fields *p.  Default visibility spelled
+// out: the host compiler hides a function whose body launches a kernel
+// taking a type of this file's unnamed namespace.
+__attribute__((visibility("default"))) int pdemg_resident2d_hjb(
+    float* v, const float* f, int nsweeps, const HJBLeg* g, const HJB2D* p,
+    void* stream) {
+  return dispatch(v, f, nsweeps, *g, *p, (cudaStream_t)stream, nullptr);
+}
+
+// How many clusters of the layout *g the card can hold at once (0: it
+// refuses the cluster), into *clusters; a CUDA error code.
+__attribute__((visibility("default"))) int pdemg_resident2d_hjb_clusters(
+    const HJBLeg* g, int* clusters) {
+  return dispatch(nullptr, nullptr, 0, *g, HJB2D{}, nullptr, clusters);
 }
 
 }  // extern "C"

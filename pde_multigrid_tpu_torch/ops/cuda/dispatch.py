@@ -103,7 +103,7 @@ vetoed as `HJBMinTime` does by default):
 JAX plan of `plan_relax` (relax.py:3925-3939) and its jnp transfers:
 
   * relax: the whole-leg 1D kernel (`ops/cuda/relax1d.py`) on every
-    relaxed level; a level beyond its one-CTA capacity raises;
+    relaxed level; a level beyond its cluster's capacity raises;
   * transfers and the residual norms: the plain ops of `ops/stencil.py` on
     the card.  These are the JAX package's jnp ops for 1D (its Pallas
     transfer kernels and `make_residual` are 3D-only), not a fallback;
@@ -265,11 +265,11 @@ class CudaKernels(TorchKernels):
         for l in relaxed:
             g = self.geoms[l]
             if g.ndim == 1:
-                if not relax1d_mod.fits(g):
+                if relax1d_mod.layout(g, problem) is None:
                     raise _not_planned(
-                        f"relax on 1D level {g.padded_shape} (the one-CTA "
-                        f"relax1d kernel holds {relax1d_mod.MAX_POINTS} "
-                        "points at most)", "queue 2 item 29")
+                        f"relax on 1D level {g.padded_shape} (beyond the "
+                        f"relax1d kernel's {relax1d_mod.MAX_CTAS} CTAs of "
+                        f"{relax1d_mod.MAX_WARPS} warps)", "queue 2 item 29")
                 self._relax[l] = self._relax_1d
             elif lyap and _split2d_ok(g):
                 self._reduced_t[l] = _reduced_t(problem, g)
@@ -280,7 +280,7 @@ class CudaKernels(TorchKernels):
                 self._relax[l] = self._relax_resident
             elif hjb and _padded_2d(g):
                 self._relax[l] = (self._relax_resident
-                                  if resident_mod.hjb_ctas(g)
+                                  if resident_mod.hjb_leg_layout(g)
                                   else self._relax_slab)
             elif not lyap and _level_ok(g):
                 self.tiers[l], self._relax[l] = _relax3d(problem, g)

@@ -4,8 +4,8 @@ kernels and their plain PyTorch version.
 
 Replaces the TPU kernel `pde_multigrid_tpu/ops/pallas/relax.py`
 `make_resident_relax`: all sweeps of a relax leg in one launch, the level
-held on chip for the whole leg (`fits` / `hjb_ctas` say whether a level
-fits).  Lyapunov runs the dense form of the colour slab's leg
+held on chip for the whole leg (`fits` / `hjb_leg_layout` say whether a
+level fits).  Lyapunov runs the dense form of the colour slab's leg
 (csrc/color_slab2d_shard.cu, `pdemg_resident2d`): the level in x bands
 on the largest cluster of at most 16 CTAs that holds it
 (`relax2d.leg_layout`: 16, 15 and 9 CTAs at 257^2, 129^2 and 65^2; one
@@ -14,8 +14,14 @@ memory, split from the dense rows on load and merged on store, its
 coefficients (and f a_f) in registers, block barriers between
 half-sweeps and one cluster barrier every 4 sweeps, when each band's
 first 8 rows are pushed into its left neighbour as its halo.  HJB
-(csrc/resident.cu) runs on one CTA up to 33^2 and on a cluster of 8 CTAs
-from 65^2 to 257^2 (`hjb_ctas`).  The update is the Pallas kernel's
+(csrc/resident.cu, `hjb_leg_layout`): each thread holds a column of a
+segment of rows (v, f, the update-mask bits, the column's four
+coefficients) in registers, the band dense in shared memory for the y
+neighbours; one CTA up to 65^2 (its rows in segments), and above, the
+level in x bands on the largest cluster of at most 16 CTAs whose bands
+hold 2T rows, with 2T halo rows each side refreshed every T sweeps
+through distributed shared memory under one cluster barrier.  The update
+is the Pallas kernel's
 `v + m * (kernel_update - v)`, red (x + y even) then black, with the masks
 of `_coords_and_masks`: the interior times the problem's
 `kernel_keep_mask` where it has one (HJB's pinned target ball).
@@ -38,19 +44,23 @@ from pde_multigrid_tpu_torch.models.hjb import HJBMinTime
 from pde_multigrid_tpu_torch.ops.cuda import build
 from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _stream
 from pde_multigrid_tpu_torch.ops.cuda.relax2d import leg_layout, lyap_params
+from pde_multigrid_tpu_torch.ops.cuda.subtree import check_cluster
 
 launches = {"resident": 0, "resident_hjb": 0}
 
-# the cluster the HJB kernel runs on from 65^2 up: CTAs, and the shared
-# memory one may hold
-CLUSTER_CTAS = 8
+# csrc/resident.cu's HJB constants: the largest cluster, the threads and
+# shared memory a CTA may take, and the rows a thread's segment may hold
+# (the kernel's template instances)
+HJB_MAX_CTAS = 16
+HJB_MAX_THREADS = 512
 MAX_SMEM_BYTES = 232448
-# the largest level the HJB kernel runs on one CTA: one whose colors each
-# fit one pass of its 1024 threads (33^2 and below).  Measured on an H100
-# (PERF.md, Findings), one CTA wins there (block barriers), and the 8-CTA
-# cluster wins from 65^2 up (one SM's throughput, not the barrier, bounds
-# the larger levels)
-ONE_CTA_MAX_SLOTS = 1024
+HJB_ROWS = (4, 6, 8, 10, 12, 14)
+# the layout's choices, measured on an H100 (PERF.md, Findings): rows a
+# thread's segment takes where the threads allow (else as few segments as
+# the registers allow), and the sweeps between a cluster's halo refreshes,
+# the longest first
+HJB_SEG_ROWS = 4
+HJB_TS = (4, 2)
 
 
 class HJB2DParams(ctypes.Structure):
@@ -83,25 +93,82 @@ def fits(geom: LevelGeometry) -> bool:
     return layout(geom) is not None
 
 
-def hjb_smem_bytes(geom: LevelGeometry, ctas: int) -> int:
-    """Shared memory per CTA of the HJB kernel on `ctas` CTAs: v, f and
-    the mask byte for ceil(X / ctas) rows, and four coefficient columns."""
-    X, Y = geom.padded_shape
-    rows = -(-X // ctas)
-    return rows * Y * 9 + 4 * Y * 4
+class HJBLegLayout(ctypes.Structure):
+    """The HJB kernel's `HJBLeg` (csrc/resident.cu): the level, the CTAs
+    (a cluster when more than one), owned rows B a CTA, halo rows H = 2T
+    each side and T, row segments G of L rows (the kernel's template
+    instance), threads a segment NC, the band's row stride S and rows,
+    threads a CTA and shared memory bytes."""
+
+    _fields_ = [(name, ctypes.c_int)
+                for name in ("X", "Y", "nctas", "B", "H", "T", "G", "L", "NC",
+                             "S", "rows", "threads", "smem_bytes")]
+
+    def as_dict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
 
 
-def hjb_ctas(geom: LevelGeometry) -> int | None:
-    """The CTAs the HJB kernel runs the level on: one where a color's
-    slots fit one pass of 1024 threads, else the 8-CTA cluster; None when
-    the cluster cannot hold it (513^2: the slab kernel's level)."""
+def _hjb_layout(X: int, Y: int, nctas: int, T: int, G: int):
+    """The HJBLegLayout of an X x Y level on `nctas` CTAs (one: the whole
+    level, no halo; more: x bands of B = ceil(X / nctas) rows with 2T halo
+    rows each side, T sweeps between refreshes) with its band's rows cut
+    into G segments of the same even number of rows L (the last may hold
+    fewer); None where the kernel cannot take it (bands under 2T rows, an
+    empty CTA or segment, more rows a segment than the largest instance,
+    more threads or shared memory than a CTA has)."""
+    cluster = nctas > 1
+    B = -(-X // nctas)
+    H = 2 * T if cluster else 0
+    if (nctas - 1) * B >= X or (cluster and B < H) or nctas > HJB_MAX_CTAS:
+        return None
+    nload = min(B + 2 * H, X)
+    L = next((w for w in HJB_ROWS if G * w >= nload), None)
+    if L is None or (G - 1) * L >= nload:
+        return None
+    NC = -(-(Y - 2) // 32) * 32
+    S = NC + 2
+    rows = G * L + 4
+    smem = 4 * (rows * S + (4 * H * S if cluster else 0))
+    if G * NC > HJB_MAX_THREADS or smem > MAX_SMEM_BYTES:
+        return None
+    return HJBLegLayout(X, Y, nctas, B, H, T if cluster else 0, G, L, NC,
+                        S, rows, G * NC, smem)
+
+
+def _segments(X: int, Y: int, nctas: int, T: int):
+    """The HJBLegLayout of a level on `nctas` CTAs with T sweeps between
+    refreshes, in segments of HJB_SEG_ROWS rows where the threads allow,
+    else in as few segments as the largest instance allows; None where
+    neither fits."""
+    B = -(-X // nctas)
+    nload = min(B + 4 * T, X) if nctas > 1 else X
+    for rows in (HJB_SEG_ROWS, HJB_ROWS[-1]):
+        lay = _hjb_layout(X, Y, nctas, T, -(-nload // rows))
+        if lay is not None:
+            return lay
+    return None
+
+
+@functools.lru_cache(maxsize=64)
+def hjb_leg_layout(geom: LevelGeometry):
+    """The HJB kernel's layout of a padded 2D level, None where it cannot
+    hold the level (513^2: the slab kernel's level).  One CTA where its
+    threads hold the level in segments (`_segments`: 65^2 and below, one
+    warp on 3^2); above, the largest cluster of at most HJB_MAX_CTAS CTAs
+    whose bands hold 2T rows, T the first of HJB_TS that fits.  Cached
+    per level: the wrapper asks at every launch."""
     if geom.ndim != 2 or geom.wrap:
         return None
     X, Y = geom.padded_shape
-    if X * -(-Y // 2) <= ONE_CTA_MAX_SLOTS:
-        return 1
-    return (CLUSTER_CTAS
-            if hjb_smem_bytes(geom, CLUSTER_CTAS) <= MAX_SMEM_BYTES else None)
+    lay = _segments(X, Y, 1, 0)
+    if lay is not None:
+        return lay
+    for n in range(HJB_MAX_CTAS, 1, -1):
+        for T in HJB_TS:
+            lay = _segments(X, Y, n, T)
+            if lay is not None:
+                return lay
+    return None
 
 
 def check_hjb(problem) -> None:
@@ -158,7 +225,7 @@ def resident_relax_plain(v, f, nsweeps: int, problem, geom: LevelGeometry):
 def resident_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
     """`nsweeps` red-black sweeps in place on v (one launch); f None is
     the f-less leg (Lyapunov only).  The Lyapunov kernel runs on
-    `layout(geom)`, the HJB kernel on `hjb_ctas(geom)` CTAs."""
+    `layout(geom)`, the HJB kernel on `hjb_leg_layout(geom)`."""
     if tuple(v.shape) != tuple(geom.padded_shape) or geom.ndim != 2:
         raise ValueError(
             f"v {tuple(v.shape)} does not match 2D level {geom.padded_shape}"
@@ -195,19 +262,24 @@ def resident_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
 
 
 def _resident_hjb(v, f, nsweeps: int, problem, geom: LevelGeometry):
-    ctas = hjb_ctas(geom)
-    if ctas is None:
+    lay = hjb_leg_layout(geom)
+    if lay is None:
         raise ValueError(
             f"level {geom.padded_shape} does not fit the HJB resident "
-            f"kernel's {CLUSTER_CTAS} x {MAX_SMEM_BYTES} B of shared memory"
+            f"kernel ({HJB_MAX_CTAS} CTAs of {MAX_SMEM_BYTES} B of shared "
+            f"memory and {HJB_MAX_THREADS} threads)"
         )
     if nsweeps < 1:
         return v
     params, _ = hjb_fields(problem, geom, v.device)
-    X, Y = geom.padded_shape
-    rc = build.load().lib.pdemg_resident2d_hjb(
-        v.data_ptr(), f.data_ptr(), X, Y, ctas, nsweeps,
-        ctypes.addressof(params), _stream(),
+    lib = build.load().lib
+    if lay.nctas > 1:
+        check_cluster(lib.pdemg_resident2d_hjb_clusters, lay,
+                      (lay.nctas, lay.threads, lay.smem_bytes),
+                      "resident_hjb")
+    rc = lib.pdemg_resident2d_hjb(
+        v.data_ptr(), f.data_ptr(), nsweeps, ctypes.byref(lay),
+        ctypes.byref(params), _stream(),
     )
     launches["resident_hjb"] += 1
     build.check(rc, "resident_hjb")

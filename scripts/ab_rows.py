@@ -26,6 +26,17 @@ A ROW is
             `chip_smoke.phase_sharded(torch)`: the 257^3 row on `--mesh 1`
             (its gate, `sharded_launches`, ms a step eager and as one CUDA
             graph), the SHA-256 of its logical solution;
+  hjb       `chip_smoke.phase_kernels_hjb(torch)` then
+            `chip_smoke.phase_hjb(torch)`: the HJB 513^2 FAS row (its gate,
+            the plan's launches, ms a step eager and as one CUDA graph, the
+            busy split) and a 30-sweep leg of the HJB leg kernel on every
+            level from 257^2 to 3^2, the solution's SHA-256;
+  ode1d     `chip_smoke.phase_kernels1d(torch)`, `phase_ode1d(torch)` and
+            `phase_ode1d_preset(torch)`: the ode1d 8193 row (its gate, 12
+            launches, ms a step, the busy split), `--preset ode1d` (364
+            launches, its gate) and a 1000-sweep relax1d leg on every level
+            of the preset's hierarchy (Ode1D 16385 to 3) and on Poisson(1)
+            at 8193 and 16385, the row's solution's SHA-256;
   resident3d  a 100-sweep dense leg of the whole-leg 3D resident kernel
             (`merged_resident_relax`, or `resident3d_relax` off the merged
             gate) on every level of 65^3, timed graph-replayed, and the
@@ -119,6 +130,41 @@ def resident3d_row():
     return {}, summary, sha(*outs)
 
 
+def hjb_legs():
+    import numpy as np
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.models import HJBMinTime
+    from pde_multigrid_tpu_torch.ops.cuda import resident as RS
+
+    prob = HJBMinTime()
+    rng = np.random.default_rng(2033)
+    out = {}
+    for g in build_geometries((513, 513), prob.domain)[1:]:
+        v, f, _ = c._hjb_inputs(torch, rng, prob, g)
+        out[f"{g.padded_shape[0]}^2"] = c.device_ms(
+            torch, lambda: RS.resident_relax(v, f, 30, prob, g), 3)
+    return out
+
+
+def relax1d_legs():
+    import numpy as np
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.models import Ode1D, Poisson
+    from pde_multigrid_tpu_torch.ops.cuda import relax1d as R1
+
+    rng = np.random.default_rng(2034)
+    out = {}
+    cases = [(Ode1D(), 2 ** k + 1, False) for k in range(14, 0, -1)]
+    cases += [(Poisson(1), n, True) for n in (8193, 16385)]
+    for prob, n, wrap in cases:
+        g = build_geometries((n,), prob.domain, 1, wrap=wrap)[0]
+        v, f = (torch.tensor(rng.standard_normal(g.padded_shape).astype(
+            np.float32), device="cuda") for _ in range(2))
+        out[f"{prob.name} {n}"] = c.device_ms(
+            torch, lambda: R1.relax1d(v, f, 1000, prob, g), 3)
+    return out
+
+
 c.phase_card(torch)
 c.phase_build()
 for row in sys.argv[2:]:
@@ -149,6 +195,17 @@ for row in sys.argv[2:]:
             dist.destroy_process_group()
     elif row == "resident3d":
         counts, s, digest = resident3d_row()
+    elif row == "hjb":
+        c.phase_kernels_hjb(torch)
+        counts, s, v = c.phase_hjb(torch)
+        s["leg_ms_by_level"] = hjb_legs()
+        digest = sha(v)
+    elif row == "ode1d":
+        c.phase_kernels1d(torch)
+        counts, s, v = c.phase_ode1d(torch)
+        s["preset"] = c.phase_ode1d_preset(torch)
+        s["leg_ms_by_level"] = relax1d_legs()
+        digest = sha(v)
     else:
         raise SystemExit(f"unknown row {row}")
     print("AB " + json.dumps({"side": sys.argv[1], "row": row,

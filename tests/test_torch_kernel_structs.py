@@ -13,6 +13,8 @@ from pathlib import Path
 import pytest
 
 from pde_multigrid_tpu_torch.ops.cuda import masked_block as MB
+from pde_multigrid_tpu_torch.ops.cuda import relax1d as R1
+from pde_multigrid_tpu_torch.ops.cuda import resident as RS
 from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
 from pde_multigrid_tpu_torch.ops.cuda import subtree as S
 
@@ -55,6 +57,9 @@ def _struct_name(t):
     ("halves3d.cuh", "SubLevel", S.SubLevelParams),
     ("subtree.cu", "SubtreeParams", S.SubtreeParams),
     ("masked_block.cu", "MaskedChunkLayout", MB.MaskedChunkLayout),
+    ("resident.cu", "HJBLeg", RS.HJBLegLayout),
+    ("relax1d.cu", "Relax1DLayout", R1.Relax1DLayout),
+    ("relax1d.cu", "Poisson1D", R1.Poisson1DParams),
 ])
 def test_ctypes_struct_mirrors_the_c_struct(source, struct, cls):
     assert _py_fields(cls) == _c_fields(source, struct)

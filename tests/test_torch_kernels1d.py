@@ -192,20 +192,132 @@ def test_plan_for_1d_hierarchies(mixed):
 
 
 def test_plan_raises_above_the_kernel_capacity():
-    """16385 points fit one CTA; 32769 do not, and the plan raises naming
-    its ROADMAP item instead of running plain ops on the card.  2D
-    Poisson still raises."""
-    assert R1.MAX_POINTS == 16385
-    assert R1.fits(TG.build_geometries((16385,), DOM, 1)[0])
-    assert R1.fits(TG.build_geometries((16385,), DOM, 1, wrap=True)[0])
-    big = TG.build_geometries((32769,), DOM, 2)
-    assert not R1.fits(big[0]) and R1.fits(big[1])
-    with pytest.raises(NotImplementedError, match="queue 2 item 29"):
-        CudaKernels(Ode1D(), big, torch.float32)
+    """65537 points fit the cluster (16 CTAs of units of one warp, K = 8
+    where K = 4 does not hold them), in both storages; 131073 do not, and
+    the plan raises naming its ROADMAP item instead of running plain ops
+    on the card.  2D Poisson still raises."""
+    for prob, wrap in ((Ode1D(), False), (Poisson(1), True)):
+        fit = TG.build_geometries((65537,), DOM, 1, wrap=wrap)[0]
+        lay = R1.layout(fit, prob)
+        assert lay is not None and lay.K == 8 and lay.nctas <= R1.MAX_CTAS
+        big = TG.build_geometries((131073,), DOM, 2, wrap=wrap)
+        assert R1.layout(big[0], prob) is None
+        assert R1.layout(big[1], prob) is not None
+        with pytest.raises(NotImplementedError, match="queue 2 item 29"):
+            CudaKernels(prob, big, torch.float32)
     g2 = TG.build_geometries((17, 17), DOM * 2)
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         CudaKernels(Poisson(2), g2, torch.float32)
-    assert not R1.fits(g2[0])
+    assert R1.layout(g2[0], Poisson(2)) is None
+
+
+def _units(lay):
+    """(first held point, first owned, past the last owned) of each unit,
+    as csrc/relax1d.cu computes them."""
+    return [(u * lay.B - lay.HW, u * lay.B, u * lay.B + lay.B)
+            for u in range(lay.nctas * lay.wpc)]
+
+
+LAYOUT_SIZES = (3, 5, 9, 17, 33, 65, 129, 257, 513, 1025, 4097, 8193, 16385,
+                65537)
+
+
+@pytest.mark.parametrize("n", LAYOUT_SIZES)
+@pytest.mark.parametrize("problem,wrap", [(Ode1D(), False),
+                                          (Poisson(1), True)],
+                         ids=["ode1d", "poisson1d"])
+def test_relax1d_layout_covers_each_point(problem, wrap, n):
+    """The layout's units own each point the kernel holds exactly once
+    (E = N, or N + 1 in wrap storage, whose point N is point 0); a unit's
+    span is its lanes' 64 K points, its owned points and halos; the halo
+    is 2T points east only for Ode1D and on both sides for Poisson(1),
+    whole lanes; a level of at most 512 points runs on one warp without a
+    halo; at most 16 CTAs of at most 16 warps."""
+    g = TG.build_geometries((n,), DOM, 1, wrap=wrap)[0]
+    lay = R1.layout(g, problem)
+    (N,) = g.padded_shape
+    assert lay.N == N and lay.E == N + wrap and lay.last == n - 2
+    assert lay.K in R1.K_CHOICES and lay.threads == 32 * lay.wpc
+    assert 1 <= lay.nctas <= R1.MAX_CTAS and 1 <= lay.wpc <= R1.MAX_WARPS
+    assert lay.HW + lay.B + lay.HE == 64 * lay.K
+    if lay.E <= 512:
+        assert (lay.nctas, lay.wpc, lay.T, lay.HW, lay.HE) == (1, 1, 0, 0, 0)
+    else:
+        assert lay.T >= 1 and lay.HE == 2 * lay.T
+        assert lay.HW == (0 if isinstance(problem, Ode1D) else 2 * lay.T)
+        assert lay.HE % (2 * lay.K) == 0 and lay.B % (2 * lay.K) == 0
+        assert lay.B >= 2 * lay.T
+    count = np.zeros(lay.E, dtype=np.int64)
+    for st, o0, o1 in _units(lay):
+        count[max(o0, 0):min(o1, lay.E)] += 1
+        if lay.T:
+            assert st == o0 - lay.HW and o1 + lay.HE == st + 64 * lay.K
+    np.testing.assert_array_equal(count, 1)
+
+
+def _unit_schedule(v, f, nsweeps, problem, geom, lay):
+    """The relax1d kernel's schedule in plain PyTorch: chunks of T sweeps
+    (one chunk on one unit); each unit's span (its owned points with the
+    halo points the layout gives it, 0 past the level, point N = point 0
+    in wrap storage) relaxed on its own by the plain update, its edge
+    points reading whatever sits past the span (here the span's other
+    end); after each chunk the owned points form the level the next
+    chunk's spans load from (the halo refresh).  Returns a new tensor."""
+    N, E = lay.N, lay.E
+    m_red, m_black, pre = R1._plain_fields(problem, geom, v.dtype, v.device)
+
+    def held(a, interior=False):
+        out = torch.cat([a, a[:1]]) if E > N else a.clone()
+        if interior and E > N:
+            out[N] = 0  # point N is the zero plane's copy: never updated
+        return out
+
+    state, fe = held(v), held(f)
+    pe = {k: held(t) for k, t in pre.items()}
+    mr, mb = held(m_red, True), held(m_black, True)
+    T = lay.T or max(nsweeps, 1)
+    done = 0
+    while done < nsweeps:
+        tc = min(T, nsweeps - done)
+        new = state.clone()
+        for st, o0, o1 in _units(lay):
+            idx = torch.arange(st, st + 64 * lay.K)
+            inside = (idx >= 0) & (idx < E)
+            gi = idx.clamp(0, E - 1)
+
+            def take(a):
+                return torch.where(inside, a[gi], torch.zeros((), dtype=a.dtype))
+
+            sv, sf, smr, smb = take(state), take(fe), take(mr), take(mb)
+            spre = {k: take(t) for k, t in pe.items()}
+            for _ in range(tc):
+                sv = sv + smr * (problem.kernel_update(sv, sf, spre, geom) - sv)
+                sv = sv + smb * (problem.kernel_update(sv, sf, spre, geom) - sv)
+            own = inside & (idx >= o0) & (idx < o1)
+            new[idx[own]] = sv[own]
+        state, done = new, done + tc
+    return state[:N]
+
+
+@pytest.mark.parametrize("n", [1025, 8193])
+@pytest.mark.parametrize("problem,wrap", [(Ode1D(), False),
+                                          (Poisson(1), True)],
+                         ids=["ode1d", "poisson1d"])
+def test_relax1d_unit_schedule_matches_plain(problem, wrap, n):
+    """The units' T-sweep schedule (spans with their recomputed 2T-point
+    halos, east only for Ode1D, refreshed every T sweeps) equals
+    relax1d_plain bit for bit at 1, T - 1, T, T + 1 and 30 sweeps."""
+    g = TG.build_geometries((n,), DOM, 1, wrap=wrap)[0]
+    lay = R1.layout(g, problem)
+    T = lay.T
+    assert T >= 2 and lay.nctas * lay.wpc > 1
+    v, f = (torch.tensor(a) for a in _rand(g.padded_shape, seed=n + wrap))
+    if wrap:
+        v[0] = 0.0  # the wrap invariant: the zero plane
+    for ns in (1, T - 1, T, T + 1, 30):
+        want = R1.relax1d_plain(v.clone(), f, ns, problem, g)
+        got = _unit_schedule(v, f, ns, problem, g, lay)
+        assert torch.equal(got, want), ns
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

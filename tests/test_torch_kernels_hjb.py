@@ -145,16 +145,20 @@ def test_keep_mask_is_the_aux_mask_exclusion():
 def test_cuda_plan_hjb():
     """HJBMinTime at 513^2 (FAS, coarsest relax, every level relaxed): the
     slab kernel on L0, which the resident kernel cannot hold, the HJB
-    resident kernel on L1-L8 (8 CTAs from 257^2 to 65^2, one CTA from 33^2
-    down); 4 legs of ceil(30 / T) slab launches and 176 resident legs per
-    FMG(2, 30, 30) step.  The thesis scheme raises."""
+    resident kernel on L1-L8 (a cluster of up to 16 CTAs on 257^2 and
+    129^2, one CTA from 65^2 down, one warp on 3^2); 4 legs of
+    ceil(30 / T) slab
+    launches and 176 resident legs per FMG(2, 30, 30) step.  The thesis
+    scheme raises."""
     prob = HJBMinTime()
     geoms = TG.build_geometries((513, 513), prob.domain)
     k = CudaKernels(prob, geoms, torch.float32)
     assert [f.__name__ for f in k._relax] == (
         ["_relax_slab"] + ["_relax_resident"] * 8)
-    assert [RS.hjb_ctas(g) for g in geoms] == [None, 8, 8, 8, 1, 1, 1, 1, 1]
-    assert RS.hjb_smem_bytes(geoms[1], 8) == 33 * 257 * 9 + 16 * 257
+    lays = [RS.hjb_leg_layout(g) for g in geoms]
+    assert lays[0] is None
+    assert [lay.nctas > 1 for lay in lays[1:]] == [True] * 2 + [False] * 6
+    assert [lay.threads == 32 for lay in lays[1:]] == [False] * 7 + [True]
     assert not RS.fits(geoms[0])
     assert SL.slab_launches(30) == 8 and SL.slab_launches(4) == 1
     nlev, nu0 = len(geoms), 2
@@ -186,3 +190,116 @@ def test_wrappers_hjb_reject_what_kernels_do_not_take():
         RS.resident_relax(vt, None, 1, prob, tg)
     with pytest.raises(NotImplementedError, match="queue 2 item 30"):
         RS.resident_relax(vt, ft, 1, HJBMinTime(scheme="tesi"), tg)
+
+
+# ------------------------------------------- the leg kernel's layout
+
+
+HJB_LEVELS = (257, 129, 65, 33, 17, 9, 5, 3)
+
+
+def _bands(lay):
+    """(xo, xo_end, xs, xe) of each CTA: owned and loaded rows, as
+    csrc/resident.cu computes them."""
+    out = []
+    for r in range(lay.nctas):
+        xo = r * lay.B
+        xo_end = min(xo + lay.B, lay.X)
+        out.append((xo, xo_end, max(0, xo - lay.H), min(lay.X, xo_end + lay.H)))
+    return out
+
+
+@pytest.mark.parametrize("n", HJB_LEVELS)
+def test_hjb_leg_layout_covers_each_level(n):
+    """On every level of the HJB 513^2 hierarchy the layout holds the
+    level on at most 16 CTAs of at most 227 KB and 512 threads; a
+    cluster's bands carry 2T halo rows on both sides (the update reads
+    both x neighbours) and own at least 2T rows, one CTA none; and the
+    threads' (column, segment) items, as the kernel derives them, update
+    each interior point of each colour exactly once within the owned
+    rows."""
+    g = TG.build_geometries((n, n), DOM)[0]
+    lay = RS.hjb_leg_layout(g)
+    assert lay is not None
+    X, Y = g.padded_shape
+    assert 1 <= lay.nctas <= 16 and lay.threads <= 512
+    assert lay.smem_bytes <= 232448 and lay.S % 2 == 0
+    assert lay.NC >= Y - 2 and lay.NC % 32 == 0 and lay.L in RS.HJB_ROWS
+    if lay.nctas == 1:
+        assert lay.H == 0 and lay.B == X
+    else:
+        assert lay.H == 2 * lay.T and lay.T >= 1 and lay.B >= lay.H
+    count = np.zeros((2, X, Y), dtype=np.int64)
+    for r, (xo, xo_end, xs, xe) in enumerate(_bands(lay)):
+        if lay.nctas > 1:
+            assert xs == max(0, xo - 2 * lay.T)
+            assert xe == min(X, xo_end + 2 * lay.T)
+        for seg in range(lay.G):
+            seg0 = xs + seg * lay.L
+            seg1 = min(seg0 + lay.L, xe)
+            for x in range(max(seg0, xs + 1, xo), min(seg1, xe - 1, xo_end)):
+                for y in range(1, Y - 1):
+                    count[(x + y) % 2, x, y] += 1
+    want = np.zeros((X, Y), dtype=np.int64)
+    want[1:-1, 1:-1] = 1
+    for c in range(2):
+        colour = (np.add.outer(np.arange(X), np.arange(Y)) % 2) == c
+        np.testing.assert_array_equal(count[c], want * colour)
+
+
+def test_hjb_leg_layout_refuses_513():
+    """513^2, the slab kernel's level, fits no layout (its bands need
+    more rows than a thread's registers hold, or more threads)."""
+    geoms = TG.build_geometries((513, 513), HJBMinTime().domain)
+    assert RS.hjb_leg_layout(geoms[0]) is None
+    assert [RS.hjb_leg_layout(g) is not None for g in geoms] == (
+        [False] + [True] * 8)
+
+
+def _band_schedule(v, f, nsweeps, problem, geom, lay):
+    """The leg kernel's schedule in plain PyTorch: chunks of T sweeps (one
+    chunk on one CTA); each CTA's band, its owned rows with the halo rows
+    the layout gives it, relaxed on its own by the plain update, its first
+    and last loaded rows held (the kernel never updates them); after each
+    chunk the owned rows form the level the next chunk's bands load from
+    (the halo refresh).  Returns a new tensor."""
+    m_red, m_black, pre = RS._plain_fields(problem, geom, v.dtype, v.device)
+    T = lay.T or max(nsweeps, 1)
+    state, done = v.clone(), 0
+    while done < nsweeps:
+        tc = min(T, nsweeps - done)
+        new = state.clone()
+        for xo, xo_end, xs, xe in _bands(lay):
+            keep = torch.ones((xe - xs, 1), dtype=v.dtype)
+            keep[0] = keep[-1] = 0
+            sv, sf = state[xs:xe].clone(), f[xs:xe]
+            spre = {k: t[xs:xe] for k, t in pre.items()}
+            mr, mb = m_red[xs:xe] * keep, m_black[xs:xe] * keep
+            for _ in range(tc):
+                sv = sv + mr * (problem.kernel_update(sv, sf, spre, geom) - sv)
+                sv = sv + mb * (problem.kernel_update(sv, sf, spre, geom) - sv)
+            new[xo:xo_end] = sv[xo - xs:xo_end - xs]
+        state, done = new, done + tc
+    return state
+
+
+@pytest.mark.parametrize("T", [2, 4])
+@pytest.mark.parametrize("n", [65, 129])
+def test_hjb_banded_schedule_matches_plain(n, T):
+    """The cluster's banded T-sweep schedule (bands with their recomputed
+    2T halo rows, refreshed every T sweeps) equals resident_relax_plain
+    bit for bit at 1, T - 1, T, T + 1 and 30 sweeps, on levels with the
+    pinned ball, which stays as it was; the layout's own T among them."""
+    g = TG.build_geometries((n, n), DOM)[0]
+    lay = RS._segments(n, n, 8, T)
+    assert lay is not None and lay.nctas == 8 and lay.H == 2 * T
+    _, tg, v, f, fixed = _level(n, seed=n + T)
+    vt, ft = torch.tensor(v[:n, :n]), torch.tensor(f[:n, :n])
+    prob = HJBMinTime()
+    default = RS.hjb_leg_layout(g)
+    for ns in sorted({1, T - 1, T, T + 1, 30} - {0}):
+        want = RS.resident_relax_plain(vt.clone(), ft, ns, prob, g)
+        for lay_ in (lay, default):
+            got = _band_schedule(vt, ft, ns, prob, g, lay_)
+            assert torch.equal(got, want), (n, T, ns, lay_.as_dict())
+        assert torch.equal(want[torch.tensor(fixed)], vt[torch.tensor(fixed)])
