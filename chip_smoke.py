@@ -227,9 +227,10 @@ Phases, in order; any failure exits non-zero without the final result line:
      resident kernel, the blocked 3D kernel (blocked3d.cu, row 19)
      bitwise against row 9's half-sweep chain and its plain version on
      small and odd-tiled wrap levels at T = 1-4 and over 100-sweep legs
-     at 256^3 (T = 1, 2, 4) and 512^3 (T = 1), a T = 1 launch timed
-     beside its plain version and the legs beside row 9's chain and the
-     wavefront; after the 257^3 f32 main path, the same solve with
+     at 256^3 (T = 1-4) and 512^3 (T = 1), a T = 1 launch at 256^3 and
+     512^3 timed beside its plain version and the legs beside row 9's
+     chain and the wavefront; after the 257^3 f32 main path, the same
+     solve with
      PDE_MG_TIMESKEW=0: error_linf < 50 h^2, exactly the schedule's
      launches (row 19 on 256^3, the half-sweeps on 128^3, no wavefront),
      against the wavefront solve (bitwise, or error_linf within 1 %),
@@ -237,14 +238,17 @@ Phases, in order; any failure exits non-zero without the final result line:
      kernel (reduced2d.cu, row 18) bitwise its plain version at 33^2,
      65^2, 513^2 (T = 16, 5) and at 4097^2 and 2049^2 in chunks of
      T = 8, 1, 3 with and without f, bitwise its plain version and within
-     JAX's test tolerance of row 16 (its chunks), the T = 8 chunk timed
-     beside its plain version and row 16's two chunks of 4; after phase 6,
+     JAX's test tolerance of row 16 (its chunks), row 16's two chunks of 4
+     timed; on every level the 4097^2 plan reduces (4097^2 ... 513^2) at
+     its T and the legs' remainder 4, with and without f, bitwise and
+     timed (the f-less T chunk beside its plain version), and on 129^2 at
+     T = 1, 7, 8, 9, 15, 16; after phase 6,
      the
      4097^2 Lyapunov solve with the reduced opt-in on
      (dispatch.SPLIT2D_REDUCED): the bench's gate, error_linf within 1 %
      of phase 6's and max|v - v_row16| under 10 % of it, exactly the
      schedule's launches (`reduced_launches`; no row 16 chunk), eager and
-     graph ms per step.
+     graph ms per step, busy ms by kernel and relax ms by level.
 
 Every float64 reference but phase 11's is a `MultigridSolver(...,
 dtype="float64", device="cuda")` solve: the plain tier on the card.  Each phase's seconds
@@ -2178,9 +2182,13 @@ def phase_kernels_reduced2d(torch):
     levels), 1 and 3 (a remainder), each with and without f, bitwise
     against its plain version and within JAX's test tolerance of row 16
     (`relax_halves2d`: its one-rank chunks, bitwise the half-sweep chain)
-    over the same sweeps.  At 4097^2 the f-less T = 8 chunk is timed
-    beside its plain version and beside row 16's two f-less chunks of 4
-    sweeps.  Returns {"reduced2d": that chunk's record}."""
+    over the same sweeps; at 4097^2 row 16's two f-less chunks of 4 sweeps
+    timed.  Then on every level the 4097^2 plan reduces (4097^2 ... 513^2)
+    chunks of its T and of the legs' remainder 500 % T, with and without
+    f, bitwise its plain version and each timed (the f-less T chunk beside
+    its plain version: `REDUCED_AB["chunk_ms_by_level"]`), and on 129^2 T
+    = 1, 7, 8, 9, 15, 16 (around both T of the plan) with and without f.
+    Returns {"reduced2d": the 4097^2 f-less T = 8 chunk's record}."""
     import numpy as np
 
     from pde_multigrid_tpu_torch.grid import build_geometries
@@ -2242,9 +2250,7 @@ def phase_kernels_reduced2d(torch):
             f"(largest |diff| - tol: {max(rels)!r})")
         if n != 4097:
             continue
-        t = paired_times(
-            torch, lambda: RD.reduced_chunk(r, b, None, None, 8, prob, g, ko),
-            lambda: RD.reduced_slab2d_plain(r, b, None, None, 8, prob, g), 3)
+        err_4097 = max(errs)
         # row 16 over the same 8 sweeps: its form on the path, two f-less
         # one-rank chunks of 4 between two pairs of halves
         cr, cb = r.clone(), b.clone()
@@ -2252,25 +2258,85 @@ def phase_kernels_reduced2d(torch):
         chain = device_ms(
             torch, lambda: R2.relax_halves2d(cr, cb, None, None, 8, prob, g,
                                              spare=spare), 3)
-        # r and b read once and written once (f-less); per interior black
-        # point and sweep 3 products, 3 sums and the mask fold (8), per
-        # interior black point and chunk about 80 for its fields and its
-        # red neighbour's rebuild (three coefficient evaluations, one
-        # division each)
-        out["reduced2d"] = {"max_abs_err": max(errs), "ms": t["ms"],
-                            "plain_ms": t["plain_ms"],
-                            **bound(4 * r.nbytes,
-                                    (8 * 8 + 80) * (n - 2) ** 2 / 2),
-                            "library_ms": None}
-        REDUCED_AB.update(chunk_t8_ms=t["ms"], row16_8_sweeps_ms=chain,
-                          plain_ms=t["plain_ms"])
-        log(f"kernel reduced2d ({n}^2, one f-less T = 8 chunk): device "
-            f"{t['ms']!r} ms vs plain {t['plain_ms']!r} ms vs row 16's two "
-            f"f-less chunks of 4 sweeps (its form on the path, "
-            f"relax_halves2d) {chain!r} ms (bound "
-            f"{out['reduced2d']['bound_ms']!r}"
-            f" ms by {out['reduced2d']['bound_by']}); eager {t['eager_ms']!r}"
-            f" ms vs plain {t['eager_plain_ms']!r} ms")
+        REDUCED_AB.update(row16_8_sweeps_ms=chain)
+        log(f"kernel reduced2d ({n}^2): row 16's two f-less chunks of 4 "
+            f"sweeps (its form on the path, relax_halves2d) {chain!r} ms")
+    del v, f, r, b, fr, fb, ko, cr, cb, spare
+    # every level the 4097^2 plan reduces, at its T and at the legs'
+    # remainder (500 % T), with and without f: bitwise its plain version,
+    # each chunk timed (f-less at T beside its plain version)
+    by_level = {}
+    for g in build_geometries((LYAP_N, LYAP_N), prob.domain, 4):
+        n, T = g.shape[0], RD.chunk_sweeps(g)
+        rem = LYAP_NUS[1] % T
+        r, b, fr, fb = (torch.tensor(rng.standard_normal(
+            (n, (n + 1) // 2)).astype(np.float32), device=dev)
+            for _ in range(4))
+        ko = (torch.empty_like(r), torch.empty_like(b))
+        times = {"T": T, "rem": rem, "layout": RD.layout(*r.shape,
+                                                          T).as_dict()}
+        for t_, tag in ((T, ""), (rem, "rem_")):
+            for hf, fk in (((fr, fb), "f"), ((None, None), "no_f")):
+                RD.reduced_chunk(r, b, *hf, t_, prob, g, ko)
+                p = RD.reduced_slab2d_plain(r, b, *hf, t_, prob, g)
+                require(all(map(torch.equal, ko, p)),
+                        f"reduced2d {n}^2 T={t_} with f: {fk == 'f'} not "
+                        "bitwise its plain version")
+                if (t_, fk) == (T, "no_f"):
+                    pt = paired_times(
+                        torch, lambda: RD.reduced_chunk(r, b, None, None, T,
+                                                        prob, g, ko),
+                        lambda: RD.reduced_slab2d_plain(r, b, None, None, T,
+                                                        prob, g), 3)
+                    times.update(no_f=pt["ms"], plain_ms=pt["plain_ms"],
+                                 eager_ms=pt["eager_ms"],
+                                 eager_plain_ms=pt["eager_plain_ms"])
+                else:
+                    times[tag + fk] = device_ms(
+                        torch, lambda t_=t_, hf=hf: RD.reduced_chunk(
+                            r, b, *hf, t_, prob, g, ko), 5)
+        by_level[n] = times
+        log(f"kernel reduced2d ({n}^2, chunks of T = {T} and {rem}, with "
+            f"and without f): bitwise its plain version; device ms {times!r}")
+        if n == LYAP_N:
+            # r and b read once and written once (f-less); per interior
+            # black point and sweep 3 products, 3 sums and the mask fold
+            # (8), per interior black point and chunk about 80 for its
+            # fields and its red neighbour's rebuild (three coefficient
+            # evaluations, one division each)
+            out["reduced2d"] = {"max_abs_err": err_4097,
+                                "ms": times["no_f"],
+                                "plain_ms": times["plain_ms"],
+                                **bound(4 * r.nbytes,
+                                        (8 * T + 80) * (n - 2) ** 2 / 2),
+                                "library_ms": None}
+            REDUCED_AB.update(chunk_t8_ms=times["no_f"],
+                              plain_ms=times["plain_ms"])
+            log(f"kernel reduced2d ({n}^2, one f-less T = {T} chunk): "
+                f"device {times['no_f']!r} ms vs plain "
+                f"{times['plain_ms']!r} ms (bound "
+                f"{out['reduced2d']['bound_ms']!r} ms by "
+                f"{out['reduced2d']['bound_by']}); eager "
+                f"{times['eager_ms']!r} ms vs plain "
+                f"{times['eager_plain_ms']!r} ms")
+        del r, b, fr, fb, ko
+    REDUCED_AB["chunk_ms_by_level"] = by_level
+    # a small level in the plan's layouts (several tiles, the last row and
+    # column of them partial) around both T of the plan
+    g = build_geometries((129, 129), prob.domain, 1)[0]
+    r, b, fr, fb = (torch.tensor(rng.standard_normal((129, 65)).astype(
+        np.float32), device=dev) for _ in range(4))
+    ko = (torch.empty_like(r), torch.empty_like(b))
+    ts = (1, 7, 8, 9, 15, 16)
+    for T in ts:
+        for hf in ((fr, fb), (None, None)):
+            RD.reduced_chunk(r, b, *hf, T, prob, g, ko)
+            p = RD.reduced_slab2d_plain(r, b, *hf, T, prob, g)
+            require(all(map(torch.equal, ko, p)),
+                    f"reduced2d 129^2 T={T} with f: {hf[0] is not None} not "
+                    "bitwise its plain version")
+    log(f"kernel reduced2d (129^2, T = {ts}, with and without f): bitwise "
+        "its plain version")
     torch.cuda.synchronize()
     return out
 
@@ -2280,12 +2346,12 @@ def phase_kernels_blocked3d(torch):
     half-sweep chain (csrc/relax.cu), bitwise: on small and odd-tiled wrap
     levels (halves (8, 4, 8), (10, 6, 14), (48, 40, 72), 64^3) over
     nu = 5 at T = 1-4 (partial tiles, tiles holding a point twice, a
-    remainder launch); at 256^3 a 100-sweep leg at T = 1, 2, 4, also
+    remainder launch); at 256^3 a 100-sweep leg at T = 1-4, also
     bitwise its plain version; at 512^3 a 100-sweep leg at T = 1 (the
     plain version on a 4-sweep leg).  Timed: one T = 1 launch at 256^3
-    beside its plain version, and the 100-sweep legs on halves at 256^3
-    and 512^3 beside row 9's chain and the wavefront's.  Returns
-    {"blocked3d": the 256^3 launch's record}."""
+    and at 512^3 beside its plain version, and the 100-sweep legs on
+    halves at 256^3 and 512^3 beside row 9's chain and the wavefront's.
+    Returns {"blocked3d": the 256^3 launch's record}."""
     import numpy as np
 
     from pde_multigrid_tpu_torch.grid import build_geometries
@@ -2335,7 +2401,7 @@ def phase_kernels_blocked3d(torch):
         g = build_geometries((n,) * 3, prob.domain, 1, wrap=True)[0]
         require(BL.use_blocked(g), f"{n - 1}^3: not a row-19 level")
         hv = halves(g)
-        ts = (1, 2, 4) if n == 257 else (1,)
+        ts = (1, 2, 3, 4) if n == 257 else (1,)
         err = max(check(g, hv, nsw, T, plain=n == 257) for T in ts)
         if n == 513:
             err = max(err, check(g, hv, 4, 1))
@@ -2352,24 +2418,26 @@ def phase_kernels_blocked3d(torch):
         log(f"kernel blocked3d ({n - 1}^3): bitwise row 9's chain over "
             f"{nsw} sweeps at T = {ts}; {nsw}-sweep leg on halves, device "
             f"ms: {legs!r}")
-        if n != 257:
-            continue
+        # one T = 1 launch (the path's) beside its plain version
         ko = (torch.empty_like(hv[0]), torch.empty_like(hv[1]))
         t = paired_times(
             torch, lambda: BL.blocked_chunk(*hv, 1, prob, g, ko),
-            lambda: BL.blocked_slab3d_plain(*hv, 1, prob, g), 10)
+            lambda: BL.blocked_slab3d_plain(*hv, 1, prob, g),
+            10 if n == 257 else 2)
+        BLOCKED_AB[f"{n - 1}^3 launch"] = {
+            **t, "layout": BL.layout(*hv[0].shape, 1).as_dict()}
         # r, b, fr and fb read once, r and b written once; 13 operations
         # an updated point
-        out["blocked3d"] = {"max_abs_err": err, "ms": t["ms"],
-                            "plain_ms": t["plain_ms"],
-                            **bound(6 * hv[0].nbytes,
-                                    13 * updated_points(g.padded_shape)),
-                            "library_ms": None}
+        rec = {"max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+               **bound(6 * hv[0].nbytes,
+                       13 * updated_points(g.padded_shape)),
+               "library_ms": None}
         log(f"kernel blocked3d ({n - 1}^3, one T = 1 launch): device "
             f"{t['ms']!r} ms vs plain {t['plain_ms']!r} ms (bound "
-            f"{out['blocked3d']['bound_ms']!r} ms by "
-            f"{out['blocked3d']['bound_by']}); eager {t['eager_ms']!r} ms vs "
-            f"plain {t['eager_plain_ms']!r} ms")
+            f"{rec['bound_ms']!r} ms by {rec['bound_by']}); eager "
+            f"{t['eager_ms']!r} ms vs plain {t['eager_plain_ms']!r} ms")
+        if n == 257:
+            out["blocked3d"] = rec
         del hv, c, ko
     torch.cuda.synchronize()
     return out
@@ -2407,7 +2475,10 @@ def phase_lyapunov_reduced(torch, sly, vly, counts_ly):
     residuals; exactly the schedule's launches: row 18 on 4097^2 ... 513^2
     (T = 8, 8, 16, 16: JAX's ladder), split2d / merge2d per leg, the
     resident kernel below as in phase 6 (`counts_ly`), no half-sweep;
-    then ms per step eager and as one CUDA graph."""
+    then ms per step eager and as one CUDA graph, the profiler's busy ms
+    a step by kernel, and the relax kernels' device ms a step by level
+    (the chunk times of phase kernels_reduced2d, row 1's legs of phase
+    kernels2d)."""
     from pde_multigrid_tpu_torch import (
         CycleConfig,
         Lyapunov2D,
@@ -2456,6 +2527,35 @@ def phase_lyapunov_reduced(torch, sly, vly, counts_ly):
                "max_abs_dv_vs_row16": dv,
                "launches_per_step": {k: counts[k] for k in want}}
     summary.update(time_step(torch, tag, solver, levels, 2, 1))
+    summary["busy_ms"] = busy_split_ms(
+        torch, lambda: solver.program.solve_step(levels),
+        {"reduced2d": "reduced2d_kernel",
+         "resident": "color_slab2d_kernel<true, true",
+         "split2d": "split2d_kernel", "merge2d": "merge2d_kernel"})
+    # the relax kernels' device ms per step by level: level l's 2 nu0
+    # f-less legs and 2 nu0 l legs with f, each nu // T chunks of T and one
+    # of nu % T on the reduced levels (phase kernels_reduced2d's times),
+    # one 500-sweep leg of row 1 below (phase kernels2d's)
+    nu0, nu = LYAP_NUS[0], LYAP_NUS[1]
+    by_level = {}
+    for l, g in enumerate(solver.geoms):
+        m = g.shape[0]
+        red = REDUCED_AB.get("chunk_ms_by_level", {}).get(m)
+        leg = LYAP2D_AB.get("resident_500_ms", {}).get(m)
+        if red:
+            full = nu // red["T"]
+            legs = {fk: full * red[fk] + (red["rem_" + fk] if red["rem"]
+                                          else 0.0)
+                    for fk in ("no_f", "f")}
+        elif leg:
+            legs = leg
+        else:
+            continue
+        by_level[m] = 2 * nu0 * (legs["no_f"] + l * legs["f"])
+    summary["relax_ms_per_step_by_level"] = by_level
+    log(f"{tag}: device busy ms per step by kernel (profiler) "
+        f"{summary['busy_ms']!r}; relax device ms per step by level "
+        f"{by_level!r} (sum {sum(by_level.values())!r})")
     return counts, summary
 
 

@@ -21,6 +21,9 @@ a CUDA tensor to the plain version.  `launches` counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from pde_multigrid_tpu_torch.grid import LevelGeometry
@@ -40,9 +43,56 @@ MAX_T = 4
 SLAB_VMEM_BUDGET = 12 * 2**20
 
 
+# the kernel's launch (csrc/blocked3d.cu): its threads a CTA, its owned
+# (j, z) tile by T (kBJ x kBZ at T = 1, TileOf above), the CTAs an SM
+# holds by T (two where the form's registers and shared memory fit
+# twice), and an H100 SXM's 132 SMs, which the tiles times the bands fill
+# in one wave
+THREADS = 256
+TILE = {1: (16, 64), 2: (16, 32), 3: (8, 32), 4: (8, 32)}
+CTAS_PER_SM = {1: 2, 2: 2, 3: 1, 4: 1}
+NUM_SMS = 132
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+class Blocked3DLayout(ctypes.Structure):
+    """The kernel's `Blocked3DLayout` (csrc/blocked3d.cu): the level's
+    halves (X, Y2, Z), T, the owned (j, z) tile BJ x BZ and band of B x
+    planes, the tiles along j and z and the bands along x, threads a CTA
+    and shared memory bytes."""
+
+    _fields_ = [(name, ctypes.c_int)
+                for name in ("X", "Y2", "Z", "T", "BJ", "BZ", "B", "tj",
+                             "tz", "bands", "threads", "smem_bytes")]
+
+    def as_dict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+
+@functools.lru_cache(maxsize=64)
+def layout(X: int, Y2: int, Z: int, T: int) -> Blocked3DLayout:
+    """The kernel's layout of a launch of T sweeps on (X, Y2, Z) halves:
+    T's tile, and the fewest bands of x planes with which the tiles still
+    fill the SMs in one wave (a band's 4T lead-in planes are read twice);
+    its shared memory.  Cached: the wrapper asks at every launch."""
+    if not 1 <= T <= MAX_T or min(X, Y2, Z) < 1:
+        raise ValueError(f"no layout of T = {T} on ({X}, {Y2}, {Z}) halves")
+    BJ, BZ = TILE[T]
+    tj, tz = -(-Y2 // BJ), -(-Z // BZ)
+    bands = max(1, min(X, NUM_SMS * CTAS_PER_SM[T] // (tj * tz)))
+    B = -(-X // bands)
+    bands = -(-X // B)
+    LJ, LZ = BJ + 4 * T, BZ + 4 * T
+    # T = 1: two double-buffered planes (static); above, the ring of 2T + 3
+    # planes of four arrays and the tables (dynamic)
+    smem = (16 * LJ * LZ if T == 1
+            else 4 * 4 * (2 * T + 3) * LJ * LZ + 4 * (LJ + LZ))
+    return Blocked3DLayout(X, Y2, Z, T, BJ, BZ, B, tj, tz, bands, THREADS,
+                           smem)
 
 
 def use_blocked(geom: LevelGeometry) -> bool:
@@ -88,11 +138,11 @@ def blocked_chunk(r, b, fr, fb, T: int, problem, geom: LevelGeometry, out):
         out[1].copy_(pb)
         return out
     R._check_poisson(problem)
-    X, Y2, Z = r.shape
+    lay = layout(*r.shape, T)
     (w0, w1, w2), inv_den = split_constants(geom)
     rc = build.load().lib.pdemg_blocked3d(
-        *(a.data_ptr() for a in (*ins, *out)), X, Y2, Z, T, w0, w1, w2,
-        inv_den, R._stream(),
+        *(a.data_ptr() for a in (*ins, *out)), ctypes.byref(lay), w0, w1,
+        w2, inv_den, R._stream(),
     )
     launches["blocked3d"] += 1
     build.check(rc, "blocked3d")

@@ -80,9 +80,9 @@ SIGNATURES = {
     "pdemg_masked_chunk": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,
     ),
-    "pdemg_blocked3d": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P,
-    ),
+    # the blocked kernel takes its launch geometry as a pointer to a host
+    # struct (blocked3d.Blocked3DLayout)
+    "pdemg_blocked3d": (_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P),
     "pdemg_residual_split": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     "pdemg_merge_fold": (_P, _P, _P, _I, _I, _I, _P),
     "pdemg_residual": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
@@ -102,7 +102,8 @@ SIGNATURES = {
     "pdemg_color_slab2d_leg": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
-    "pdemg_reduced2d": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # the reduced kernel its layout (reduced2d.Reduced2DLayout)
+    "pdemg_reduced2d": (_P, _P, _P, _P, _P, _P, _P, _P, _P),
     # the HJB kernels take their fields as a pointer to a host struct
     # (resident.HJB2DParams), the leg its layout as another
     # (resident.HJBLegLayout)

@@ -26,127 +26,254 @@
 // Reads past row X or slot Y2 take 0, what JAX's zero padding holds there:
 // only masked points and terms with a zero coefficient read them.
 //
-// Design: one CTA owns a kBX x kBJ tile of black points.  It loads the
-// tile with a one-sided halo, 2T rows on +x and T slots on +j (a sweep
-// reads x+2, x+1 and j+1), into shared memory, builds the six fields of
-// every loaded point there, and runs the sweeps between two black buffers
-// in turn, one barrier a sweep.  A sweep leaves exact values two rows and
-// one slot further from the far edges than the last, so sweep s (from 0)
-// computes only the rows < LX - 2(s+1) and slots < LJ - (s+1) the later
-// sweeps read; the last one computes the owned points, whose red it
-// rebuilds from b_prev.  The output halves are apart from the inputs:
-// tiles read rows that other tiles own.  T is a run-time loop bound.
+// Design: a CTA of TY warps (a warp a row phase, its lanes 32 slot
+// phases) owns a BX x BJ tile of black points and loads it with its
+// one-sided halo (2T rows on +x, T slots on +j: a sweep reads x+2, x+1 and
+// j+1) as an LX x 64 region, LX = TY IX, so that each thread holds the
+// same IX x 2 points of it for the whole chunk: their five fields (Cxx,
+// Cxy, Cyy, Cf, (1 - m_b) b0) and m_b live in registers, and a sweep reads
+// three black values from shared memory and writes one.  The inputs come
+// in by cp.async (zero-filled past X and Y2) while the threads compute the
+// red coefficients of the region (its rows and one more) into shared
+// memory; each point's black coefficient is computed in registers, so a
+// point costs two coefficient evaluations (one IEEE division each), with
+// the terms a00 x, a10 x of its row and a01 y, a11 y of its column
+// computed once a tile.  Sweep s (from 0) runs on the rows and slots the
+// later sweeps read (rows < LX - 2(s+1), slots < 64 - (s+1): a warp's row
+// is in or out as a whole), between two black buffers in turn, one
+// barrier a sweep; the last runs on the owned points and rebuilds their
+// red from b_prev.  The output halves are apart from the inputs: tiles
+// read rows that other tiles own.  Forms (TY, IX), each the fastest on
+// the 4097^2 plan's levels of its T on an H100 (reduced2d.form): (16, 3),
+// 48 rows and two CTAs an SM, up to T = 4; (32, 3), 96 rows, up to T = 8;
+// (32, 2), 64 rows, above.
 //
 // What bounds it: per point and chunk it reads r, b (and fr, fb) once and
-// writes r and b (16 B f-less, 24 B with f), plus the halo
-// ((kBX + 2T)(kBJ + T) / (kBX kBJ) = 1.69 at T = 8); per point and sweep
-// 6 float operations, per point and chunk three coefficient evaluations
-// (three IEEE divisions) and the fields.  Making it fast (wider tiles,
-// fields in registers, TMA loads) is later work.
+// writes r and b: 16 B f-less, 24 B with f (0.040 ms f-less at 4097^2 at
+// 3.35 TB/s), the halo ((LX x 64) / (BX x BJ) = 1.37 at T = 8) through the
+// L2; per point and sweep 8 float operations from registers and 3
+// shared-memory loads, over 1.16 times the owned points at T = 8 (the
+// shrinking regions); per loaded point two coefficient evaluations and the
+// fields: issue, not bytes, at 5x the byte bound.
 
 #include <cuda_runtime.h>
 
-#include "lyapunov2d.cuh"  // Lyap2D, Coef, lyap_coef
+#include "lyapunov2d.cuh"  // Lyap2D, Coef, axis_coord
+
+// The launch: the level's halves (X, Y2), the chunk's T, a thread's rows
+// of points IX (the region's rows LX = IX threads / 32), the owned tile
+// BX x BJ (LX - 2T rows, 64 - T slots), the tiles along the slots and the
+// rows, the threads (32 TY) and shared memory (ops/cuda/reduced2d.layout).
+struct Reduced2DLayout {
+  int X, Y2;
+  int T;
+  int IX, BX, BJ;
+  int tj, tx;
+  int threads, smem_bytes;
+};
 
 namespace {
 
-constexpr int kBX = 32;  // owned rows of a tile
-constexpr int kBJ = 64;  // owned half slots of a tile
-constexpr int kThreads = 256;
-constexpr int kMaxT = 16;  // 8 fields of (32 + 32)(64 + 16) floats: 160 KB
-constexpr int kFields = 8;  // two black buffers, Cxx, Cxy, Cyy, Cf, m_b, c_bk
+constexpr int kMaxT = 16;
+constexpr int kLJ = 64;       // the region's slots: two of a thread's
+constexpr int kSJ = kLJ + 1;  // with the slot past it (r, fr, coefficients)
 
-inline size_t smem_bytes(int T) {
-  return (size_t)kFields * (kBX + 2 * T) * (kBJ + T) * sizeof(float);
-}
-
-// a[x, j], or 0 past the last row or slot
-__device__ __forceinline__ float at0(const float* __restrict__ a, int x,
-                                     int j, int X, int Y2) {
-  return (x < X && j < Y2) ? a[(long long)x * Y2 + j] : 0.0f;
+// floats of shared memory: r and fr on (LX + 1) x kSJ, fb and the two
+// black buffers on LX x kLJ, the red coefficients (ae, as, af) on
+// (LX + 1) x kSJ, the row terms a00 x, a10 x of LX + 1 rows and the column
+// terms a01 y, a11 y of 2 kSJ + 2 columns
+__host__ __device__ constexpr int smem_floats(int LX) {
+  return 5 * (LX + 1) * kSJ + 3 * LX * kLJ + 2 * (LX + 1) +
+         2 * (2 * kSJ + 2);
 }
 
 __device__ __forceinline__ float mask(bool ok) { return ok ? 1.0f : 0.0f; }
 
-template <bool WITH_F>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  // 4 bytes global -> shared, zero-filled where `in` is false
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// lyap_coef (lyapunov2d.cuh) with its x terms a00 x, a10 x (ax0, ax1) and
+// y terms a01 y, a11 y (ay0, ay1) given: the same operations, in order
+__device__ __forceinline__ Coef coef_of(float ax0, float ax1, float ay0,
+                                        float ay1, const Lyap2D& p) {
+  const float k1 = ax0 + ay0;
+  const float k2 = ax1 + ay1;
+  float den = k1 * p.h1 + k2 * p.h0;
+  den = den - p.ahh;
+  const float inv = 1.0f / den;
+  Coef c;
+  c.ae = (p.h1 * k1) * inv;
+  c.as = (p.h0 * k2) * inv;
+  c.af = p.nhh * inv;
+  return c;
+}
+
+// TY warps, a warp a row phase: thread (ty, tx) holds the points
+// (ty + TY i, tx + 32 k), i < IX, k < 2, of the LX = TY IX rows
+template <int TY, int IX, bool WITH_F>
+__global__ void __launch_bounds__(32 * TY, TY == 16 && IX == 3 ? 2 : 1)
     reduced2d_kernel(const float* __restrict__ r, const float* __restrict__ b,
                      const float* __restrict__ fr,
                      const float* __restrict__ fb, float* __restrict__ ro,
-                     float* __restrict__ bo, int X, int Y2, int T, Lyap2D p) {
+                     float* __restrict__ bo, const Reduced2DLayout L,
+                     const Lyap2D p) {
+  constexpr int LX = TY * IX;
+  constexpr int NR = (LX + 1) * kSJ;  // r, fr and each coefficient
+  constexpr int NB = LX * kLJ;        // fb and each black buffer
+  constexpr int NY = 2 * kSJ + 2;     // the columns y = 2 j0 ...
   extern __shared__ float sm[];
-  const int LX = kBX + 2 * T;
-  const int LJ = kBJ + T;
-  const int n = LX * LJ;
-  float* cur = sm;
-  float* nxt = sm + n;
-  float* cxx = sm + 2 * n;
-  float* cxy = sm + 3 * n;
-  float* cyy = sm + 4 * n;
-  float* cf = sm + 5 * n;
-  float* mb = sm + 6 * n;
-  float* cbk = sm + 7 * n;
-  const int x0 = blockIdx.y * kBX;
-  const int j0 = blockIdx.x * kBJ;
+  float* const sr = sm;
+  float* const sfr = sr + NR;
+  float* const sfb = sfr + NR;
+  float* const b0 = sfb + NB;
+  float* const b1 = b0 + NB;
+  float* const rc = b1 + NB;  // [ae, as, af][(LX + 1) x kSJ]
+  float* const xt = rc + 3 * NR;  // [a00 x, a10 x][LX + 1]
+  float* const yt = xt + 2 * (LX + 1);  // [a01 y, a11 y][NY]
+  const int T = L.T, X = L.X, Y2 = L.Y2, BX = L.BX, BJ = L.BJ;
+  const int x0 = blockIdx.y * BX;
+  const int j0 = blockIdx.x * BJ;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 5, tx = tid & 31;
 
-  // the fields of every loaded point (relax.py:3266-3331)
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int lx = i / LJ;
-    const int lj = i - lx * LJ;
+  // the inputs on the region, zero past X and Y2: rows ty + TY i (row LX
+  // at i = IX, ty = 0), slots tx + 32 k (slot 64 at k = 2, tx = 0)
+#pragma unroll
+  for (int i = 0; i <= IX; ++i) {
+    const int lx = ty + TY * i;
+    if (lx > LX) continue;
     const int x = x0 + lx;
-    const int j = j0 + lj;
-    if (x >= X || j >= Y2) {  // past the level: 0, and it stays 0
-      cur[i] = cxx[i] = cxy[i] = cyy[i] = cf[i] = mb[i] = cbk[i] = 0.0f;
-      continue;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int lj = tx + 32 * k;
+      if (lj > kLJ) continue;
+      const int j = j0 + lj;
+      const bool in = x < X && j < Y2;
+      const long long g = in ? (long long)x * Y2 + j : 0;
+      const int e = lx * kSJ + lj;
+      cp_async4(sr + e, r + g, in);
+      if (WITH_F) cp_async4(sfr + e, fr + g, in);
+      if (lx < LX && lj < kLJ) {
+        const int c = lx * kLJ + lj;
+        cp_async4(b0 + c, b + g, in);
+        if (WITH_F) cp_async4(sfb + c, fb + g, in);
+      }
     }
-    const int q = x & 1;
-    const int yb = 2 * j + 1 - q;
-    const bool okx = x >= 1 && x <= p.nx - 2;
-    const bool oky_b = yb >= 1 && yb <= p.ny - 2;
-    const float m_b = mask(okx && oky_b);
-    const float m_rE = mask(x + 1 >= 1 && x + 1 <= p.nx - 2 && oky_b);
-    const float m_rS = mask(okx && yb + 1 >= 1 && yb + 1 <= p.ny - 2);
-    const Coef cb = lyap_coef(x, yb, p);
-    const Coef cE = lyap_coef(x + 1, yb, p);
-    const Coef cS = lyap_coef(x, yb + 1, p);
-    const float aeE = cb.ae * m_rE;
-    const float asS = cb.as * m_rS;
-    cxx[i] = aeE * cE.ae;
-    cxy[i] = aeE * cE.as + asS * cS.ae;
-    cyy[i] = asS * cS.as;
-    // the masked red neighbours' values: R[x+1, j] and R[x, j+1-q]
-    const int js = q ? j : j + 1;
-    float c = (cb.ae * (1.0f - m_rE)) * at0(r, x + 1, j, X, Y2);
-    c = c + (cb.as * (1.0f - m_rS)) * at0(r, x, js, X, Y2);
-    if (WITH_F) {
-      float t = (aeE * cE.af) * at0(fr, x + 1, j, X, Y2);
-      t = t + (asS * cS.af) * at0(fr, x, js, X, Y2);
-      t = t + cb.af * fb[(long long)x * Y2 + j];
-      c = c + t;
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // the coordinate terms, then the region's red coefficients, while the
+  // copies are in flight
+  for (int i = tid; i < LX + 1 + NY; i += 32 * TY) {
+    if (i <= LX) {
+      const float xf = axis_coord(x0 + i, p.o0, p.h0, p.lo0, p.hi0);
+      xt[i] = p.a00 * xf;
+      xt[LX + 1 + i] = p.a10 * xf;
+    } else {
+      const int k = i - LX - 1;
+      const float yf = axis_coord(2 * j0 + k, p.o1, p.h1, p.lo1, p.hi1);
+      yt[k] = p.a01 * yf;
+      yt[NY + k] = p.a11 * yf;
     }
-    cf[i] = c;
-    const float b0 = b[(long long)x * Y2 + j];
-    mb[i] = m_b;
-    cbk[i] = (1.0f - m_b) * b0;
-    cur[i] = b0;
   }
   __syncthreads();
+#pragma unroll
+  for (int i = 0; i <= IX; ++i) {
+    const int lx = ty + TY * i;
+    if (lx > LX) continue;
+    const int q = (x0 + lx) & 1;
+    const float ax0 = xt[lx], ax1 = xt[LX + 1 + lx];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int lj = tx + 32 * k;
+      if (lj > kLJ) continue;
+      const int ky = 2 * lj + q;  // red (x, 2j + q)
+      const Coef c = coef_of(ax0, ax1, yt[ky], yt[NY + ky], p);
+      const int e = lx * kSJ + lj;
+      rc[e] = c.ae;
+      rc[NR + e] = c.as;
+      rc[2 * NR + e] = c.af;
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  // this thread's points: their fields (relax.py:3266-3331) in registers
+  float cxx[IX][2], cxy[IX][2], cyy[IX][2], cf[IX][2], cbk[IX][2];
+  unsigned mbits = 0;
+#pragma unroll
+  for (int i = 0; i < IX; ++i) {
+    const int lx = ty + TY * i;
+    const int x = x0 + lx;
+    const int q = x & 1;
+    const bool okx = x >= 1 && x <= p.nx - 2;
+    const float ax0 = xt[lx], ax1 = xt[LX + 1 + lx];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int lj = tx + 32 * k;
+      const int j = j0 + lj;
+      cxx[i][k] = cxy[i][k] = cyy[i][k] = cf[i][k] = cbk[i][k] = 0.0f;
+      if (x >= X || j >= Y2) continue;  // past the level: 0, stays 0
+      const int yb = 2 * j + 1 - q;
+      const bool oky_b = yb >= 1 && yb <= p.ny - 2;
+      const float m_b = mask(okx && oky_b);
+      const float m_rE = mask(x + 1 >= 1 && x + 1 <= p.nx - 2 && oky_b);
+      const float m_rS = mask(okx && yb + 1 >= 1 && yb + 1 <= p.ny - 2);
+      const int ky = 2 * lj + 1 - q;
+      const Coef cb = coef_of(ax0, ax1, yt[ky], yt[NY + ky], p);
+      const int e = (lx + 1) * kSJ + lj;       // red (x+1, y): slot j
+      const int s = lx * kSJ + (q ? lj : lj + 1);  // red (x, y+1)
+      const Coef cE = {rc[e], rc[NR + e], rc[2 * NR + e]};
+      const Coef cS = {rc[s], rc[NR + s], rc[2 * NR + s]};
+      const float aeE = cb.ae * m_rE;
+      const float asS = cb.as * m_rS;
+      cxx[i][k] = aeE * cE.ae;
+      cxy[i][k] = aeE * cE.as + asS * cS.ae;
+      cyy[i][k] = asS * cS.as;
+      // the masked red neighbours' values: R[x+1, j] and R[x, j+1-q]
+      float c = (cb.ae * (1.0f - m_rE)) * sr[e];
+      c = c + (cb.as * (1.0f - m_rS)) * sr[s];
+      if (WITH_F) {
+        float w = (aeE * cE.af) * sfr[e];
+        w = w + (asS * cS.af) * sfr[s];
+        w = w + cb.af * sfb[lx * kLJ + lj];
+        c = c + w;
+      }
+      cf[i][k] = c;
+      mbits |= (m_b != 0.0f ? 1u : 0u) << (2 * i + k);
+      cbk[i][k] = (1.0f - m_b) * b0[lx * kLJ + lj];
+    }
+  }
 
   // the sweeps before the last, each on the rows and slots later ones read
+  float* cur = b0;
+  float* nxt = b1;
   for (int s = 0; s + 1 < T; ++s) {
     const int RX = LX - 2 * (s + 1);
-    const int RJ = LJ - (s + 1);
-    for (int i = threadIdx.x; i < RX * RJ; i += blockDim.x) {
-      const int lx = i / RJ;
-      const int lj = i - lx * RJ;
-      const int k = lx * LJ + lj;
+    const int RJ = kLJ - (s + 1);
+#pragma unroll
+    for (int i = 0; i < IX; ++i) {
+      const int lx = ty + TY * i;
+      if (lx >= RX) continue;  // the warp's row
       const int q = (x0 + lx) & 1;
-      const float bxy = q ? cur[k + LJ] : cur[k + LJ + 1];
-      float u = cxx[k] * cur[k + 2 * LJ];
-      u = u + cxy[k] * bxy;
-      u = u + cyy[k] * cur[k + 1];
-      u = u + cf[k];
-      nxt[k] = mb[k] * u + cbk[k];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int lj = tx + 32 * k;
+        if (lj >= RJ) continue;
+        const int c = lx * kLJ + lj;
+        const float bxy = q ? cur[c + kLJ] : cur[c + kLJ + 1];
+        float u = cxx[i][k] * cur[c + 2 * kLJ];
+        u = u + cxy[i][k] * bxy;
+        u = u + cyy[i][k] * cur[c + 1];
+        u = u + cf[i][k];
+        const float m_b = (mbits >> (2 * i + k)) & 1u ? 1.0f : 0.0f;
+        nxt[c] = m_b * u + cbk[i][k];
+      }
     }
     float* t = cur;
     cur = nxt;
@@ -154,71 +281,101 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  // the last sweep on the owned points, from cur = b_prev, and the red
+  // the last sweep on the owned points, from cur = b_prev, and their red
   // rebuilt from b_prev (relax.py:3341-3358)
-  for (int i = threadIdx.x; i < kBX * kBJ; i += blockDim.x) {
-    const int lx = i / kBJ;
-    const int lj = i - lx * kBJ;
+#pragma unroll
+  for (int i = 0; i < IX; ++i) {
+    const int lx = ty + TY * i;
     const int x = x0 + lx;
-    const int j = j0 + lj;
-    if (x >= X || j >= Y2) continue;
-    const int k = lx * LJ + lj;
+    if (lx >= BX || x >= X) continue;
     const int q = x & 1;
-    const float bxy = q ? cur[k + LJ] : cur[k + LJ + 1];
-    float u = cxx[k] * cur[k + 2 * LJ];
-    u = u + cxy[k] * bxy;
-    u = u + cyy[k] * cur[k + 1];
-    u = u + cf[k];
-    const long long g = (long long)x * Y2 + j;
-    bo[g] = mb[k] * u + cbk[k];
-    const int yr = 2 * j + q;
-    const float m_r =
-        mask(x >= 1 && x <= p.nx - 2 && yr >= 1 && yr <= p.ny - 2);
-    const Coef cr = lyap_coef(x, yr, p);
-    // east (x+1, y): B[x+1, j]; south (x, y+1): B[x, j+q]
-    float ru = cr.ae * cur[k + LJ];
-    ru = ru + cr.as * (q ? cur[k + 1] : cur[k]);
-    if (WITH_F) ru = ru + cr.af * fr[g];
-    const float r0 = r[g];
-    ro[g] = m_r * ru + (1.0f - m_r) * r0;
+    const bool okx = x >= 1 && x <= p.nx - 2;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int lj = tx + 32 * k;
+      const int j = j0 + lj;
+      if (lj >= BJ || j >= Y2) continue;
+      const int c = lx * kLJ + lj;
+      const float bxy = q ? cur[c + kLJ] : cur[c + kLJ + 1];
+      float u = cxx[i][k] * cur[c + 2 * kLJ];
+      u = u + cxy[i][k] * bxy;
+      u = u + cyy[i][k] * cur[c + 1];
+      u = u + cf[i][k];
+      const float m_b = (mbits >> (2 * i + k)) & 1u ? 1.0f : 0.0f;
+      const long long g = (long long)x * Y2 + j;
+      bo[g] = m_b * u + cbk[i][k];
+      const int yr = 2 * j + q;
+      const float m_r = mask(okx && yr >= 1 && yr <= p.ny - 2);
+      const int e = lx * kSJ + lj;  // red (x, 2j + q)
+      // east (x+1, y): B[x+1, j]; south (x, y+1): B[x, j+q]
+      float ru = rc[e] * cur[c + kLJ];
+      ru = ru + rc[NR + e] * (q ? cur[c + 1] : cur[c]);
+      if (WITH_F) ru = ru + rc[2 * NR + e] * sfr[e];
+      ro[g] = m_r * ru + (1.0f - m_r) * sr[e];
+    }
   }
 }
 
-template <bool WITH_F>
+template <int TY, int IX, bool WITH_F>
 int launch(const float* r, const float* b, const float* fr, const float* fb,
-           float* ro, float* bo, int X, int Y2, int T, const Lyap2D& p,
+           float* ro, float* bo, const Reduced2DLayout& L, const Lyap2D& p,
            cudaStream_t stream) {
   static bool opted_in = false;  // once per process, outside any capture
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        reduced2d_kernel<WITH_F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(kMaxT));
+        reduced2d_kernel<TY, IX, WITH_F>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(float) * smem_floats(TY * IX)));
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
-  const dim3 grid((Y2 + kBJ - 1) / kBJ, (X + kBX - 1) / kBX, 1);
-  reduced2d_kernel<WITH_F><<<grid, kThreads, smem_bytes(T), stream>>>(
-      r, b, fr, fb, ro, bo, X, Y2, T, p);
+  reduced2d_kernel<TY, IX, WITH_F>
+      <<<dim3(L.tj, L.tx, 1), 32 * TY, L.smem_bytes, stream>>>(
+          r, b, fr, fb, ro, bo, L, p);
   return (int)cudaGetLastError();
+}
+
+template <bool WITH_F>
+int launch_form(const float* r, const float* b, const float* fr,
+                const float* fb, float* ro, float* bo,
+                const Reduced2DLayout& L, const Lyap2D& p, cudaStream_t st) {
+  const int TY = L.threads / 32;
+  if (TY == 16 && L.IX == 3) {
+    return launch<16, 3, WITH_F>(r, b, fr, fb, ro, bo, L, p, st);
+  }
+  if (TY == 32 && L.IX == 2) {
+    return launch<32, 2, WITH_F>(r, b, fr, fb, ro, bo, L, p, st);
+  }
+  return launch<32, 3, WITH_F>(r, b, fr, fb, ro, bo, L, p, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One chunk of T sweeps: halves r, b (RHS halves fr, fb, or both null: the
-// f-less kernel) of an (X, Y2) level -> ro, bo, apart from the inputs.
+// One chunk of L->T sweeps: halves r, b (RHS halves fr, fb, or both null:
+// the f-less kernel) of an (X, Y2) level -> ro, bo, apart from the inputs,
+// in the layout *L (ops/cuda/reduced2d.layout).
 int pdemg_reduced2d(const float* r, const float* b, const float* fr,
-                    const float* fb, float* ro, float* bo, int X, int Y2,
-                    int T, const Lyap2D* p, void* stream) {
-  if (T < 1 || T > kMaxT || X < 1 || Y2 < 1 ||
+                    const float* fb, float* ro, float* bo,
+                    const Reduced2DLayout* L, const Lyap2D* p, void* stream) {
+  const Reduced2DLayout& l = *L;
+  const int TY = l.threads / 32;
+  const bool form = (TY == 16 && l.IX == 3) ||
+                    (TY == 32 && (l.IX == 2 || l.IX == 3));
+  const int LX = TY * l.IX;
+  if (l.T < 1 || l.T > kMaxT || l.X < 1 || l.Y2 < 1 || !form ||
+      l.threads != 32 * TY || l.BX != LX - 2 * l.T || l.BX < 1 ||
+      l.BJ != kLJ - l.T || l.tj != (l.Y2 + l.BJ - 1) / l.BJ ||
+      l.tx != (l.X + l.BX - 1) / l.BX ||
+      (size_t)l.smem_bytes != sizeof(float) * smem_floats(LX) ||
       (fr == nullptr) != (fb == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  if ((X + kBX - 1) / kBX > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (l.tx > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
-  return fr ? launch<true>(r, b, fr, fb, ro, bo, X, Y2, T, *p, st)
-            : launch<false>(r, b, nullptr, nullptr, ro, bo, X, Y2, T, *p, st);
+  return fr ? launch_form<true>(r, b, fr, fb, ro, bo, l, *p, st)
+            : launch_form<false>(r, b, nullptr, nullptr, ro, bo, l, *p, st);
 }
 
 }  // extern "C"

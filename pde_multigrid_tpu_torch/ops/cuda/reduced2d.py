@@ -24,6 +24,7 @@ a CUDA tensor to the plain version.  `launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,9 +35,13 @@ from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _stream
 
 launches = {"reduced2d": 0}
 
-# the most sweeps one launch takes (csrc/reduced2d.cu's kMaxT: the tile's
-# shared memory grows with T)
+# the most sweeps one launch takes (csrc/reduced2d.cu's kMaxT: the halo
+# of 2T rows and T slots grows with T; at 16 a 64 x 64 region owns 32 x 48)
 MAX_T = 16
+
+# the kernel's region's slots (csrc/reduced2d.cu's kLJ): a warp's 32
+# threads hold two slots each
+REGION_J = 64
 
 # JAX's block ladder at its defaults (relax.py:3727, 3744, 3773): its VMEM
 # budget, first T and window cap decide T, which sets where red is rebuilt
@@ -48,6 +53,61 @@ SPLIT2D_MAX_WINDOW = 680 * 1024
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+class Reduced2DLayout(ctypes.Structure):
+    """The kernel's `Reduced2DLayout` (csrc/reduced2d.cu): the level's
+    halves (X, Y2), the chunk's T, a thread's rows of points IX (the
+    region's rows LX = IX threads / 32), the owned tile BX x BJ, the tiles
+    along the slots and the rows, threads a CTA and shared memory
+    bytes."""
+
+    _fields_ = [(name, ctypes.c_int)
+                for name in ("X", "Y2", "T", "IX", "BX", "BJ", "tj", "tx",
+                             "threads", "smem_bytes")]
+
+    def as_dict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+
+def smem_bytes(LX: int) -> int:
+    """csrc/reduced2d.cu's smem_floats, in bytes, for an LX-row region: r
+    and fr on (LX + 1) x 65, fb and two black buffers on LX x 64, three
+    red coefficients on (LX + 1) x 65, two row terms on LX + 1 rows, two
+    column terms on 132 columns."""
+    SJ = REGION_J + 1
+    return 4 * (5 * (LX + 1) * SJ + 3 * LX * REGION_J + 2 * (LX + 1)
+                + 2 * (2 * SJ + 2))
+
+
+def make_layout(X: int, Y2: int, T: int, rows: int,
+                IX: int) -> Reduced2DLayout:
+    """The Reduced2DLayout of `rows` warps a CTA, each thread holding IX x
+    2 points of the LX = rows IX row region: the kernel's forms (16, 3),
+    (32, 3) and (32, 2)."""
+    BX, BJ = rows * IX - 2 * T, REGION_J - T
+    return Reduced2DLayout(X, Y2, T, IX, BX, BJ, -(-Y2 // BJ), -(-X // BX),
+                           32 * rows, smem_bytes(rows * IX))
+
+
+def form(T: int) -> tuple:
+    """(warps a CTA, rows of points a thread) for a chunk of T sweeps: 16
+    warps on a 48-row region up to T = 4 (two CTAs an SM), 32 warps on 96
+    rows up to T = 8, 32 warps on 64 rows above: of these and 16 warps on
+    64 rows, the fastest on the 4097^2 plan's levels of each T on an H100
+    (PERF.md, Findings; scripts/probe_reduced_layouts.py)."""
+    return (16, 3) if T <= 4 else (32, 3) if T <= 8 else (32, 2)
+
+
+@functools.lru_cache(maxsize=64)
+def layout(X: int, Y2: int, T: int) -> Reduced2DLayout:
+    """The kernel's layout of a chunk of T sweeps on (X, Y2) halves: T's
+    form, a region of LX rows by 64 slots, its owned tile LX - 2T rows by
+    64 - T slots (the one-sided halo of T sweeps), tiles covering the
+    level.  Cached: the wrapper asks at every launch."""
+    if not 1 <= T <= MAX_T or X < 1 or Y2 < 1:
+        raise ValueError(f"no layout of T = {T} on ({X}, {Y2}) halves")
+    return make_layout(X, Y2, T, *form(T))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -102,12 +162,12 @@ def _next(a, k: int, ax: int):
     return out
 
 
-def reduced_slab2d_plain(r, b, fr, fb, T: int, problem,
-                         geom: LevelGeometry):
-    """(r, b) after one chunk of T sweeps on whole halves (new tensors;
-    fr, fb None: the f-less chunk): the TPU kernel's body
-    (relax.py:3241-3359) in its order, every read past the last row or
-    slot 0."""
+def reduced_fields(r, b, fr, fb, problem, geom: LevelGeometry) -> dict:
+    """The chunk's sweep-invariant fields on whole halves (fr, fb None: the
+    f-less chunk), as the TPU kernel builds them (relax.py:3266-3331):
+    c_xx, c_xy, c_yy, c_f, m_b, c_bk of the black update, and the red
+    rebuild's east and south coefficients r_e, r_s, its RHS term r_f (None
+    f-less), m_r and c_rk; q1 marks the odd rows."""
     X, Y2 = r.shape
     dev, dt = r.device, r.dtype
     nx, ny = geom.shape
@@ -143,15 +203,42 @@ def reduced_slab2d_plain(r, b, fr, fb, T: int, problem,
         frS = torch.where(q1, fr, _next(fr, 1, 1))
         c_f = c_f + (ae_b * m_rE * pre_rE[kf] * frE
                      + as_b * m_rS * pre_rS[kf] * frS + pre_b[kf] * fb)
-    c_bk = (1 - m_b) * b
-    c_rk = (1 - m_r) * r
+    return {"q1": q1, "c_xx": c_xx, "c_xy": c_xy, "c_yy": c_yy, "c_f": c_f,
+            "m_b": m_b, "c_bk": (1 - m_b) * b, "r_e": pre_r[ke],
+            "r_s": pre_r[ks],
+            "r_f": None if fr is None else pre_r[kf] * fr,
+            "m_r": m_r, "c_rk": (1 - m_r) * r}
+
+
+def black_update(fd: dict, b2, bxy, b1):
+    """A sweep's black update from B[x+2, j], B[x+1, j+1-q] and B[x, j+1]
+    (`fd`: `reduced_fields`, or its values at the same points), in the
+    kernel's order."""
+    upd = fd["c_xx"] * b2 + fd["c_xy"] * bxy + fd["c_yy"] * b1 + fd["c_f"]
+    return fd["m_b"] * upd + fd["c_bk"]
+
+
+def red_rebuild(fd: dict, bE, bS):
+    """Red from b_prev's east B[x+1, j] and south B[x, j+q] neighbours."""
+    r_upd = fd["r_e"] * bE + fd["r_s"] * bS
+    if fd["r_f"] is not None:
+        r_upd = r_upd + fd["r_f"]
+    return fd["m_r"] * r_upd + fd["c_rk"]
+
+
+def reduced_slab2d_plain(r, b, fr, fb, T: int, problem,
+                         geom: LevelGeometry):
+    """(r, b) after one chunk of T sweeps on whole halves (new tensors;
+    fr, fb None: the f-less chunk): the TPU kernel's body
+    (relax.py:3241-3359) in its order, every read past the last row or
+    slot 0."""
+    fd = reduced_fields(r, b, fr, fb, problem, geom)
+    q1 = fd["q1"]
 
     def sweep(bb):
         b1 = _next(bb, 1, 0)
         bxy = torch.where(q1, b1, _next(b1, 1, 1))
-        upd = (c_xx * _next(bb, 2, 0) + c_xy * bxy + c_yy * _next(bb, 1, 1)
-               + c_f)
-        return m_b * upd + c_bk
+        return black_update(fd, _next(bb, 2, 0), bxy, _next(bb, 1, 1))
 
     b_prev = b
     for _ in range(T - 1):
@@ -159,10 +246,7 @@ def reduced_slab2d_plain(r, b, fr, fb, T: int, problem,
     b_new = sweep(b_prev)
     rE = _next(b_prev, 1, 0)
     rS = torch.where(q1, _next(b_prev, 1, 1), b_prev)
-    r_upd = pre_r[ke] * rE + pre_r[ks] * rS
-    if fr is not None:
-        r_upd = r_upd + pre_r[kf] * fr
-    return m_r * r_upd + c_rk, b_new
+    return red_rebuild(fd, rE, rS), b_new
 
 
 # ------------------------------------------------------------ wrappers
@@ -201,11 +285,12 @@ def reduced_chunk(r, b, fr, fb, T: int, problem, geom: LevelGeometry, out):
         out[1].copy_(pb)
         return out
     params = R2.lyap_params(problem, geom)
-    X, Y2 = r.shape
+    lay = layout(*r.shape, T)
     pf = (fr.data_ptr(), fb.data_ptr()) if fs else (None, None)
     rc = build.load().lib.pdemg_reduced2d(
         r.data_ptr(), b.data_ptr(), *pf, out[0].data_ptr(),
-        out[1].data_ptr(), X, Y2, T, ctypes.addressof(params), _stream(),
+        out[1].data_ptr(), ctypes.byref(lay), ctypes.addressof(params),
+        _stream(),
     )
     launches["reduced2d"] += 1
     build.check(rc, "reduced2d")

@@ -40,7 +40,20 @@ A ROW is
   resident3d  a 100-sweep dense leg of the whole-leg 3D resident kernel
             (`merged_resident_relax`, or `resident3d_relax` off the merged
             gate) on every level of 65^3, timed graph-replayed, and the
-            SHA-256 of the legs' results on seeded inputs.
+            SHA-256 of the legs' results on seeded inputs;
+  reduced   `chip_smoke.phase_lyapunov(torch)` (the default 4097^2
+            Lyapunov solve, row 16), `phase_kernels_reduced2d(torch)` and
+            `phase_lyapunov_reduced(torch, ...)` (the same solve with the
+            reduced opt-in, row 18: its gate, launches, ms a step), a chunk
+            of row 18 timed on every level the plan reduces (4097^2 ...
+            513^2, at its T and the legs' remainder, with and without f),
+            and the SHA-256 of both solutions;
+  blocked   `chip_smoke.phase_main_path(torch, 257, "f32")` (the
+            wavefront solve), `phase_kernels_blocked3d(torch)` and
+            `phase_f32_257_blocked(torch, ...)` (the same solve with
+            PDE_MG_TIMESKEW=0, row 19: its gate, launches, ms a step), a
+            T = 1 launch of row 19 timed at 256^3 and 512^3, and the
+            SHA-256 of both solutions.
 Each side runs every ROW in its own process with its own kernels build,
 in the order PARENT, CHANGE, CHANGE, PARENT, and prints one `AB` JSON line
 a row (its summary, launch counts and the result's SHA-256).  Then one
@@ -165,6 +178,80 @@ def relax1d_legs():
     return out
 
 
+def reduced_row():
+    import numpy as np
+    from pde_multigrid_tpu_torch import (CycleConfig, Lyapunov2D,
+                                         MultigridSolver, SolverConfig)
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.ops.cuda import dispatch
+    from pde_multigrid_tpu_torch.ops.cuda import reduced2d as RD
+
+    counts_ly, sly, vly = c.phase_lyapunov(torch)
+    c.phase_kernels_reduced2d(torch)
+    counts, s = c.phase_lyapunov_reduced(torch, sly, vly, counts_ly)
+    saved = dispatch.SPLIT2D_REDUCED
+    dispatch.SPLIT2D_REDUCED = True
+    try:
+        solver = MultigridSolver(Lyapunov2D(), c.LYAP_N, SolverConfig(
+            cycle=CycleConfig("fmg", *c.LYAP_NUS, coarsest="exact"),
+            precision="mixed"), device="cuda")
+    finally:
+        dispatch.SPLIT2D_REDUCED = saved
+    v = solver.solve().v
+    rng = np.random.default_rng(2043)
+    chunks, prob = {}, Lyapunov2D()
+    for g in build_geometries((c.LYAP_N,) * 2, prob.domain, 4):
+        n, T = g.shape[0], RD.chunk_sweeps(g)
+        r, b, fr, fb = (torch.tensor(rng.standard_normal(
+            (n, (n + 1) // 2)).astype(np.float32), device="cuda")
+            for _ in range(4))
+        ko = (torch.empty_like(r), torch.empty_like(b))
+        for t in (T, c.LYAP_NUS[1] % T):
+            for hf, fk in (((fr, fb), "f"), ((None, None), "no_f")):
+                chunks[f"{n}^2 T={t} {fk}"] = c.device_ms(
+                    torch, lambda t=t, hf=hf: RD.reduced_chunk(
+                        r, b, *hf, t, prob, g, ko), 5)
+    s["chunk_ms"] = chunks
+    s["default"] = sly
+    s["sha256_default"], s["sha256_reduced"] = sha(vly), sha(v)
+    return counts, s, f"{sha(vly)} {sha(v)}"
+
+
+def blocked_row():
+    import os
+    import numpy as np
+    from pde_multigrid_tpu_torch import (CycleConfig, MultigridSolver,
+                                         Poisson3D, SolverConfig)
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.ops.cuda import blocked3d as BL
+
+    _, s32, v32 = c.phase_main_path(torch, 257, "f32")
+    c.phase_kernels_blocked3d(torch)
+    counts, s = c.phase_f32_257_blocked(torch, s32, v32)
+    os.environ["PDE_MG_TIMESKEW"] = "0"
+    try:
+        v = MultigridSolver(Poisson3D(), 257, SolverConfig(
+            cycle=CycleConfig("fmg", 2, 100, 100, coarsest="exact"),
+            precision="f32"), device="cuda").solve().v
+    finally:
+        os.environ.pop("PDE_MG_TIMESKEW")
+    rng = np.random.default_rng(2044)
+    launch, prob = {}, Poisson3D()
+    for n in (257, 513):
+        g = build_geometries((n,) * 3, prob.domain, 1, wrap=True)[0]
+        hv = [torch.tensor(rng.standard_normal(
+            (n - 1, (n - 1) // 2, n - 1)).astype(np.float32), device="cuda")
+            for _ in range(4)]
+        ko = (torch.empty_like(hv[0]), torch.empty_like(hv[1]))
+        launch[f"{n - 1}^3 T=1"] = c.device_ms(
+            torch, lambda: BL.blocked_chunk(*hv, 1, prob, g, ko), 10)
+        del hv, ko
+    s["launch_ms"] = launch
+    s["wavefront"] = s32
+    s["sha256_wavefront"], s["sha256_blocked"] = sha(v32), sha(v)
+    return counts, s, f"{sha(v32)} {sha(v)}"
+
+
 c.phase_card(torch)
 c.phase_build()
 for row in sys.argv[2:]:
@@ -195,6 +282,10 @@ for row in sys.argv[2:]:
             dist.destroy_process_group()
     elif row == "resident3d":
         counts, s, digest = resident3d_row()
+    elif row == "reduced":
+        counts, s, digest = reduced_row()
+    elif row == "blocked":
+        counts, s, digest = blocked_row()
     elif row == "hjb":
         c.phase_kernels_hjb(torch)
         counts, s, v = c.phase_hjb(torch)

@@ -145,6 +145,237 @@ def test_plain_matches_relax_rbgs_float64():
                                    rtol=0, atol=1e-12 * np.abs(want).max())
 
 
+# ------------------------------------- the kernel's plane-stream schedule
+
+
+def _stream(hv, T_, prob, tg, lay):
+    """csrc/blocked3d.cu's schedule at T = 2 .. 4 in plain PyTorch on
+    whole halves: per CTA (z tile, j tile, band), the ring of 2T + 3 planes of r, b, fr, fb
+    on the tile with its 2T halo (j and z through the wrapped tables, x
+    planes from 2T before the band), plane k + 1 issued at step k and
+    landing at its end, half-sweep h updating its colour in place on plane
+    k - 1 - h over the points h + 1 or more from the tile's faces (planes
+    h + 1 .. NP - 2 - h), and the planes whose last colour is done written
+    out at the next step.  Every ring read checks that its slot holds the
+    plane it wants and is not being loaded.  Returns (ro, bo, writes per
+    point)."""
+    r, b, fr, fb = hv
+    X, Y2, Z = r.shape
+    H, R_ = 2 * T_, 2 * T_ + 3
+    BJ, BZ = lay.BJ, lay.BZ
+    LJ, LZ = BJ + 2 * H, BZ + 2 * H
+    outs = (torch.full_like(r, float("nan")), torch.full_like(b, float("nan")))
+    hits = torch.zeros(2, X, Y2, Z, dtype=torch.int32)
+    for tz in range(lay.tz):
+        for tj in range(lay.tj):
+            j0, z0 = tj * BJ, tz * BZ
+            gj = torch.arange(j0 - H, j0 - H + LJ) % Y2
+            gz = torch.arange(z0 - H, z0 - H + LZ) % Z
+            for bd in range(lay.bands):
+                x0 = bd * lay.B
+                nown = min(lay.B, X - x0)
+                NP = nown + 2 * H
+                ring = {}
+                flying = [None]
+
+                def load(i):
+                    gx = (x0 - H + i) % X
+                    for a, arr in enumerate(hv):
+                        ring[a, i % R_] = (i, arr[gx][gj][:, gz].clone())
+
+                def get(a, i):
+                    assert i % R_ != flying[0]
+                    plane, t = ring[a, i % R_]
+                    assert plane == i, (a, plane, i)
+                    return t
+
+                def store(a, i):
+                    if not H <= i < H + nown:
+                        return
+                    nj, nz = min(BJ, Y2 - j0), min(BZ, Z - z0)
+                    x = x0 + i - H
+                    outs[a][x, j0:j0 + nj, z0:z0 + nz] = get(a, i)[
+                        H:H + nj, H:H + nz]
+                    hits[a, x, j0:j0 + nj, z0:z0 + nz] += 1
+
+                load(0)
+                for k in range(NP):
+                    store(0, k - H)
+                    store(1, k - 1 - H)
+                    flying[0] = (k + 1) % R_ if k + 1 < NP else None
+                    for h in range(H):
+                        pl, color = k - 1 - h, h % 2
+                        if not h + 1 <= pl <= NP - 2 - h:
+                            continue
+                        u = get(color, pl)
+                        w = get(1 - color, pl)
+                        wm, wp = get(1 - color, pl - 1), get(1 - color, pl + 1)
+                        fu = get(2 + color, pl)
+                        x = (x0 - H + pl) % X
+                        sj, sz = slice(h + 1, LJ - 1 - h), slice(h + 1,
+                                                                  LZ - 1 - h)
+                        j, z = gj[sj][:, None], gz[sz][None, :]
+                        q1 = (x + z) % 2 == 1
+                        up = (color == 0) == q1  # red: j+1 where q = 1
+                        jn = torch.where(up, w[h + 2:LJ - h, sz],
+                                         w[h:LJ - 2 - h, sz])
+                        p0 = wm[sj, sz] + wp[sj, sz]
+                        p1 = w[sj, sz] + jn
+                        p2 = w[sj, h:LZ - 2 - h] + w[sj, h + 2:LZ - h]
+                        upd = prob.split_update((p0, p1, p2), fu[sj, sz], tg)
+                        jz_ok = (j >= 1) | (q1 if color == 0 else ~q1)
+                        m = ((x >= 1) & (z >= 1) & jz_ok).to(u.dtype)
+                        old = u[sj, sz]
+                        u[sj, sz] = old + m * (upd - old)
+                    if k + 1 < NP:
+                        flying[0] = None
+                        load(k + 1)
+                store(1, NP - 1 - H)
+    return (*outs, hits)
+
+
+def _stream1(hv, prob, tg, lay):
+    """csrc/blocked3d.cu's T = 1 form in plain PyTorch on whole halves:
+    per CTA (z tile, j tile, band), the planes from 2 before the band to 2
+    after it one a step; at step k red on plane k - 1 over the points 1 or
+    more from the tile's faces, from black's old planes k - 2 and k (a
+    thread's registers) and black's plane k - 1 in the shared buffer
+    (k - 1) % 2; then black on plane k - 2 over the owned points, from
+    red's new planes k - 3 and k - 1 (registers) and red's plane k - 2 in
+    the buffer (k - 2) % 2; plane k - 2 written out; black's plane k and
+    red's plane k - 1 put into buffers k % 2 and (k - 1) % 2.  Every
+    buffer read checks that it holds the plane it wants.  Returns (ro, bo,
+    writes per point)."""
+    r, b, fr, fb = hv
+    X, Y2, Z = r.shape
+    BJ, BZ = lay.BJ, lay.BZ
+    LJ, LZ = BJ + 4, BZ + 4
+    outs = (torch.full_like(r, float("nan")), torch.full_like(b, float("nan")))
+    hits = torch.zeros(2, X, Y2, Z, dtype=torch.int32)
+    for tz in range(lay.tz):
+        for tj in range(lay.tj):
+            j0, z0 = tj * BJ, tz * BZ
+            gj = torch.arange(j0 - 2, j0 - 2 + LJ) % Y2
+            gz = torch.arange(z0 - 2, z0 - 2 + LZ) % Z
+            nj, nz = min(BJ, Y2 - j0), min(BZ, Z - z0)
+            for bd in range(lay.bands):
+                x0 = bd * lay.B
+                NP = min(lay.B, X - x0) + 4
+
+                def plane(arr, i):
+                    return arr[(x0 - 2 + i) % X][gj][:, gz]
+
+                def pairs(w, x, color, k0):
+                    """The j and z pair sums of w's tile over the points
+                    k0 or more from the faces, and their j, z, odd x + z."""
+                    sj, sz = slice(k0, LJ - k0), slice(k0, LZ - k0)
+                    j, z = gj[sj][:, None], gz[sz][None, :]
+                    q1 = (x + z) % 2 == 1
+                    up = (color == 0) == q1
+                    jn = torch.where(up, w[k0 + 1:LJ - k0 + 1, sz],
+                                     w[k0 - 1:LJ - k0 - 1, sz])
+                    p1 = w[sj, sz] + jn
+                    p2 = w[sj, k0 - 1:LZ - k0 - 1] + w[sj, k0 + 1:LZ - k0 + 1]
+                    return sj, sz, q1, j, z, p1, p2
+
+                sb, sr, rn = {}, {}, {}
+                for k in range(NP):
+                    rnew = plane(r, k - 1).clone()
+                    if 1 <= k - 1 <= NP - 2:  # red on plane k - 1
+                        assert sb[(k - 1) % 2][0] == k - 1
+                        w = sb[(k - 1) % 2][1]
+                        x = (x0 + k - 3) % X
+                        sj, sz, q1, j, z, p1, p2 = pairs(w, x, 0, 1)
+                        p0 = (plane(b, k - 2) + plane(b, k))[sj, sz]
+                        upd = prob.split_update(
+                            (p0, p1, p2), plane(fr, k - 1)[sj, sz], tg)
+                        m = ((x >= 1) & (z >= 1) & ((j >= 1) | q1)).to(
+                            r.dtype)
+                        old = rnew[sj, sz]
+                        rnew[sj, sz] = old + m * (upd - old)
+                    if 2 <= k - 2 <= NP - 3:  # black on plane k - 2
+                        assert sr[(k - 2) % 2][0] == k - 2
+                        w = sr[(k - 2) % 2][1]
+                        x = (x0 + k - 4) % X
+                        sj, sz, q1, j, z, p1, p2 = pairs(w, x, 1, 2)
+                        p0 = (rn[k - 3] + rnew)[sj, sz]
+                        upd = prob.split_update(
+                            (p0, p1, p2), plane(fb, k - 2)[sj, sz], tg)
+                        m = ((x >= 1) & (z >= 1) & ((j >= 1) | ~q1)).to(
+                            r.dtype)
+                        old = plane(b, k - 2)[sj, sz]
+                        bnew = old + m * (upd - old)
+                        xo = x0 + k - 4
+                        outs[1][xo, j0:j0 + nj, z0:z0 + nz] = bnew[:nj, :nz]
+                        outs[0][xo, j0:j0 + nj, z0:z0 + nz] = rn[k - 2][
+                            2:2 + nj, 2:2 + nz]
+                        hits[:, xo, j0:j0 + nj, z0:z0 + nz] += 1
+                    sb[k % 2] = (k, plane(b, k))
+                    sr[(k - 1) % 2] = (k - 1, rnew)
+                    rn[k - 1] = rnew
+    return (*outs, hits)
+
+
+def _small_tile_layout(X, Y2, Z, T_, BJ, BZ, B):
+    """A Blocked3DLayout with another tile and band than the kernel's
+    (for the schedule alone: the kernel takes TILE[T] only)."""
+    tj, tz, bands = -(-Y2 // BJ), -(-Z // BZ), -(-X // B)
+    return BL.Blocked3DLayout(X, Y2, Z, T_, BJ, BZ, B, tj, tz, bands,
+                              BL.THREADS, 0)
+
+
+@pytest.mark.parametrize("shape,tile", [
+    ((9, 9, 9), None),       # halves (8, 4, 8): the tile wraps, a plane a band
+    ((11, 13, 15), None),    # (10, 6, 14): odd extents
+    ((33, 33, 33), None),    # (32, 16, 32)
+    ((33, 33, 33), (4, 8, 5)),  # 4 x 4 tiles, 7 bands, the last of 2
+    ((17, 21, 27), (4, 8, 3)),  # (16, 10, 26): partial tiles in j and z
+])
+@pytest.mark.parametrize("T_", [1, 2, 3, 4])
+def test_plane_stream_schedule_is_row9_chain_bitwise(shape, tile, T_):
+    """The kernel's schedule (`_stream1` at T = 1, `_stream` above, in the
+    layout `blocked3d.layout` gives, or with a smaller tile and band)
+    equals row 9's plain
+    half-sweep chain over T sweeps bit for bit, each owned point of each
+    colour written once."""
+    tg = TG.build_geometries(shape, DOM, 1, wrap=True)
+    rng = np.random.default_rng(2200 + T_)
+    ps = tg[0].padded_shape
+    v = (rng.standard_normal(ps) * TG.wrap_interior(ps)).astype(np.float32)
+    f = rng.standard_normal(ps).astype(np.float32)
+    hv = _halves(v, f)
+    lay = (BL.layout(*hv[0].shape, T_) if tile is None
+           else _small_tile_layout(*hv[0].shape, T_, *tile))
+    if T_ == 1:
+        ro, bo, hits = _stream1(hv, TPoisson(3), tg[0], lay)
+    else:
+        ro, bo, hits = _stream(hv, T_, TPoisson(3), tg[0], lay)
+    want = R.relax_halves_plain(hv[0].clone(), hv[1].clone(), *hv[2:], T_,
+                                TPoisson(3), tg[0])
+    assert bool((hits == 1).all())
+    assert torch.equal(ro, want[0]) and torch.equal(bo, want[1])
+
+
+def test_layout_of_the_planned_levels():
+    """256^3 and 512^3 halves: T's tile, the bands filling 132 SMs in one
+    wave (two CTAs an SM at T <= 2), the shared memory the kernel
+    computes (the ring of 2T + 3 planes of four arrays and the tables)
+    within 227 KB, twice within an SM's 228 KB at T <= 2."""
+    want = {(256, 1): (8, 4, 8, 32), (512, 1): (16, 8, 2, 256),
+            (256, 2): (8, 8, 4, 64), (256, 4): (16, 8, 1, 256)}
+    for (n, T_), (tj, tz, bands, B) in want.items():
+        lay = BL.layout(n, n // 2, n, T_)
+        assert (lay.BJ, lay.BZ) == BL.TILE[T_]
+        assert (lay.tj, lay.tz, lay.bands, lay.B) == (tj, tz, bands, B)
+        assert tj * tz * bands <= BL.NUM_SMS * BL.CTAS_PER_SM[T_]
+        LJ, LZ = lay.BJ + 4 * T_, lay.BZ + 4 * T_
+        assert lay.smem_bytes == (16 * LJ * LZ if T_ == 1 else 16 * (
+            2 * T_ + 3) * LJ * LZ + 4 * (LJ + LZ))
+        assert lay.smem_bytes * BL.CTAS_PER_SM[T_] <= 228 * 1024 - 2048
+    with pytest.raises(ValueError, match="no layout"):
+        BL.layout(8, 4, 8, 5)
+
+
 # ------------------------------------------------------------------ plan
 
 _JAX_TIER = {

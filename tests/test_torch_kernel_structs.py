@@ -12,7 +12,9 @@ from pathlib import Path
 
 import pytest
 
+from pde_multigrid_tpu_torch.ops.cuda import blocked3d as BL
 from pde_multigrid_tpu_torch.ops.cuda import masked_block as MB
+from pde_multigrid_tpu_torch.ops.cuda import reduced2d as RD
 from pde_multigrid_tpu_torch.ops.cuda import relax1d as R1
 from pde_multigrid_tpu_torch.ops.cuda import resident as RS
 from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
@@ -60,6 +62,8 @@ def _struct_name(t):
     ("resident.cu", "HJBLeg", RS.HJBLegLayout),
     ("relax1d.cu", "Relax1DLayout", R1.Relax1DLayout),
     ("relax1d.cu", "Poisson1D", R1.Poisson1DParams),
+    ("reduced2d.cu", "Reduced2DLayout", RD.Reduced2DLayout),
+    ("blocked3d.cu", "Blocked3DLayout", BL.Blocked3DLayout),
 ])
 def test_ctypes_struct_mirrors_the_c_struct(source, struct, cls):
     assert _py_fields(cls) == _c_fields(source, struct)

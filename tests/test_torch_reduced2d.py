@@ -197,6 +197,119 @@ def test_masked_points_held_and_inert_slot():
         (b2[m_b] != b[m_b]).all())
 
 
+# -------------------------------------------- the kernel's tile schedule
+
+_FIELDS = ("c_xx", "c_xy", "c_yy", "c_f", "m_b", "c_bk", "r_e", "r_s",
+           "r_f", "m_r", "c_rk")
+
+
+def _tiles(r, b, fr, fb, T_, prob, tg, lay):
+    """csrc/reduced2d.cu's schedule in plain PyTorch on whole halves: per
+    tile, the LX x 64 region from its first owned row and slot (zero past X
+    and Y2), every point's fields (`reduced_fields` there, 0 past the
+    level), sweep s (from 0) on the rows < LX - 2(s+1) and slots < 64 -
+    (s+1) into a buffer holding NaN elsewhere (so a read of anything the
+    kernel does not write shows), the last on the owned points with their
+    red.  Returns (ro, bo, writes per point)."""
+    fd = RD.reduced_fields(r, b, fr, fb, prob, tg)
+    X, Y2 = r.shape
+    LX, LJ = lay.threads // 32 * lay.IX, RD.REGION_J
+    ro = torch.full_like(r, float("nan"))
+    bo = torch.full_like(b, float("nan"))
+    hits = torch.zeros(X, Y2, dtype=torch.int32)
+
+    def region(a, x0, j0):
+        out = torch.zeros(LX, LJ, dtype=a.dtype)
+        ex, ej = max(0, min(LX, X - x0)), max(0, min(LJ, Y2 - j0))
+        out[:ex, :ej] = a[x0:x0 + ex, j0:j0 + ej]
+        return out
+
+    for tx in range(lay.tx):
+        for tj in range(lay.tj):
+            x0, j0 = tx * lay.BX, tj * lay.BJ
+            f = {k: None if fd[k] is None else region(fd[k], x0, j0)
+                 for k in _FIELDS}
+            q1 = ((x0 + torch.arange(LX)) % 2 == 1)[:, None]
+
+            def update(cur, nx, nj):
+                """The fields on the first nx rows and nj slots, and the
+                black update there from cur."""
+                fl = {k: None if v is None else v[:nx, :nj]
+                      for k, v in f.items()}
+                bxy = torch.where(q1[:nx], cur[1:nx + 1, :nj],
+                                  cur[1:nx + 1, 1:nj + 1])
+                return fl, RD.black_update(fl, cur[2:nx + 2, :nj], bxy,
+                                           cur[:nx, 1:nj + 1])
+
+            cur = region(b, x0, j0)
+            for s_ in range(T_ - 1):
+                nx, nj = LX - 2 * (s_ + 1), LJ - (s_ + 1)
+                nxt = torch.full_like(cur, float("nan"))
+                nxt[:nx, :nj] = update(cur, nx, nj)[1]
+                cur = nxt
+            ox, oj = min(lay.BX, X - x0), min(lay.BJ, Y2 - j0)
+            fl, nb = update(cur, ox, oj)
+            bo[x0:x0 + ox, j0:j0 + oj] = nb
+            bS = torch.where(q1[:ox], cur[:ox, 1:oj + 1], cur[:ox, :oj])
+            ro[x0:x0 + ox, j0:j0 + oj] = RD.red_rebuild(
+                fl, cur[1:ox + 1, :oj], bS)
+            hits[x0:x0 + ox, j0:j0 + oj] += 1
+    return ro, bo, hits
+
+
+@pytest.mark.parametrize("n,form", [(129, None), (65, None),
+                                    (129, (16, 3)), (129, (32, 2))])
+@pytest.mark.parametrize("T_", [1, 7, 8, 9, 15, 16])
+def test_tile_schedule_is_plain_bitwise(n, form, T_):
+    """The kernel's schedule (`_tiles`, in the layout `reduced2d.layout`
+    gives, or in another of the kernel's forms) equals
+    reduced_slab2d_plain bit for bit, with f and f-less, at 1, T - 1, T,
+    T + 1 around both T of the 4097^2 plan (8 and 16), on levels cut into
+    several tiles (the last row and column of tiles partial, the halo past
+    the level's last row and slot), every owned point written once and no
+    sweep reading a point no sweep wrote."""
+    _, tg, v, f = _level(n, seed=2100 + n + T_)
+    prob = T.Lyapunov2D()
+    r, b = R2.split_colors_2d(torch.tensor(v[:n, :n]))
+    fr, fb = R2.split_colors_2d(torch.tensor(f[:n, :n]))
+    lay = (RD.layout(*r.shape, T_) if form is None
+           else RD.make_layout(*r.shape, T_, *form))
+    assert lay.tj * lay.tx > 1 or n == 65  # 65^2: one tile past the level
+    for hf in ((fr, fb), (None, None)):
+        ro, bo, hits = _tiles(r, b, *hf, T_, prob, tg, lay)
+        want = RD.reduced_slab2d_plain(r, b, *hf, T_, prob, tg)
+        assert bool((hits == 1).all())
+        assert torch.equal(ro, want[0]) and torch.equal(bo, want[1])
+
+
+def test_layout_of_the_planned_levels():
+    """The 4097^2 plan's layouts: 16 warps on a 48-row region at the legs'
+    remainder T = 4, 32 warps on 96 rows at T = 8 and on 64 rows at T =
+    16, by 64 slots; the owned tile LX - 2T by 64 - T; tiles covering the
+    level; the shared memory the kernel computes, within 227 KB, twice
+    within an SM's 228 KB for the 48-row region."""
+    want = {(4097, 2049, 8): (1024, 3, 80, 56, 37, 52),
+            (2049, 1025, 8): (1024, 3, 80, 56, 19, 26),
+            (1025, 513, 16): (1024, 2, 32, 48, 11, 33),
+            (513, 257, 16): (1024, 2, 32, 48, 6, 17),
+            (4097, 2049, 4): (512, 3, 40, 60, 35, 103)}
+    for (X, Y2, T_), (threads, IX, BX, BJ, tj, tx) in want.items():
+        lay = RD.layout(X, Y2, T_)
+        assert (lay.threads, lay.IX, lay.BX, lay.BJ, lay.tj, lay.tx) == (
+            threads, IX, BX, BJ, tj, tx)
+        assert (tj - 1) * BJ < Y2 <= tj * BJ and (tx - 1) * BX < X <= tx * BX
+        LX = threads // 32 * IX
+        assert BX == LX - 2 * T_
+        assert lay.smem_bytes == RD.smem_bytes(LX) <= 227 * 1024
+    assert 2 * (RD.smem_bytes(48) + 1024) <= 228 * 1024
+    for T_ in range(1, RD.MAX_T + 1):
+        lay = RD.layout(4097, 2049, T_)
+        assert lay.BX >= 32 and lay.BJ == 64 - T_
+        assert (lay.threads // 32, lay.IX) in ((16, 3), (32, 3), (32, 2))
+    with pytest.raises(ValueError, match="no layout"):
+        RD.layout(65, 33, 17)
+
+
 # ------------------------------------------------------------------ plan
 
 
