@@ -44,7 +44,9 @@ Phases, in order; any failure exits non-zero without the final result line:
      mode) bitwise against its plain versions and the half-sweep chain
      over nu = 1, 2, 3 and 100, a 100-sweep leg timed beside the chain and
      beside the fused subtree's rate a half-sweep on every level; then
-     the 2D Lyapunov kernels, bitwise: split2d and merge2d at 4097^2;
+     the 2D Lyapunov kernels, bitwise: split2d at 4097^2, merge2d at
+     every split level (4097^2 ... 513^2) and on two odd non-square
+     shapes, each level timed beside torch.take and its byte bound;
      row 16 as the colour slab's one-rank chunk on the level's halves
      (JAX's sweeps_per_call = T form) at 4097^2, 2049^2, 1025^2 and 513^2,
      t = 4, 1, 3 with and without f, and over 9 sweeps in turns between
@@ -121,8 +123,11 @@ Phases, in order; any failure exits non-zero without the final result line:
      the 1D gates over sizes (Ode1D and Poisson(1) at 2049, 4097 and
      16385 points, each within its row's gate of its float64 solve) and
      their control (Ode1D on [0, 0.9], which the ODE gate must reject);
-  8. the HJB path: slab2d bitwise against its plain version at 513^2 and
-     257^2 with 1, T and 30 sweeps, and resident_hjb at 1, T - 1, T,
+  8. the HJB path: slab2d (a whole leg one cooperative launch, halos
+     refreshed every T sweeps through device memory) bitwise against its
+     plain version at 513^2 and 257^2 with 1, T - 1, T, T + 1 and 30
+     sweeps, and on 1025^2 (at most T sweeps a launch) with 1 and 30, the
+     ring and the pinned ball unchanged, and resident_hjb at 1, T - 1, T,
      T + 1 and 30 sweeps on 257^2 down to 3^2 in the layout of its plan,
      the ring and the pinned ball unchanged (a 30-sweep leg timed on each
      level); then the bench's
@@ -130,7 +135,7 @@ Phases, in order; any failure exits non-zero without the final result line:
      row, 513^2, FMG(2, 30, 30), scheme="fas", coarsest="relax", f32,
      through `MultigridSolver.solve()` on "cuda": error_linf under the
      bench's gate 1.15 * 0.2032 * (32 h)^0.17, the ring and ball exact,
-     exactly 4 ceil(30 / T) slab2d and 176 resident_hjb launches and no
+     exactly 4 slab2d (a launch a leg) and 176 resident_hjb launches and no
      other kernel, the solution's SHA-256, ms per step eager and as one
      CUDA graph, DOF-updates/s, the profiler's busy time split into slab,
      resident and plain ops;
@@ -1579,16 +1584,23 @@ LYAP2D_AB = {}
 # (row 1: its clusters of 16, 15 and 9 CTAs, then the smaller clusters
 # and one CTA below the path's levels)
 ROW16_LEVELS = (4097, 2049, 1025, 513)
+# row 15's odd non-square shapes, beside the split levels
+MERGE2D_ODD = ((1025, 2047), (515, 333))
+# row 15's times by shape (the summary line)
+MERGE2D_AB = {}
 ROW1_LEVELS = (257, 129, 65, 33, 17, 9, 3)
 ROW1_LEGS = (1, 3, 4, 5, 9, 500)
 
 
 def phase_kernels2d(torch):
-    """The 2D Lyapunov kernels against their plain versions: split2d and
-    merge2d at the 4097^2 level's shapes; row 16, JAX's sweeps_per_call =
-    T form, as the colour slab's one-rank chunk on a level's halves at
-    4097^2, 2049^2, 1025^2 and 513^2: chunks of t = 4, 1, 3 with and
-    without f against `color_slab2d_shard_plain`, and `relax_halves2d`
+    """The 2D Lyapunov kernels against their plain versions: split2d at
+    the 4097^2 level's shapes; merge2d (row 15) on every split level and
+    on MERGE2D_ODD, the last also into outputs off a 16-byte boundary,
+    each timed beside torch.take (times into MERGE2D_AB); row 16, JAX's
+    sweeps_per_call = T form, as the colour slab's one-rank chunk on a
+    level's halves at 4097^2, 2049^2, 1025^2 and 513^2: chunks of t = 4,
+    1, 3 with and without f against `color_slab2d_shard_plain`, and
+    `relax_halves2d`
     over 9 sweeps (two chunks and a remainder, in turns between two
     pairs) against the half-sweep chain; row 1, `resident_relax` (the
     colour slab's leg in dense form, in place) against
@@ -1642,22 +1654,44 @@ def phase_kernels2d(torch):
         "split2d", _max_err(torch, r, pr), t, "4097^2",
         v.nbytes + r.nbytes + b.nbytes, 0,
         device_ms(torch, lambda: torch.take(v, idx), 10))
-    dense = torch.empty_like(v)
-    R2.from_halves(r, b, dense)
-    require(torch.equal(dense, v), "merge2d(split2d(v)) != v")
-    require(torch.equal(dense, R2.merge_colors_2d(r, b, n)),
-            "merge2d not bitwise")
-    t = paired_times(torch, lambda: R2.from_halves(r, b, dense),
-                     lambda: R2.merge_colors_2d(r, b, n), 10)
-    rb = torch.stack([r, b])  # the halves as one source tensor
-    idx = take_index(torch, lambda r_, b_: R2.merge_colors_2d(r_, b_, n),
-                     r.shape, b.shape)
-    require(torch.equal(torch.take(rb, idx), v),
-            "torch.take does not compute merge2d")
-    out["merge2d"] = record(
-        "merge2d", 0.0, t, "4097^2", r.nbytes + b.nbytes + v.nbytes, 0,
-        device_ms(torch, lambda: torch.take(rb, idx), 10))
-    del v, f, r, b, pr, pb, dense, rb, idx, live
+    del v, f, r, b, pr, pb, idx, live
+
+    # row 15: merge2d at every split level and on odd non-square shapes,
+    # the last also into outputs 4, 8 and 12 bytes past a 16-byte
+    # boundary, bitwise; each timed beside torch.take and its byte bound
+    for X, Y in [(m, m) for m in ROW16_LEVELS] + list(MERGE2D_ODD):
+        v = rand((X, Y))
+        r, b = R2.to_halves(v)
+        dense = torch.empty_like(v)
+        R2.from_halves(r, b, dense)
+        require(torch.equal(dense, v),
+                f"merge2d(split2d(v)) != v at {X}x{Y}")
+        require(torch.equal(dense, R2.merge_colors_2d(r, b, Y)),
+                f"merge2d not bitwise at {X}x{Y}")
+        if (X, Y) == MERGE2D_ODD[-1]:
+            buf = torch.empty(X * Y + 3, device=dev)
+            for k in (1, 2, 3):
+                skewed = buf[k:k + X * Y].view(X, Y)
+                R2.from_halves(r, b, skewed)
+                require(torch.equal(skewed, v), f"merge2d at {X}x{Y} into "
+                        f"an output {4 * k} bytes past a 16-byte boundary")
+            del buf, skewed
+        t = paired_times(torch, lambda: R2.from_halves(r, b, dense),
+                         lambda: R2.merge_colors_2d(r, b, Y), 10)
+        rb = torch.stack([r, b])  # the halves as one source tensor
+        idx = take_index(torch,
+                         lambda r_, b_: R2.merge_colors_2d(r_, b_, Y),
+                         r.shape, b.shape)
+        require(torch.equal(torch.take(rb, idx), v),
+                "torch.take does not compute merge2d")
+        res = record(
+            "merge2d", 0.0, t, f"{X}x{Y}", r.nbytes + b.nbytes + v.nbytes,
+            0, device_ms(torch, lambda: torch.take(rb, idx), 10))
+        MERGE2D_AB[f"{X}x{Y}"] = {k: res[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")}
+        if (X, Y) == (n, n):
+            out["merge2d"] = res
+        del v, r, b, dense, rb, idx
 
     # row 16: the one-rank chunk on each split level's halves
     err16, chunks = 0.0, 0
@@ -2984,6 +3018,8 @@ HJB_DV_LIMIT = 1e-5
 HJB_RESIDENT_SIZES = (257, 129, 65, 33, 17, 9, 5, 3)
 # ms of a 30-sweep leg of the HJB leg kernel by level (phase_kernels_hjb)
 HJB_LEG_MS = {}
+# ms of a 30-sweep leg of the slab kernel (row 3) by level
+HJB_SLAB_MS = {}
 
 
 def _hjb_inputs(torch, rng, prob, g):
@@ -3016,11 +3052,16 @@ def _hjb_leg_cost(g, nsweeps):
 
 def phase_kernels_hjb(torch):
     """The HJB kernels against their plain versions on the card, bitwise,
-    with the boundary ring and the pinned target ball unchanged: slab2d at
-    513^2 and 257^2 with nsweeps 1, T and 30 (a 30-sweep leg timed on
-    each); resident_hjb on every level from 257^2 to 3^2 in the layout of
-    the plan (`resident.hjb_leg_layout`) at 1, T - 1, T, T + 1 and 30
-    sweeps (T the layout's sweeps between halo refreshes, 30 on one CTA),
+    with the boundary ring and the pinned target ball unchanged: slab2d in
+    the layout of its plan (`slab2d.slab_layout`: a whole leg one
+    cooperative launch on 513^2 and 257^2, at most T sweeps a launch on
+    1025^2) at 513^2 and 257^2 with nsweeps 1, T - 1, T, T + 1 and 30 (a
+    30-sweep leg twice, the same bits: the outboxes' epochs move on), at
+    1025^2 with 1 and 30, a 30-sweep leg timed on each (ms into
+    HJB_SLAB_MS); resident_hjb on every level from 257^2 to 3^2 in the
+    layout of the plan (`resident.hjb_leg_layout`) at 1, T - 1, T, T + 1
+    and 30 sweeps (T the layout's sweeps between halo refreshes, 30 on one
+    CTA),
     a 30-sweep leg timed on each (ms and us per sweep into HJB_LEG_MS).
     Returns {name: record}: slab2d per 30-sweep leg at 513^2,
     resident_hjb per 30-sweep leg at 257^2."""
@@ -3045,10 +3086,13 @@ def phase_kernels_hjb(torch):
             f"{t['eager_ms']!r} ms vs plain {t['eager_plain_ms']!r} ms")
         return res
 
-    for n in (HJB_N, 257):
+    for n in (HJB_N, 257, 1025):
         g = build_geometries((n, n), prob.domain, 1)[0]
         v, f, fixed = _hjb_inputs(torch, rng, prob, g)
-        for ns in sorted({1, SL.SWEEPS_PER_LAUNCH, nsw}):
+        lay = SL.slab_layout(g)
+        T = lay.T
+        counts = {1, nsw} if n == 1025 else {1, T - 1, T, T + 1, nsw}
+        for ns in sorted(counts - {0}):
             k = SL.slab_relax(v, f, ns, prob, g)
             p = SL.slab_relax_plain(v, f, ns, prob, g)
             err = _max_err(torch, k, p)
@@ -3056,16 +3100,22 @@ def phase_kernels_hjb(torch):
                     f"bitwise: max diff {err!r}")
             require(torch.equal(k[fixed], v[fixed]), f"slab2d at {n}^2: a "
                     "ring or pinned point changed")
-        what = (f"{n}^2, one {nsw}-sweep leg, T = {SL.SWEEPS_PER_LAUNCH}: "
-                f"{SL.slab_launches(nsw)} launches")
+        require(torch.equal(SL.slab_relax(v, f, nsw, prob, g), k),
+                f"slab2d at {n}^2: a second {nsw}-sweep leg differs")
+        what = (f"{n}^2, one {nsw}-sweep leg in {SL.slab_launches(nsw, g)} "
+                f"launch(es): {lay.ntx} x {lay.nty} tiles of {lay.BX} x "
+                f"{lay.BY}, T = {T}, {lay.threads} threads a CTA, "
+                f"{'a leg a launch' if lay.leg else 'T sweeps a launch'}")
         if n == HJB_N:
             t = paired_times(
                 torch, lambda: SL.slab_relax(v, f, nsw, prob, g),
                 lambda: SL.slab_relax_plain(v, f, nsw, prob, g), 1)
             out["slab2d"] = record("slab2d", err, t, what,
                                    _hjb_leg_cost(g, nsw))
+            HJB_SLAB_MS[n] = t["ms"]
             continue
         ms = device_ms(torch, lambda: SL.slab_relax(v, f, nsw, prob, g), 3)
+        HJB_SLAB_MS[n] = ms
         log(f"kernel slab2d ({what}): bitwise; device {ms!r} ms")
 
     for n in HJB_RESIDENT_SIZES:
@@ -3120,7 +3170,8 @@ def phase_hjb(torch):
     error_linf under the bench's gate, finite residuals, the boundary ring
     and the pinned ball of the finest level exact after the step, exactly
     the slab2d and resident_hjb launches the schedule implies (4 legs at
-    513^2 of ceil(30 / T) launches, 176 resident legs) and no other kernel;
+    513^2, a launch each (`slab_launches`), 176 resident legs) and no
+    other kernel;
     ms per step and DOF-updates/s eager and as one CUDA graph, and the
     profiler's busy time split into slab, resident and plain ops.  Returns
     (launch counts, summary, solution v)."""
@@ -3148,21 +3199,22 @@ def phase_hjb(torch):
     nu0 = HJB_NUS[0]
     legs = nu0 * nlev * (nlev + 1)  # a V-cycle from l relaxes twice per level
     fine_legs = 2 * nu0
-    want = {"slab2d": fine_legs * SL.slab_launches(HJB_NUS[1]),
+    want = {"slab2d": fine_legs * SL.slab_launches(HJB_NUS[1],
+                                                   solver.geoms[0]),
             "resident_hjb": legs - fine_legs}
     tag = f"hjb2d {HJB_N}^2 FAS f32"
     log(f"{tag}: levels {[g.padded_shape for g in solver.geoms]}, error_linf "
         f"{res.error_linf!r} (limit 1.15 * 0.2032 * (32 h)^0.17 = "
         f"{limit!r}), residual_l2 {res.residual_l2!r}, residual_linf "
-        f"{res.residual_linf!r}, launches {counts} (want {want}, T = "
-        f"{SL.SWEEPS_PER_LAUNCH})")
+        f"{res.residual_linf!r}, launches {counts} (want {want}, slab2d "
+        f"{SL.slab_layout(solver.geoms[0]).as_dict()})")
     _check_solve(torch, tag, res, solver, limit, "hjb", want)
     require(torch.equal(res.v[fixed], anchor),
             f"{tag}: the boundary ring or the pinned ball changed")
     summary = {"n": HJB_N, "problem": "hjb2d", "scheme": "fas",
                "precision": "f32",
                "levels": [g.padded_shape for g in solver.geoms],
-               "sweeps_per_launch": SL.SWEEPS_PER_LAUNCH,
+               "slab_layout": SL.slab_layout(solver.geoms[0]).as_dict(),
                "error_linf": res.error_linf,
                "residual_l2": res.residual_l2}
     v = res.v.clone()
@@ -4968,7 +5020,8 @@ def main() -> int:
                     "masked_ab": MASKED_AB,
                     "reduced_ab": REDUCED_AB, "blocked_ab": BLOCKED_AB,
                     "lyap2d_ab": LYAP2D_AB, "error_ab": ERROR_AB,
-                    "hjb_leg_ms": HJB_LEG_MS,
+                    "hjb_leg_ms": HJB_LEG_MS, "hjb_slab_ms": HJB_SLAB_MS,
+                    "merge2d_ab": MERGE2D_AB,
                     "relax1d_leg_ms": RELAX1D_LEG_MS,
                     "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))

@@ -109,7 +109,9 @@ SIGNATURES = {
     # (resident.HJBLegLayout)
     "pdemg_resident2d_hjb": (_P, _P, _I, _P, _P, _P),
     "pdemg_resident2d_hjb_clusters": (_P, _P),
-    "pdemg_slab2d": (_P, _P, _P, _I, _I, _I, _P, _P),
+    # the slab kernel: src, dst, f, the sweeps, its layout
+    # (slab2d.HJBSlabLayout) and fields, and a leg's outboxes and counters
+    "pdemg_slab2d": (_P, _P, _P, _I, _P, _P, _P, _P, _P),
     # the 1D whole-leg kernel: its layout as a pointer to a host struct
     # (relax1d.Relax1DLayout); Ode1D reads its coefficient fields, Poisson
     # takes a pointer to another (relax1d.Poisson1DParams)

@@ -209,7 +209,9 @@ def to_halves(v: torch.Tensor, out: tuple | None = None):
 
 
 def from_halves(r: torch.Tensor, b: torch.Tensor, out: torch.Tensor):
-    """(r, b) halves -> dense, written into `out` (X, Y) in place."""
+    """(r, b) halves -> dense, written into `out` (X, Y) in place: one
+    launch of csrc/relax2d.cu's merge2d_kernel (the level as one flat
+    array of 16-byte quads, `out` anywhere 4-byte aligned)."""
     if out.dim() != 2:
         raise ValueError(f"need a 2D level, got {tuple(out.shape)}")
     X, Y = out.shape

@@ -29,8 +29,21 @@ A ROW is
   hjb       `chip_smoke.phase_kernels_hjb(torch)` then
             `chip_smoke.phase_hjb(torch)`: the HJB 513^2 FAS row (its gate,
             the plan's launches, ms a step eager and as one CUDA graph, the
-            busy split) and a 30-sweep leg of the HJB leg kernel on every
-            level from 257^2 to 3^2, the solution's SHA-256;
+            busy split), a 30-sweep leg of the HJB leg kernel on every
+            level from 257^2 to 3^2 and of the slab kernel (row 3,
+            `slab2d.slab_relax`) at 513^2 and 1025^2, eight more samples
+            of the graph step (two steps a graph) and their median, the
+            solution's SHA-256;
+  merge2d   row 15 (`relax2d.from_halves`) timed graph-replayed on every
+            split level of the Lyapunov 4097^2 path (4097^2 ... 513^2) and
+            on two odd non-square shapes, the merges one default 4097^2
+            FMG(2, 500, 500) step makes by level (its `from_halves` calls
+            counted) and their ms a step, the SHA-256 of the merged levels;
+  sharded2d `chip_smoke.phase_lyapunov(torch)` (the unsharded solve it is
+            held against), then `chip_smoke.phase_sharded2d(torch, ...)`:
+            the 4097^2 Lyapunov row on `--mesh 1` (its gate, launches, ms a
+            step eager and as one CUDA graph), the SHA-256 of its logical
+            solution;
   ode1d     `chip_smoke.phase_kernels1d(torch)`, `phase_ode1d(torch)` and
             `phase_ode1d_preset(torch)`: the ode1d 8193 row (its gate, 12
             launches, ms a step, the busy split), `--preset ode1d` (364
@@ -157,6 +170,73 @@ def hjb_legs():
         out[f"{g.padded_shape[0]}^2"] = c.device_ms(
             torch, lambda: RS.resident_relax(v, f, 30, prob, g), 3)
     return out
+
+
+def slab_legs():
+    import numpy as np
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.models import HJBMinTime
+    from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
+
+    prob = HJBMinTime()
+    rng = np.random.default_rng(2054)
+    out = {}
+    for n in (513, 1025):
+        g = build_geometries((n, n), prob.domain, 1)[0]
+        v, f, _ = c._hjb_inputs(torch, rng, prob, g)
+        out[f"{n}^2"] = c.device_ms(
+            torch, lambda: SL.slab_relax(v, f, 30, prob, g), 3)
+    return out
+
+
+def hjb_graph_runs():
+    from pde_multigrid_tpu_torch import (CycleConfig, HJBMinTime,
+                                         MultigridSolver, SolverConfig)
+
+    solver = MultigridSolver(HJBMinTime(), c.HJB_N, SolverConfig(
+        cycle=CycleConfig("fmg", *c.HJB_NUS, scheme="fas",
+                          coarsest="relax")), device="cuda")
+    levels = solver.fresh_levels()
+    runs = [c.device_ms(torch, lambda: solver.program.solve_step(levels), 2)
+            for _ in range(8)]
+    return runs, sorted(runs)[len(runs) // 2 - 1:len(runs) // 2 + 1]
+
+
+def merge2d_row():
+    import numpy as np
+    from pde_multigrid_tpu_torch import (CycleConfig, Lyapunov2D,
+                                         MultigridSolver, SolverConfig)
+    from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
+
+    solver = MultigridSolver(Lyapunov2D(), c.LYAP_N, SolverConfig(
+        cycle=CycleConfig("fmg", *c.LYAP_NUS, coarsest="exact"),
+        precision="mixed"), device="cuda")
+    per_step, merge = {}, R2.from_halves
+
+    def counted(r, b, out):
+        key = f"{out.shape[0]}x{out.shape[1]}"
+        per_step[key] = per_step.get(key, 0) + 1
+        return merge(r, b, out)
+
+    R2.from_halves = counted
+    try:
+        solver.solve()
+    finally:
+        R2.from_halves = merge
+    rng = np.random.default_rng(2053)
+    ms, outs = {}, []
+    for X, Y in [(n, n) for n in (4097, 2049, 1025, 513)] + [
+            (1025, 2047), (515, 333)]:
+        r, b = (torch.tensor(rng.standard_normal((X, (Y + 1) // 2)).astype(
+            np.float32), device="cuda") for _ in range(2))
+        v = torch.empty((X, Y), device="cuda")
+        R2.from_halves(r, b, v)
+        outs.append(v.clone())
+        ms[f"{X}x{Y}"] = c.device_ms(torch,
+                                     lambda: R2.from_halves(r, b, v), 10)
+    summary = {"ms": ms, "merges_per_step": per_step,
+               "ms_per_step": sum(ms[k] * n for k, n in per_step.items())}
+    return {}, summary, sha(*outs)
 
 
 def relax1d_legs():
@@ -290,7 +370,19 @@ for row in sys.argv[2:]:
         c.phase_kernels_hjb(torch)
         counts, s, v = c.phase_hjb(torch)
         s["leg_ms_by_level"] = hjb_legs()
+        s["slab_leg_ms"] = slab_legs()
+        runs, mid = hjb_graph_runs()
+        s["graph_ms_runs"] = {str(i): x for i, x in enumerate(runs)}
+        s["graph_ms_median"] = sum(mid) / 2
         digest = sha(v)
+    elif row == "merge2d":
+        counts, s, digest = merge2d_row()
+    elif row == "sharded2d":
+        _, sly, vly = c.phase_lyapunov(torch)
+        counts, s, digest = c.phase_sharded2d(torch, sly, vly)
+        import torch.distributed as dist
+        if dist.is_initialized():  # the one-rank group of phase_sharded2d
+            dist.destroy_process_group()
     elif row == "ode1d":
         c.phase_kernels1d(torch)
         counts, s, v = c.phase_ode1d(torch)

@@ -18,6 +18,7 @@ from pde_multigrid_tpu_torch.ops.cuda import reduced2d as RD
 from pde_multigrid_tpu_torch.ops.cuda import relax1d as R1
 from pde_multigrid_tpu_torch.ops.cuda import resident as RS
 from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
+from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
 from pde_multigrid_tpu_torch.ops.cuda import subtree as S
 
 CSRC = Path(MB.__file__).resolve().parent / "csrc"
@@ -64,6 +65,7 @@ def _struct_name(t):
     ("relax1d.cu", "Poisson1D", R1.Poisson1DParams),
     ("reduced2d.cu", "Reduced2DLayout", RD.Reduced2DLayout),
     ("blocked3d.cu", "Blocked3DLayout", BL.Blocked3DLayout),
+    ("slab2d.cu", "HJBSlab", SL.HJBSlabLayout),
 ])
 def test_ctypes_struct_mirrors_the_c_struct(source, struct, cls):
     assert _py_fields(cls) == _c_fields(source, struct)

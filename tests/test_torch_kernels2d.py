@@ -97,6 +97,64 @@ def test_split_merge2d_match_pallas_converters(n):
 # ------------------------------------------------------------ half-sweeps
 
 
+def _merge_quads(X, Y, skew):
+    """csrc/relax2d.cu's merge2d_kernel on an (X, Y) level whose output
+    starts `skew` bytes past a 16-byte boundary, in numpy: (flat index
+    written, row x, column y) of the points it writes, in pieces in the
+    kernel's order: the head (points before the first 16-byte-aligned
+    quad), point e of every quad (each quad finding its row by one
+    division, running on into the next row where it crosses one), the
+    tail."""
+    n = X * Y
+    head = min((16 - skew) % 16 // 4, n)
+    nquads = (n - head) // 4
+    edge = np.array(list(range(head)) + list(range(head + 4 * nquads, n)),
+                    dtype=np.int64)
+    yield edge, edge // Y, edge % Y
+    i = head + 4 * np.arange(nquads, dtype=np.int64)
+    assert ((skew + 4 * i) % 16 == 0).all()  # every quad's store aligned
+    x = i // Y
+    y = i - x * Y
+    for e in range(4):
+        yield i + e, x, y
+        y = y + 1
+        x = np.where(y == Y, x + 1, x)
+        y = np.where(y == Y, 0, y)
+
+
+@pytest.mark.parametrize("shape", [(4097, 4097), (2049, 2049), (1025, 1025),
+                                   (513, 513), (65, 131), (33, 10), (7, 3),
+                                   (1, 5)])
+def test_merge2d_layout_writes_every_point_once(shape):
+    """merge2d's flat quads, at every offset of the dense output from a
+    16-byte boundary (so each dense row starts at every offset mod 4):
+    every dense point written exactly once, at its own (x, y), from the
+    half slot `merge_colors_2d` takes it from, which holds that point (so
+    no inert slot, y = Y of an odd row, is read)."""
+    X, Y = shape
+    Y2 = (Y + 1) // 2
+    rng = np.random.default_rng(X + Y)
+    r = rng.standard_normal((X, Y2)).astype(np.float32)
+    b = rng.standard_normal((X, Y2)).astype(np.float32)
+    want = R2.merge_colors_2d(torch.tensor(r), torch.tensor(b),
+                              Y).numpy().reshape(-1)
+    r, b = r.reshape(-1), b.reshape(-1)
+    for skew in (0, 4, 8, 12):
+        count = np.zeros(X * Y, dtype=np.int32)
+        for idx, x, y in _merge_quads(X, Y, skew):
+            count[idx] += 1  # a piece writes each point once at most
+            np.testing.assert_array_equal(x * Y + y, idx)
+            red = ((x ^ y) & 1) == 0
+            j = y >> 1
+            np.testing.assert_array_equal(
+                np.where(red, r[x * Y2 + j], b[x * Y2 + j]), want[idx])
+            # red sits at y = 2 j + q, black at 2 j + 1 - q (q = x % 2)
+            q = x & 1
+            np.testing.assert_array_equal(
+                np.where(red, 2 * j + q, 2 * j + 1 - q), y)
+        np.testing.assert_array_equal(count, 1)
+
+
 @pytest.mark.parametrize("f_zero", [False, True])
 @pytest.mark.parametrize("n", [33, 65])
 def test_half_sweep2d_matches_pallas(n, f_zero):
