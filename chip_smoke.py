@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero without the final result line:
   2. build: nvcc compiles the kernels from `ops/cuda/csrc/*.cu` (sm_90a);
   3. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the 129^3 main path's shapes (128^3 fine, 64^3 coarse), and
-     each one's time beside the plain version's (CUDA events); the bf16
+     each one's time beside the plain version's (CUDA events); the
+     transfers (rows 25, 26) bitwise at 128^3, 256^3 and 512^3 in both
+     modes, the prolongation also in place, each timed by level; the bf16
      defect trio included: residual_split, row 10's error sweeps as the
      plan runs them on 128^3 and below (error_leg, one cooperative
      launch a leg) bitwise error_sweeps_plain at nu = 1 ... 9 and 100 on
@@ -36,7 +38,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      at nu = 3000 on every root (at 64^3 and 32^3 beside the chain), the
      64^3 level alone, the 32^3 root on 8 and on 16 CTAs; the
      transfer kernels on the sub-lane pairs
-     32^3 -> 16^3 ... 4^3 -> 2^3 (rows 23 and 24) bitwise; then the
+     32^3 -> 16^3 ... 4^3 -> 2^3 and (8, 4, 16) -> (4, 2, 8) (rows 23 and
+     24) bitwise in both modes; then the
      whole-leg 3D resident kernel (resident3d.cu, on the subtree's leg:
      64^3, 32^3, 16^3 on a 16-CTA cluster, 8^3 and below on one CTA) in
      its three modes (dense on 64^3, 32^3, 16^3 and on colour halves
@@ -283,7 +286,7 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# tolerance for the multi-step kernels (100 sweeps, restrict, prolong):
+# tolerance for the multi-step kernels (100 sweeps):
 # both sides round every operation alike (--fmad=false, same order), so
 # they are expected to agree bit for bit; 1e-6 of the output's magnitude
 # leaves room only for a single-ulp difference of a reordered sum
@@ -754,7 +757,6 @@ def phase_kernels(torch):
 
     v = rand(gf.padded_shape, True)
     f = rand(gf.padded_shape, False)
-    c = rand(gc.padded_shape, True)
     out = {}
 
     def record(name, err, t, nbytes, ops, lib_ms=None):
@@ -839,40 +841,9 @@ def phase_kernels(torch):
     record("residual", _max_err(torch, k, p), t, 3 * v.nbytes,
            14 * v.numel())
 
-    # residual + restrict, both modes (restrict alone on f, whose
-    # boundary planes are not zero: the FMG RHS cascade)
-    errs = []
-    for with_res, src, rhs in ((True, v, f), (False, f, None)):
-        k = T.residual_restrict(src, rhs, prob, gf, gc,
-                                with_residual=with_res)
-        p = T.residual_restrict_plain(src, rhs, prob, gf, gc, with_res)
-        errs.append(_max_err(torch, k, p))
-        require(errs[-1] <= REL_TOL * float(torch.max(torch.abs(p))),
-                f"residual_restrict(with_residual={with_res}) disagrees")
-    t = paired_times(
-        torch, lambda: T.residual_restrict(v, f, prob, gf, gc),
-        lambda: T.residual_restrict_plain(v, f, prob, gf, gc, True), 20,
-    )
-    # the residual at every fine point, a 27-point weighted sum per coarse
-    record("residual_restrict", max(errs), t, 2 * v.nbytes + c.nbytes,
-           14 * v.numel() + 53 * c.numel())
-
-    # prolong + blend, both modes
-    errs = []
-    for mode in ("add", "replace"):
-        k = T.prolong_blend(c, v, mode, gc, gf)
-        p = T.prolong_blend_plain(c, v, mode)
-        errs.append(_max_err(torch, k, p))
-        require(errs[-1] <= REL_TOL * float(torch.max(torch.abs(p))),
-                f"prolong_blend({mode}) disagrees")
-    dst = torch.empty_like(v)
-    t = paired_times(
-        torch, lambda: T.prolong_blend(c, v, "add", gc, gf, out=dst),
-        lambda: T.prolong_blend_plain(c, v, "add"), 20,
-    )
-    # trilinear weights (up to 7 sums and a scale) and the blend
-    record("prolong_blend", max(errs), t, c.nbytes + 2 * v.nbytes,
-           10 * v.numel())
+    # rows 25 and 26 bitwise on the 513^3 path's fine levels, their
+    # records at 128^3
+    check_transfers(torch, prob, record)
 
     # the bf16 defect trio.  residual_split: bitwise
     k_r = D.residual_split(v, f, prob, gf)
@@ -946,6 +917,82 @@ def phase_kernels(torch):
            er.nbytes + eb.nbytes + 2 * v.nbytes, v.numel())
     torch.cuda.synchronize()
     return out
+
+
+# the fine levels rows 25 and 26 are held at (those of the 513^3 path),
+# and their kernel and plain ms by level (printed with the summaries)
+TRANSFER_LEVELS = (128, 256, 512)
+TRANSFER_AB = {}
+
+
+def check_transfers(torch, prob, record):
+    """Rows 25 and 26 on the fine levels 128^3, 256^3 and 512^3: residual
+    + restrict in both modes (restrict alone on f, whose boundary planes
+    are not zero: the FMG RHS cascade) and prolong + blend in both modes,
+    into a new tensor and in place into the base, each equal to its plain
+    version (torch.equal); each timed beside its plain version by level
+    (TRANSFER_AB), the records (`record`) at 128^3."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.ops.cuda import transfer as T
+
+    rng = np.random.default_rng(2057)
+    for n in TRANSFER_LEVELS:
+        gf, gc = build_geometries((n + 1,) * 3, prob.domain, 2, wrap=True)
+        fs, cs = gf.padded_shape, gc.padded_shape
+        v = torch.tensor((rng.standard_normal(fs) * wrap_interior(fs))
+                         .astype(np.float32), device="cuda")
+        f = torch.tensor(rng.standard_normal(fs).astype(np.float32),
+                         device="cuda")
+        c = torch.tensor((rng.standard_normal(cs) * wrap_interior(cs))
+                         .astype(np.float32), device="cuda")
+        tag = f"{n}^3"
+        calls = {
+            "residual_restrict": (
+                lambda: T.residual_restrict(v, f, prob, gf, gc),
+                lambda: T.residual_restrict_plain(v, f, prob, gf, gc, True)),
+            "restrict": (
+                lambda: T.residual_restrict(f, None, prob, gf, gc,
+                                            with_residual=False),
+                lambda: T.residual_restrict_plain(f, None, prob, gf, gc,
+                                                  False)),
+        }
+        for name, (kern, plain) in calls.items():
+            require(torch.equal(kern(), plain()), f"{name} {tag} not bitwise")
+        dst = torch.empty_like(v)
+        for mode in ("add", "replace"):
+            p = T.prolong_blend_plain(c, v, mode)
+            require(torch.equal(T.prolong_blend(c, v, mode, gc, gf), p),
+                    f"prolong_blend({mode}) {tag} not bitwise")
+            w = v.clone()
+            require(T.prolong_blend(c, w, mode, gc, gf, out=w) is w
+                    and torch.equal(w, p),
+                    f"prolong_blend({mode}) {tag} in place not bitwise")
+            calls[f"prolong_{mode}"] = (
+                lambda mode=mode: T.prolong_blend(c, v, mode, gc, gf,
+                                                  out=dst),
+                lambda mode=mode: T.prolong_blend_plain(c, v, mode))
+        reps = {128: 20, 256: 5, 512: 2}[n]
+        ab = TRANSFER_AB[tag] = {}
+        for name, (kern, plain) in calls.items():
+            t = paired_times(torch, kern, plain, reps)
+            fine_bytes = (1 if name == "restrict" else 2) * v.nbytes
+            ab[name] = {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": (fine_bytes + c.nbytes)
+                        / HBM_BYTES_PER_S * 1e3}
+            if n == 128 and name in ("residual_restrict", "prolong_add"):
+                # the records: the residual at every fine point and a
+                # 27-point weighted sum per coarse point; trilinear weights
+                # (up to 7 sums and a scale) and the blend
+                ops = (14 * v.numel() + 53 * c.numel()
+                       if name == "residual_restrict" else 10 * v.numel())
+                record(name.replace("_add", "_blend"), 0.0, t,
+                       2 * v.nbytes + c.nbytes, ops)
+        log(f"transfers {tag} (rows 25, 26): bitwise in both modes, "
+            f"prolongation also in place; ms {ab!r}")
+        del v, f, c, dst, w, calls
+        torch.cuda.empty_cache()
 
 
 def defect_chain_relax(problem, g):
@@ -1168,6 +1215,9 @@ SUBTREE_LONG = 3000
 # fine level's stored shape: rows 23 and 24 count the transfer kernels'
 # launches there, rows 25 and 26 the others
 SMALL_PAIR_FINE = ((32, 32, 32), (16, 16, 16), (8, 8, 8), (4, 4, 4))
+# a non-cubic pair (grid points) the transfers are held on beside them:
+# fine (8, 4, 16), coarse (4, 2, 8)
+SMALL_PAIR_ODD = (9, 5, 17)
 # the subtree kernel's V-cycle per root and nu beside the unfused chain and
 # the plain version, ms (printed with the summaries)
 SUBTREE_AB = {}
@@ -1369,13 +1419,16 @@ def phase_kernels_subtree(torch):
         f"{SUBTREE_AB[f'32^3 nu={nu} by cluster']} ms (layout's choice: "
         f"{S.layout(sub, True)['nctas']})")
 
-    # rows 23, 24: the transfer kernels on the sub-lane pairs
+    # rows 23, 24: the transfer kernels on the sub-lane pairs, and on a
+    # non-cubic pair with a coarse axis of 2 points
     errs = {"small_restrict": 0.0, "small_prolong_blend": 0.0}
-    for gf, gc in zip(geoms[1:], geoms[2:]):
+    pairs = [*zip(geoms[1:], geoms[2:]),
+             build_geometries(SMALL_PAIR_ODD, prob.domain, 2, wrap=True)]
+    for gf, gc in pairs:
         a = rand(gf.padded_shape, False)
         vb = rand(gf.padded_shape, True)
         c = rand(gc.padded_shape, True)
-        pair = f"{gf.padded_shape[0]}^3 -> {gc.padded_shape[0]}^3"
+        pair = f"{gf.padded_shape} -> {gc.padded_shape}"
         for with_res in (False, True):
             k = T.residual_restrict(vb if with_res else a, a, prob, gf, gc,
                                     with_residual=with_res)
@@ -1391,7 +1444,9 @@ def phase_kernels_subtree(torch):
             p = T.prolong_blend_plain(c, vb, mode)
             errs["small_prolong_blend"] = max(errs["small_prolong_blend"],
                                               _max_err(torch, k, p))
-            require(torch.equal(k, p),
+            w = vb.clone()
+            T.prolong_blend(c, w, mode, gc, gf, out=w)
+            require(torch.equal(k, p) and torch.equal(w, p),
                     f"prolong_blend({mode}) {pair} not bitwise")
         if gf.padded_shape[0] == SMALL_PAIR_FINE[0][0]:
             t = paired_times(
@@ -1419,8 +1474,9 @@ def phase_kernels_subtree(torch):
     for name, err in errs.items():
         out[name]["max_abs_err"] = err
     log("kernels small_restrict / small_prolong_blend: bitwise against "
-        "their plain versions (and the residual mode) on "
-        f"{[s[0] for s in SMALL_PAIR_FINE]}^3 -> half")
+        "their plain versions (and the residual mode; prolongation also in "
+        f"place) on {[s[0] for s in SMALL_PAIR_FINE]}^3 -> half and "
+        f"{tuple(n - 1 for n in SMALL_PAIR_ODD)} -> half")
     torch.cuda.synchronize()
     return out
 
@@ -5021,7 +5077,7 @@ def main() -> int:
                     "reduced_ab": REDUCED_AB, "blocked_ab": BLOCKED_AB,
                     "lyap2d_ab": LYAP2D_AB, "error_ab": ERROR_AB,
                     "hjb_leg_ms": HJB_LEG_MS, "hjb_slab_ms": HJB_SLAB_MS,
-                    "merge2d_ab": MERGE2D_AB,
+                    "merge2d_ab": MERGE2D_AB, "transfer_ab": TRANSFER_AB,
                     "relax1d_leg_ms": RELAX1D_LEG_MS,
                     "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))

@@ -15,12 +15,20 @@ kernels, `pde_multigrid_tpu/ops/pallas/subtree.py` `make_small_restrict`
 those compute the same functions, so one kernel each replaces both TPU
 kernels.  `launches_by_fine` splits the launches by the fine level.
 
+Each launch's form and geometry come from the level's shape alone:
+`restrict_layout` (the plane walk where the extents are powers of two and
+a tile of all of z fits one CTA, else one coarse point a thread) and
+`prolong_layout` (one coarse cell a thread).
+
 Each wrapper launches its kernel for CUDA tensors, runs the plain version
 for CPU tensors, and raises for anything else; there is no fallback from
 a CUDA tensor to the plain version.  `launches` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -71,6 +79,132 @@ def _check_level(t: torch.Tensor, geom: LevelGeometry, what: str) -> None:
         raise ValueError(
             f"{what} shape {tuple(t.shape)} != level {geom.padded_shape}"
         )
+
+
+# ------------------------------------------------------------ layouts
+
+# the walk (csrc/transfer.cu restrict_walk_kernel): its ring of staged
+# planes, the most threads and shared memory a CTA takes, coarse rows a
+# tile by the fine level's z extent (all of z a tile), and the CTAs the
+# bands aim at: about one an SM of an H100 SXM's 132 (a 512^3 CTA holds
+# 640 threads of 60 registers; on an H100 one wave of long walks beat
+# more, shorter ones, which re-read a band's two extra planes:
+# scripts/probe_transfer.py)
+WALK, POINT = 1, 0
+WALK_STAGES = 4
+MAX_WALK_THREADS = 1024
+MAX_SMEM_BYTES = 232448
+WALK_ROWS = {512: 2, 256: 4, 128: 8}
+WALK_ROWS_SMALL = 4
+WALK_CTAS = 128
+POINT_THREADS = 256  # the point form's CTA (csrc/transfer.cu kThreads)
+# the cell form's threads a CTA
+CELL_THREADS = 256
+
+
+class RestrictLayout(ctypes.Structure):
+    """The kernel's `RestrictLayout` (csrc/transfer.cu): the coarse level,
+    the mode and form; for the walk the tile's coarse rows TJ, the band's
+    coarse planes NI, the fine rows of a residual plane (RR) and of a
+    staged v plane (RV); threads a CTA, the grid (row tiles and bands; the
+    point form's CTAs and 1) and the dynamic shared memory."""
+
+    _fields_ = [(name, ctypes.c_int)
+                for name in ("Xc", "Yc", "Zc", "with_residual", "form", "TJ",
+                             "NI", "RR", "RV", "threads", "grid_x", "grid_y",
+                             "smem_bytes")]
+
+    def as_dict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+
+class ProlongLayout(ctypes.Structure):
+    """The kernel's `ProlongLayout` (csrc/transfer.cu): the coarse level,
+    threads a CTA along k and j, and CTAs along k, j and i (one coarse
+    cell a thread)."""
+
+    _fields_ = [(name, ctypes.c_int)
+                for name in ("Xc", "Yc", "Zc", "bx", "by", "gx", "gy", "gz")]
+
+    def as_dict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def _coarse(fine_shape) -> tuple[int, int, int]:
+    X, Y, Z = fine_shape
+    if X % 2 or Y % 2 or Z % 2 or min(X, Y, Z) < 2:
+        raise ValueError(f"fine level {tuple(fine_shape)} has no coarse "
+                         "level of half its extents")
+    return X // 2, Y // 2, Z // 2
+
+
+def walk_layout(fine_shape, with_residual: bool, TJ: int,
+                bands: int) -> RestrictLayout | None:
+    """The walk's layout on fine level `fine_shape` with tiles of TJ
+    coarse rows and `bands` bands of planes, or None where the walk cannot
+    take it: an extent not a power of two, z under 4, TJ or `bands` not
+    dividing the coarse extent, or a CTA past 1024 threads or 227 KB."""
+    Xc, Yc, Zc = _coarse(fine_shape)
+    Z = 2 * Zc
+    if not all(map(_pow2, fine_shape)) or Z < 4:
+        return None
+    if TJ < 1 or bands < 1 or Yc % TJ or Xc % bands:
+        return None
+    RR = 2 * TJ + 1
+    RV = RR + 2 if with_residual else RR
+    threads = -(-RR * (Z // 4) // 32) * 32
+    slot = (RV + (RR if with_residual else 0)) * Z
+    smem = 4 * (WALK_STAGES * slot + RR * Z + TJ * Zc)
+    if threads > MAX_WALK_THREADS or smem > MAX_SMEM_BYTES:
+        return None
+    return RestrictLayout(Xc, Yc, Zc, int(with_residual), WALK, TJ,
+                          Xc // bands, RR, RV, threads, Yc // TJ, bands, smem)
+
+
+def point_layout(fine_shape, with_residual: bool) -> RestrictLayout:
+    """The point form's layout: a coarse point a thread."""
+    Xc, Yc, Zc = _coarse(fine_shape)
+    n = Xc * Yc * Zc
+    return RestrictLayout(Xc, Yc, Zc, int(with_residual), POINT, 0, 0, 0, 0,
+                          POINT_THREADS, -(-n // POINT_THREADS), 1, 0)
+
+
+@functools.lru_cache(maxsize=128)
+def restrict_layout(fine_shape: tuple[int, int, int],
+                    with_residual: bool) -> RestrictLayout:
+    """The launch of residual_restrict (both modes) on fine level
+    `fine_shape`: the walk with tiles of WALK_ROWS coarse rows (at most
+    the level's) and the fewest bands (a power of two) with which the
+    tiles make WALK_CTAS CTAs; a band a coarse plane where that makes at
+    most 2 WALK_CTAS (the small levels, where a launch is mostly its
+    latency); the point form where the walk cannot take the level.
+    Cached: the wrapper asks at every launch."""
+    fine_shape = tuple(fine_shape)
+    Xc, Yc, Zc = _coarse(fine_shape)
+    TJ = min(WALK_ROWS.get(fine_shape[2], WALK_ROWS_SMALL), Yc)
+    tiles = Yc // TJ
+    bands = 1
+    if tiles * Xc <= 2 * WALK_CTAS:
+        bands = Xc
+    while bands < Xc and tiles * bands < WALK_CTAS:
+        bands *= 2
+    return (walk_layout(fine_shape, with_residual, TJ, bands)
+            or point_layout(fine_shape, with_residual))
+
+
+@functools.lru_cache(maxsize=128)
+def prolong_layout(fine_shape: tuple[int, int, int]) -> ProlongLayout:
+    """The launch of prolong_blend on fine level `fine_shape`: a coarse
+    cell a thread, up to 128 along k a CTA and the rest of CELL_THREADS
+    along j, a CTA row of coarse planes along i."""
+    Xc, Yc, Zc = _coarse(tuple(fine_shape))
+    bx = min(Zc, 128)
+    by = max(1, min(Yc, CELL_THREADS // bx))
+    return ProlongLayout(Xc, Yc, Zc, bx, by, -(-Zc // bx), -(-Yc // by), Xc)
 
 
 def _check_pair(geom_f: LevelGeometry, geom_c: LevelGeometry) -> None:
@@ -148,11 +282,11 @@ def residual_restrict(
     out = torch.empty(geom_c.padded_shape, dtype=v.dtype, device=v.device)
     if with_residual:
         _check_poisson(problem)
-    Xc, Yc, Zc = out.shape
+    lay = restrict_layout(tuple(v.shape), bool(with_residual))
     w0, w1, w2 = inv_h2(geom_f)
     rc = build.load().lib.pdemg_residual_restrict(
-        v.data_ptr(), f.data_ptr(), out.data_ptr(), int(with_residual),
-        Xc, Yc, Zc, w0, w1, w2, _stream(),
+        v.data_ptr(), f.data_ptr(), out.data_ptr(), ctypes.byref(lay),
+        w0, w1, w2, _stream(),
     )
     _count("residual_restrict",
            "residual_restrict" if with_residual else "restrict", v.shape)
@@ -177,9 +311,9 @@ def prolong_blend(
     _check_level(out, geom_f, "out")
     if not _on_cuda(c, vb, out):
         return out.copy_(prolong_blend_plain(c, vb, mode))
-    X, Y, Z = vb.shape
     rc = build.load().lib.pdemg_prolong_blend(
-        c.data_ptr(), vb.data_ptr(), out.data_ptr(), X, Y, Z,
+        c.data_ptr(), vb.data_ptr(), out.data_ptr(),
+        ctypes.byref(prolong_layout(tuple(vb.shape))),
         int(mode == "replace"), _stream(),
     )
     _count("prolong_blend", "prolong_blend", vb.shape)

@@ -7,6 +7,15 @@ A ROW is
   mixed:N   `chip_smoke.phase_main_path(torch, N, "mixed")`: the 3D row at
             N^3, FMG(2, 100, 100), exact coarsest, the solve with its gate
             and launch checks, ms a step eager and as one CUDA graph;
+  f32:N     the same in precision "f32";
+  transfers rows 25 and 26 (`transfer.residual_restrict` with and without
+            the residual, `transfer.prolong_blend` add and replace in
+            place) timed graph-replayed on every fine level of the 513^3
+            path (512^3 ... 128^3), on 64^3 and on the sub-lane pairs
+            (32^3 ... 4^3) and a non-cubic pair, the SHA-256 of their
+            outputs on seeded inputs, and the launches by fine level
+            (`transfer.launches_by_fine`) of one step of the 129^3, 257^3
+            and 513^3 f32 rows, the FAS 257^3 row and the two 3D presets;
   varcoef   `chip_smoke.phase_kernels_stencil(torch)` then
             `chip_smoke.phase_varcoef(torch)`: the varcoef2d 1025^2
             Galerkin row (its gate, the plan's launches, ms a step, the
@@ -297,6 +306,68 @@ def reduced_row():
     return counts, s, f"{sha(vly)} {sha(v)}"
 
 
+def transfers_row():
+    import numpy as np
+    from pde_multigrid_tpu_torch import (CycleConfig, MultigridSolver,
+                                         Poisson3D, SolverConfig)
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.ops.cuda import transfer as T
+
+    prob = Poisson3D()
+    rng = np.random.default_rng(2056)
+    ms, digests = {}, []
+    shapes = [(n,) * 3 for n in (512, 256, 128, 64, 32, 16, 8, 4)]
+    for shape in shapes + [(64, 32, 128)]:
+        gf, gc = build_geometries(tuple(n + 1 for n in shape),
+                                  ((0.0, 1.0),) * 3, 2, wrap=True)
+        cs = gc.padded_shape
+        v = torch.tensor((rng.standard_normal(shape) * wrap_interior(shape))
+                         .astype(np.float32), device="cuda")
+        f = torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device="cuda")
+        cc = torch.tensor((rng.standard_normal(cs) * wrap_interior(cs))
+                          .astype(np.float32), device="cuda")
+        tag = "x".join(map(str, shape))
+        outs = []
+        reps = 10 if shape[0] >= 256 else 50
+        for name, fn in (
+                ("residual_restrict", lambda: T.residual_restrict(
+                    v, f, prob, gf, gc)),
+                ("restrict", lambda: T.residual_restrict(
+                    f, None, prob, gf, gc, with_residual=False))):
+            outs.append(fn())
+            ms[f"{name} {tag}"] = c.device_ms(torch, fn, reps)
+        for mode in ("add", "replace"):
+            w = v.clone()
+            outs.append(T.prolong_blend(cc, w, mode, gc, gf, out=w).clone())
+            ms[f"prolong_{mode} {tag}"] = c.device_ms(
+                torch, lambda mode=mode: T.prolong_blend(
+                    cc, w, mode, gc, gf, out=w), reps)
+        digests.append(sha(*outs))
+        del v, f, cc, w, outs
+        torch.cuda.empty_cache()
+    by_path = {}
+    cfgs = {f"{n}^3 f32": (n, CycleConfig("fmg", 2, 100, 100,
+                                         coarsest="exact"))
+            for n in (129, 257, 513)}
+    cfgs["fas 257^3"] = (c.FAS_N, c._fas_cfg().cycle)
+    for n in (129, 257):
+        cfgs[f"preset {n}^3"] = (n, CycleConfig("fmg", 2, 3000, 3000,
+                                                coarsest="relax"))
+    for key, (n, cyc) in cfgs.items():
+        solver = MultigridSolver(prob, n, SolverConfig(
+            cycle=cyc, precision="f32"), device="cuda")
+        T.reset_launches()
+        solver.solve()
+        torch.cuda.synchronize()
+        by_path[key] = {f"{k} {s[0]}x{s[1]}x{s[2]}": x
+                        for (k, s), x in sorted(T.launches_by_fine.items())}
+        del solver
+        torch.cuda.empty_cache()
+    digest = hashlib.sha256(" ".join(digests).encode()).hexdigest()
+    return {}, {"ms": ms, "launches_by_fine": by_path}, digest
+
+
 def blocked_row():
     import os
     import numpy as np
@@ -335,9 +406,12 @@ def blocked_row():
 c.phase_card(torch)
 c.phase_build()
 for row in sys.argv[2:]:
-    if row.startswith("mixed:"):
-        counts, s, v = c.phase_main_path(torch, int(row[6:]), "mixed")
+    if row.startswith(("mixed:", "f32:")):
+        prec, n = row.split(":")
+        counts, s, v = c.phase_main_path(torch, int(n), prec)
         digest = sha(v)
+    elif row == "transfers":
+        counts, s, digest = transfers_row()
     elif row == "varcoef":
         legs = c.phase_kernels_stencil(torch)
         counts, s, v = c.phase_varcoef(torch)

@@ -20,6 +20,7 @@ from pde_multigrid_tpu_torch.ops.cuda import resident as RS
 from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
 from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
 from pde_multigrid_tpu_torch.ops.cuda import subtree as S
+from pde_multigrid_tpu_torch.ops.cuda import transfer as TR
 
 CSRC = Path(MB.__file__).resolve().parent / "csrc"
 
@@ -66,6 +67,8 @@ def _struct_name(t):
     ("reduced2d.cu", "Reduced2DLayout", RD.Reduced2DLayout),
     ("blocked3d.cu", "Blocked3DLayout", BL.Blocked3DLayout),
     ("slab2d.cu", "HJBSlab", SL.HJBSlabLayout),
+    ("transfer.cu", "RestrictLayout", TR.RestrictLayout),
+    ("transfer.cu", "ProlongLayout", TR.ProlongLayout),
 ])
 def test_ctypes_struct_mirrors_the_c_struct(source, struct, cls):
     assert _py_fields(cls) == _c_fields(source, struct)
