@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero without the final result line:
      card, at the 129^3 main path's shapes (128^3 fine, 64^3 coarse), and
      each one's time beside the plain version's (CUDA events); the
      transfers (rows 25, 26) bitwise at 128^3, 256^3 and 512^3 in both
-     modes, the prolongation also in place, each timed by level; the bf16
+     modes, the prolongation also in place, each timed by level; the
+     residual (row 27) bitwise on every level 512^3 ... 2^3, a non-cubic
+     and a non-power-of-two level, with f and f-less, timed by level
+     beside its plain version (`residual_ab`); the bf16
      defect trio included: residual_split, row 10's error sweeps as the
      plan runs them on 128^3 and below (error_leg, one cooperative
      launch a leg) bitwise error_sweeps_plain at nu = 1 ... 9 and 100 on
@@ -323,6 +326,12 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/transfer.cu",
         "pde_multigrid_tpu/ops/pallas/transfer.py:413",
     ),
+    # row 27's f-less mode: FAS's coarse right side, residual(v, 0), which
+    # JAX computes with make_residual on a zero f
+    "residual_zero_f": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/transfer.cu",
+        "pde_multigrid_tpu/ops/pallas/transfer.py:413",
+    ),
     "residual_split": (
         "pde_multigrid_tpu_torch/ops/cuda/csrc/defect.cu",
         "pde_multigrid_tpu/ops/pallas/defect.py:111",
@@ -497,14 +506,16 @@ PATHS = {
     # 33^3 V(2, 2) cycles, relaxed to 2^3: the correction scheme fuses
     # every V-cycle; FAS (no fused hooks) relaxes 32^3 and 16^3 with the
     # whole-leg resident kernel's merged mode, 8^3 ... 2^3 with its
-    # one-CTA mode, and transfers on the sub-lane pairs
+    # one-CTA mode, and transfers on the sub-lane pairs; its coarse right
+    # sides take the residual's f-less mode
     "fas3d_cs": ("subtree", "residual"),
     "fas3d_fas": ("merged_resident", "resident3d", "residual",
-                  "small_restrict", "small_prolong_blend"),
+                  "residual_zero_f", "small_restrict",
+                  "small_prolong_blend"),
     # 257^3 FMG(2, 100, 100) in FAS, relaxed to 2^3: the wavefront on
     # 256^3, the half-sweeps on 128^3, the resident kernel below
-    "fas257": (*F32_3D, "timeskew", "merged_resident", "resident3d",
-               "small_restrict", "small_prolong_blend"),
+    "fas257": (*F32_3D, "residual_zero_f", "timeskew", "merged_resident",
+               "resident3d", "small_restrict", "small_prolong_blend"),
     # 257^3 split over ranks: the time-skew chunk on 256^3 (with its split
     # and merge per leg), the masked block on 128^3; the transfers and
     # residuals are the plain ops (JAX's jnp under GSPMD)
@@ -742,7 +753,6 @@ def phase_kernels(torch):
     from pde_multigrid_tpu_torch.models import Poisson, Poisson3D
     from pde_multigrid_tpu_torch.ops.cuda import defect as D
     from pde_multigrid_tpu_torch.ops.cuda import relax as R
-    from pde_multigrid_tpu_torch.ops.cuda import transfer as T
 
     dev = torch.device("cuda")
     prob = Poisson3D()
@@ -830,16 +840,9 @@ def phase_kernels(torch):
     record("half_sweep", err, {k: x / 2 for k, x in t.items()},
            4 * r.nbytes, 13 * updated_points(gf.padded_shape) / 2)
 
-    # residual: bitwise
-    k = T.residual(v, f, prob, gf)
-    p = T.residual_plain(v, f, prob, gf)
-    require(torch.equal(k, p), "residual not bitwise")
-    t = paired_times(torch, lambda: T.residual(v, f, prob, gf),
-                           lambda: T.residual_plain(v, f, prob, gf), 20)
-    # 2 v, (a - 2v + b) w per axis and their sum, f - L v, the mask: 14 a
-    # point
-    record("residual", _max_err(torch, k, p), t, 3 * v.nbytes,
-           14 * v.numel())
+    # row 27, with f and f-less, bitwise on every level 512^3 ... 2^3 and
+    # two odd ones; the records at 128^3
+    check_residuals(torch, prob, record)
 
     # rows 25 and 26 bitwise on the 513^3 path's fine levels, their
     # records at 128^3
@@ -993,6 +996,73 @@ def check_transfers(torch, prob, record):
             f"prolongation also in place; ms {ab!r}")
         del v, f, c, dst, w, calls
         torch.cuda.empty_cache()
+
+
+# the levels row 27 is held at: every level of the 513^3 path and of FAS
+# 257^3, a non-cubic one and one whose extents are not powers of two (the
+# point form); its kernel, plain and bound ms by level, with f and f-less
+# (printed with the summaries)
+RESIDUAL_LEVELS = [(n,) * 3 for n in (512, 256, 128, 64, 32, 16, 8, 4, 2)
+                   ] + [(64, 32, 128), (24, 12, 20)]
+RESIDUAL_AB = {}
+
+
+def check_residuals(torch, prob, record):
+    """Row 27 on RESIDUAL_LEVELS, with f (`transfer.residual`) and f-less
+    (`transfer.residual_zero_f`), each equal to its plain version
+    (torch.equal) and the f-less one also to residual_plain(v, 0); each
+    timed beside its plain version by level (RESIDUAL_AB), the records
+    (`record`) at 128^3."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.ops.cuda import transfer as T
+
+    rng = np.random.default_rng(2058)
+    for shape in RESIDUAL_LEVELS:
+        g = build_geometries(tuple(n + 1 for n in shape), ((0.0, 1.0),) * 3,
+                             1, wrap=True)[0]
+        require(tuple(g.padded_shape) == shape, f"level {g.padded_shape}")
+        v = torch.tensor((rng.standard_normal(shape) * wrap_interior(shape))
+                         .astype(np.float32), device="cuda")
+        f = torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device="cuda")
+        tag = "x".join(map(str, shape))
+        k, p = T.residual(v, f, prob, g), T.residual_plain(v, f, prob, g)
+        require(torch.equal(k, p), f"residual {tag} not bitwise: max diff "
+                f"{_max_err(torch, k, p)!r}")
+        k0 = T.residual_zero_f(v, prob, g)
+        p0 = T.residual_plain(v, None, prob, g)
+        require(torch.equal(k0, p0) and torch.equal(k0, T.residual_plain(
+            v, torch.zeros_like(v), prob, g)),
+            f"residual_zero_f {tag} not bitwise: max diff "
+            f"{_max_err(torch, k0, p0)!r}")
+        reps = {512: 2, 256: 5}.get(shape[0], 20)
+        t = paired_times(torch, lambda: T.residual(v, f, prob, g),
+                         lambda: T.residual_plain(v, f, prob, g), reps)
+        t0 = paired_times(torch, lambda: T.residual_zero_f(v, prob, g),
+                          lambda: T.residual_plain(v, None, prob, g), reps)
+        # 2 v, (a - 2v + b) w per axis and their sum, f - L v, the mask: 14
+        # a point (f-less 0 - L v the same)
+        b3, b2 = bound(3 * v.nbytes, 14 * v.numel()), bound(
+            2 * v.nbytes, 14 * v.numel())
+        lay = T.residual_layout(shape, True)
+        RESIDUAL_AB[tag] = {
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": b3["bound_ms"], "zero_f_ms": t0["ms"],
+            "zero_f_plain_ms": t0["plain_ms"],
+            "zero_f_bound_ms": b2["bound_ms"],
+            "form": "walk" if lay.form == T.WALK else "point",
+            "TJ": lay.TJ, "bands": lay.gy if lay.form == T.WALK else 0}
+        if shape == (128,) * 3:
+            record("residual", _max_err(torch, k, p), t, 3 * v.nbytes,
+                   14 * v.numel())
+            record("residual_zero_f", _max_err(torch, k0, p0), t0,
+                   2 * v.nbytes, 14 * v.numel())
+        del v, f, k, p, k0, p0
+        torch.cuda.empty_cache()
+    log(f"residual (row 27): bitwise with f and f-less on {len(RESIDUAL_AB)}"
+        f" levels; ms {RESIDUAL_AB!r}")
 
 
 def defect_chain_relax(problem, g):
@@ -3358,8 +3428,9 @@ def fas_launches(solver) -> dict:
     2 nu half-sweeps, each leg with a split of v and of f and a merge, or
     one launch of the resident kernel; each visit of a level above the
     coarsest restricts its residual (restrict-only mode), takes the
-    residual on the level and on the injected coarse iterate (FAS's coarse
-    right side) and prolongs the coarse change ('add'); the f-cascade
+    residual on the level and, f-less, on the injected coarse iterate
+    (FAS's coarse right side: residual_zero_f, no zero f filled) and
+    prolongs the coarse change ('add'); the f-cascade
     restricts once per pair, the upward leg prolongs once per pair
     ('replace'); the result's residual norms take one residual.  The
     sub-lane pairs count as rows 23 and 24."""
@@ -3386,7 +3457,8 @@ def fas_launches(solver) -> dict:
                 visits + 1)
             want["small_prolong_blend" if small else "prolong_blend"] += (
                 visits + 1)
-            want["residual"] += 2 * visits
+            want["residual"] += visits
+            want["residual_zero_f"] += visits
     want["residual"] += 1
     return want
 
@@ -5078,6 +5150,7 @@ def main() -> int:
                     "lyap2d_ab": LYAP2D_AB, "error_ab": ERROR_AB,
                     "hjb_leg_ms": HJB_LEG_MS, "hjb_slab_ms": HJB_SLAB_MS,
                     "merge2d_ab": MERGE2D_AB, "transfer_ab": TRANSFER_AB,
+                    "residual_ab": RESIDUAL_AB,
                     "relax1d_leg_ms": RELAX1D_LEG_MS,
                     "phase_s": PHASE_S}))
     log(json.dumps({"kernels": kernels}))

@@ -97,6 +97,10 @@ class TorchKernels:
     def restrict_direct(self, l, arr, coarse_aux):
         return None
 
+    def residual_zero_f(self, l, v, aux):
+        # residual(v, 0) without a zero f (FAS's coarse right side)
+        return None
+
     def prolong_blend(self, l_fine, base_v, coarse_v, m_int, mode):
         return None
 
@@ -281,9 +285,12 @@ class CycleProgram:
             vc = v0c.clone(memory_format=torch.contiguous_format)
             # f_c = N_c(v0c) + R r on the interior: m_int * N_c(v) is
             # exactly -residual(v, 0)
-            fc = rc - self.kernels.residual(
-                l + 1, vc, torch.zeros_like(vc), coarse.aux
-            )
+            r0 = self._fused("residual_zero_f", l + 1, vc, coarse.aux)
+            if r0 is None:
+                r0 = self.kernels.residual(
+                    l + 1, vc, torch.zeros_like(vc), coarse.aux
+                )
+            fc = rc - r0
             coarse.v = vc
             self.kernels.v_written(l + 1)
             coarse.f = fc

@@ -85,9 +85,10 @@ SIGNATURES = {
     "pdemg_blocked3d": (_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P),
     "pdemg_residual_split": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
     "pdemg_merge_fold": (_P, _P, _P, _I, _I, _I, _P),
-    "pdemg_residual": (_P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
-    # the transfers take their launch geometry as a pointer to a host
-    # struct (transfer.RestrictLayout, transfer.ProlongLayout)
+    # the residual and the transfers take their launch geometry as a
+    # pointer to a host struct (transfer.ResidualLayout,
+    # transfer.RestrictLayout, transfer.ProlongLayout)
+    "pdemg_residual": (_P, _P, _P, _P, _F, _F, _F, _P),
     "pdemg_residual_restrict": (_P, _P, _P, _P, _F, _F, _F, _P),
     "pdemg_prolong_blend": (_P, _P, _P, _P, _I, _P),
     # the 2D Lyapunov kernels take their constants as a pointer to a host

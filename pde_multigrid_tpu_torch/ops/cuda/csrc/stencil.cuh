@@ -72,6 +72,8 @@ __device__ __forceinline__ float folded_update(float p0, float p1, float p2,
 
 // m_int * (f - L v) at one dense point; L v in Poisson.kernel_operator's
 // order: sum over axes of ((v[-1] - 2 v) + v[+1]) * w_ax, x first.
+// WITH_F false: m_int * (0 - L v), f not read.
+template <bool WITH_F = true>
 __device__ __forceinline__ float residual_at(const float* __restrict__ v,
                                              const float* __restrict__ f,
                                              int x, int y, int z, int X,
@@ -89,7 +91,7 @@ __device__ __forceinline__ float residual_at(const float* __restrict__ v,
   t2 = t2 + v[at(x, y, wrap_inc(z, Z), Y, Z)];
   lv = lv + t2 * w2;
   const float m = (x >= 1 && y >= 1 && z >= 1) ? 1.0f : 0.0f;
-  return m * (f[at(x, y, z, Y, Z)] - lv);
+  return m * ((WITH_F ? f[at(x, y, z, Y, Z)] : 0.0f) - lv);
 }
 
 }  // namespace

@@ -8,7 +8,8 @@
 //       add:     out = vb + m_int * P(c)
 //       replace: out = vb + m_int * (P(c) - vb)
 //   pde_multigrid_tpu/ops/pallas/transfer.py:make_residual
-//       r = m_int * (f - L v)
+//       r = m_int * (f - L v); and, f-less, r = m_int * (0 - L v), which
+//       the FAS cycle's coarse right side takes as residual(v, 0)
 // where R is 27-point full weighting with injection on the coarse boundary
 // planes and P is trilinear prolongation; fine (X, Y, Z) = 2 (Xc, Yc, Zc).
 // On the sub-lane pairs (fine level of at most 32^3 on the 3D presets and
@@ -25,7 +26,26 @@
 // restrict must read v and f once (8 B a fine point) and write 4 B a
 // coarse point (restrict alone: 4 B a fine point in); prolong + blend
 // reads the fine base and writes it (8 B a fine point) plus 0.5 B of
-// coarse; the residual 12 B a point.
+// coarse; the residual 12 B a point (f-less 8 B).
+//
+// The residual (residual_walk_kernel<WITH_F>, the form of every level
+// with power-of-two extents, z of at least 4 and more than
+// ops/cuda/transfer.RESIDUAL_POINT_MAX points; layout by
+// ops/cuda/transfer.residual_layout): the walk below without the
+// smoothing.  A CTA owns TJ fine rows (all of z) of a band of NX planes
+// and walks the band along x.  Each v plane (the tile's rows with one
+// halo row each side) comes into the same four-slot ring once, by
+// 16-byte cp.async two planes ahead (stage_rows); a thread owns one row's
+// z quad, keeps v's x - 1, x and x + 1 quads in registers and computes
+// them with residual_quad, the walk's own code; it reads f one plane
+// ahead and writes r as one 16-byte access a quad, r by a streaming
+// store.  So v is read from device memory (TJ + 2) / TJ times (the halo
+// rows mostly from the L2), f and r once.  The f-less mode is the same
+// walk at compile time with no f read: 0 - L v in the same order, bit
+// for bit residual(v, 0).  Elsewhere (an extent that is not a power of
+// two, z under 4, and the small levels, where a launch is its latency)
+// residual_point_kernel, a point a thread on a grid of (z, y, x), no
+// integer division.
 //
 // Residual + restrict (restrict_walk_kernel<RES>, the form of every level
 // with power-of-two extents and a tile that fits, layout by
@@ -103,28 +123,41 @@ struct ProlongLayout {
   int gx, gy, gz;  // CTAs along k, j and i
 };
 
+// ops/cuda/transfer.py ResidualLayout
+struct ResidualLayout {
+  int X, Y, Z;     // the level
+  int with_f;      // 1: m (f - L v); 0: m (0 - L v), no f read
+  int form;        // 1: the plane walk; 0: a point a thread
+  int TJ;          // the walk: rows a tile (all of z)
+  int NX;          // the walk: planes a band
+  int RV;          // the walk: rows a staged v plane, TJ + 2
+  int bx, by;      // threads a CTA (the point form: along z and along y)
+  int gx, gy, gz;  // CTAs (the walk: row tiles, bands, 1; the point form:
+                   // along z, y and x)
+  int smem_bytes;  // dynamic shared memory a CTA
+};
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStages = 4;  // the walk's ring of staged planes
+constexpr int kThreads = 256;  // the cell form's CTA
+constexpr int kStages = 4;     // the walks' ring of staged planes
 constexpr int kMaxWalkThreads = 1024;
 
-inline unsigned int blocks_for(long long n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
-}
-
-__global__ void residual_kernel(const float* __restrict__ v,
-                                const float* __restrict__ f,
-                                float* __restrict__ r, int X, int Y, int Z,
-                                float w0, float w1, float w2) {
-  const long long n = (long long)X * Y * Z;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int z = (int)(i % Z);
-  const long long xy = i / Z;
-  const int y = (int)(xy % Y);
-  const int x = (int)(xy / Y);
-  r[i] = residual_at(v, f, x, y, z, X, Y, Z, w0, w1, w2);
+// The point form: a point a thread, threads along z and y, a CTA row of
+// planes along x (blockIdx.z), so no integer division.
+template <bool WITH_F>
+__global__ void residual_point_kernel(const float* __restrict__ v,
+                                      const float* __restrict__ f,
+                                      float* __restrict__ r,
+                                      const ResidualLayout L, float w0,
+                                      float w1, float w2) {
+  const int z = blockIdx.x * L.bx + threadIdx.x;
+  const int y = blockIdx.y * L.by + threadIdx.y;
+  const int x = blockIdx.z;
+  const int X = L.X, Y = L.Y, Z = L.Z;
+  if (z >= Z || y >= Y) return;
+  r[at(x, y, z, Y, Z)] =
+      residual_at<WITH_F>(v, f, x, y, z, X, Y, Z, w0, w1, w2);
 }
 
 // (0.25 a + 0.5 b) + 0.25 c: one axis of the full-weighting smoothing
@@ -227,6 +260,130 @@ __device__ __forceinline__ float res_pt(float c, float xm, float xp,
   return m * (f - lv);
 }
 
+// Copies nv rows of the plane at vsrc (rows vy0 ... vy0 + nv - 1, wrapped
+// by the power-of-two Y) to vdst and nf rows of the plane at fsrc (from
+// row fy0) to fdst, all of Z = 4 << lg a row, by 16-byte cp.async, the
+// copies of both spread over the CTA's nt threads together.
+__device__ __forceinline__ void stage_rows(float* vdst, const float* vsrc,
+                                           int vy0, int nv, float* fdst,
+                                           const float* fsrc, int fy0,
+                                           int nf, int Y, int Z, int lg,
+                                           int tid, int nt) {
+  const int nch = Z >> 2;
+  const int cv = nv << lg, n = cv + (nf << lg);
+  for (int i = tid; i < n; i += nt) {
+    const bool isf = i >= cv;
+    const int e = isf ? i - cv : i;
+    const int row = e >> lg, zq = (e & (nch - 1)) << 2;
+    const int gy = ((isf ? fy0 : vy0) + row) & (Y - 1);
+    cp_async16((isf ? fdst : vdst) + row * Z + zq,
+               (isf ? fsrc : vsrc) + (size_t)gy * Z + zq);
+  }
+}
+
+// m * (f - L v) on a thread's z quad (z = 4 q, one of a row's nch) of a
+// plane x: vm, vc, vp the quad on planes x - 1, x and x + 1; pc the staged
+// plane x, whose row `row` holds the quad and rows row - 1, row + 1 its y
+// neighbours; the quad's f read from fs after the y neighbours (a staged
+// f plane), or, fs null, fq (zeros: the f-less mode, 0 - L v in the same
+// order); mxy whether x >= 1 and y >= 1.  The z neighbours come from the
+// lanes beside it on the same row, else (at a row's or a warp's edge)
+// from pc.  Every lane of the warp calls it.  (The restrict walk passing
+// its f as fq, loaded before the call, ran 3-6 % slower on an H100:
+// scripts/ab_rows.py transfers.)
+__device__ __forceinline__ float4 residual_quad(
+    const float* pc, int row, int z, int q, int nch, int lane, int Z,
+    float4 vm, float4 vc, float4 vp, const float* fs, float4 fq, bool mxy,
+    float w0, float w1, float w2) {
+  const float4 ym = ld4(pc + (row - 1) * Z + z);
+  const float4 yp = ld4(pc + (row + 1) * Z + z);
+  if (fs != nullptr) fq = ld4(fs);
+  float zl = __shfl_sync(0xffffffffu, vc.w, (lane + 31) & 31);
+  float zr = __shfl_sync(0xffffffffu, vc.x, (lane + 1) & 31);
+  if (q == 0 || lane == 0) zl = pc[row * Z + ((z - 1) & (Z - 1))];
+  if (q == nch - 1 || lane == 31) zr = pc[row * Z + ((z + 4) & (Z - 1))];
+  const float m = mxy ? 1.0f : 0.0f;
+  float4 a;
+  a.x = res_pt(vc.x, vm.x, vp.x, ym.x, yp.x, zl, vc.y, fq.x,
+               (mxy && z >= 1) ? 1.0f : 0.0f, w0, w1, w2);
+  a.y = res_pt(vc.y, vm.y, vp.y, ym.y, yp.y, vc.x, vc.z, fq.y, m, w0, w1,
+               w2);
+  a.z = res_pt(vc.z, vm.z, vp.z, ym.z, yp.z, vc.y, vc.w, fq.z, m, w0, w1,
+               w2);
+  a.w = res_pt(vc.w, vm.w, vp.w, ym.w, yp.w, vc.z, zr, fq.w, m, w0, w1, w2);
+  return a;
+}
+
+// The residual walk (the header note).  Shared memory: kStages slots,
+// each a staged v plane (RV = TJ + 2 rows of Z, from row y0 - 1).  Stage k
+// holds v plane x0 - 1 + k; step s computes plane x = x0 + s from stages
+// s (in registers), s + 1 and s + 2.  Extents are powers of two, Z >= 4.
+template <bool WITH_F>
+__global__ void __launch_bounds__(kMaxWalkThreads, 1)
+    residual_walk_kernel(const float* __restrict__ v,
+                         const float* __restrict__ f,
+                         float* __restrict__ r, const ResidualLayout L,
+                         float w0, float w1, float w2) {
+  extern __shared__ __align__(16) float sm[];
+  const int X = L.X, Y = L.Y, Z = L.Z, TJ = L.TJ, NX = L.NX, RV = L.RV;
+  const int lg = __ffs(Z) - 3;  // log2 of the quads a row, Z / 4
+  const int nch = Z >> 2;
+  const int slot = RV * Z;
+  const int y0 = blockIdx.x * TJ, x0 = blockIdx.y * NX;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  // this thread's row of the tile and z quad; the padding threads past
+  // the last row compute on row TJ - 1 and store nothing
+  const bool active = (tid >> lg) < TJ;
+  const int rr = active ? tid >> lg : TJ - 1;
+  const int q = tid & (nch - 1);
+  const int z = 4 * q;
+  const int y = y0 + rr;
+  const size_t plane = (size_t)Y * Z;
+  const size_t quad = (size_t)y * Z + z;  // the quad in a plane
+  const int vrow = (rr + 1) * Z + z;      // ... in a staged v plane
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // stage k into slot k % kStages: the tile's rows of v plane x0 - 1 + k;
+  // one commit group a stage, empty past the walk
+  auto issue = [&](int k) {
+    if (k < NX + 2) {
+      stage_rows(sm + (k & (kStages - 1)) * slot,
+                 v + (size_t)((x0 - 1 + k) & (X - 1)) * plane, y0 - 1, RV,
+                 nullptr, nullptr, 0, 0, Y, Z, lg, tid, nt);
+    }
+    cp_commit();
+  };
+  auto load_f = [&](int x) {
+    return WITH_F && active
+               ? __ldg(reinterpret_cast<const float4*>(f + x * plane + quad))
+               : zero;
+  };
+
+  for (int k = 0; k < kStages; ++k) issue(k);
+  float4 fc = load_f(x0);
+  cp_wait<kStages - 2>();  // stages 0 and 1
+  __syncthreads();
+  float4 vm = ld4(sm + vrow);
+  float4 vc = ld4(sm + slot + vrow);
+  for (int s = 0; s < NX; ++s) {
+    const int x = x0 + s;
+    const float4 fn = s + 1 < NX ? load_f(x + 1) : zero;
+    cp_wait<kStages - 3>();  // stage s + 2
+    __syncthreads();  // ... everyone's; and slot s % kStages is free
+    issue(s + kStages);
+    const float* pc = sm + ((s + 1) & (kStages - 1)) * slot;  // plane x
+    const float* pn = sm + ((s + 2) & (kStages - 1)) * slot;  // x + 1
+    const float4 vp = ld4(pn + vrow);
+    const float4 a = residual_quad(pc, rr + 1, z, q, nch, lane, Z, vm, vc,
+                                   vp, nullptr, fc, x >= 1 && y >= 1, w0,
+                                   w1, w2);
+    if (active) __stcs(reinterpret_cast<float4*>(r + x * plane + quad), a);
+    vm = vc;
+    vc = vp;
+    fc = fn;
+  }
+}
+
 // The plane walk (the header note).  Shared memory: kStages slots, each a
 // staged v plane (RV rows of Z) and, with the residual, an f plane (RR
 // rows); then the x-smoothed plane (RR rows) and the injected values (TJ
@@ -261,28 +418,19 @@ __global__ void __launch_bounds__(kMaxWalkThreads, 1)
   const int z = 4 * q;
   const int y = (2 * J0 - 1 + rr) & (Y - 1);
   const size_t plane = (size_t)Y * Z;
-  const int nv = RV << lg, nf = RES ? RR << lg : 0;
   const int vrow = (rr + (RES ? 1 : 0)) * Z + z;  // in a staged v plane
 
   // stage k into slot k % kStages: the tile's rows of v plane x0 - 1 + k
   // (from fine row 2 J0 - 2, or 2 J0 - 1 without the residual) and of f
-  // plane x0 + k - 2 (from 2 J0 - 1), 16 bytes a copy; one commit group
-  // a stage, empty past the walk
+  // plane x0 + k - 2 (from 2 J0 - 1); one commit group a stage, empty past
+  // the walk
   auto issue = [&](int k) {
     if (k < NS + 2) {
       float* dst = sm + (k & (kStages - 1)) * slot;
-      const float* vp = v + (size_t)((x0 - 1 + k) & (X - 1)) * plane;
-      const float* fp = f + (size_t)((x0 + k - 2) & (X - 1)) * plane;
-      const int vy0 = 2 * J0 - (RES ? 2 : 1);
-      const int n = nv + (k >= 2 ? nf : 0);
-      for (int i = tid; i < n; i += nt) {
-        const bool isf = i >= nv;
-        const int e = isf ? i - nv : i;
-        const int row = e >> lg, zq = (e & (nch - 1)) << 2;
-        const int gy = ((isf ? 2 * J0 - 1 : vy0) + row) & (Y - 1);
-        cp_async16(dst + (isf ? RV * Z : 0) + row * Z + zq,
-                   (isf ? fp : vp) + (size_t)gy * Z + zq);
-      }
+      stage_rows(dst, v + (size_t)((x0 - 1 + k) & (X - 1)) * plane,
+                 2 * J0 - (RES ? 2 : 1), RV, dst + RV * Z,
+                 f + (size_t)((x0 + k - 2) & (X - 1)) * plane, 2 * J0 - 1,
+                 RES && k >= 2 ? RR : 0, Y, Z, lg, tid, nt);
     }
     cp_commit();
   };
@@ -327,27 +475,9 @@ __global__ void __launch_bounds__(kMaxWalkThreads, 1)
     float4 a;
     if (RES) {
       const int x = (x0 + s) & (X - 1);
-      const float4 ym = ld4(pc + rr * Z + z);
-      const float4 yp = ld4(pc + (rr + 2) * Z + z);
-      const float4 fc = ld4(pn + (RV + rr) * Z + z);
-      // z neighbours of the quad: the lanes beside it on the same row,
-      // else shared memory
-      float zl = __shfl_sync(0xffffffffu, vc.w, (lane + 31) & 31);
-      float zr = __shfl_sync(0xffffffffu, vc.x, (lane + 1) & 31);
-      if (q == 0 || lane == 0) zl = pc[(rr + 1) * Z + ((z - 1) & (Z - 1))];
-      if (q == nch - 1 || lane == 31) {
-        zr = pc[(rr + 1) * Z + ((z + 4) & (Z - 1))];
-      }
-      const bool mxy = x >= 1 && y >= 1;
-      const float m = mxy ? 1.0f : 0.0f;
-      a.x = res_pt(vc.x, vm.x, vp.x, ym.x, yp.x, zl, vc.y, fc.x,
-                   (mxy && z >= 1) ? 1.0f : 0.0f, w0, w1, w2);
-      a.y = res_pt(vc.y, vm.y, vp.y, ym.y, yp.y, vc.x, vc.z, fc.y, m, w0,
-                   w1, w2);
-      a.z = res_pt(vc.z, vm.z, vp.z, ym.z, yp.z, vc.y, vc.w, fc.z, m, w0,
-                   w1, w2);
-      a.w = res_pt(vc.w, vm.w, vp.w, ym.w, yp.w, vc.z, zr, fc.w, m, w0, w1,
-                   w2);
+      a = residual_quad(pc, rr + 1, z, q, nch, lane, Z, vm, vc, vp,
+                        pn + (RV + rr) * Z + z, vc, x >= 1 && y >= 1, w0,
+                        w1, w2);
     } else {
       a = vc;
     }
@@ -438,11 +568,29 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-int pdemg_residual(const float* v, const float* f, float* r, int X, int Y,
-                   int Z, float w0, float w1, float w2, void* stream) {
-  const long long n = (long long)X * Y * Z;
-  residual_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      v, f, r, X, Y, Z, w0, w1, w2);
+int pdemg_residual(const float* v, const float* f, float* r,
+                   const ResidualLayout* lay, float w0, float w1, float w2,
+                   void* stream) {
+  const ResidualLayout L = *lay;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(L.gx, L.gy, L.gz), block(L.bx, L.by);
+  if (L.form == 0) {
+    if (L.with_f) {
+      residual_point_kernel<true><<<grid, block, 0, s>>>(v, f, r, L, w0, w1,
+                                                         w2);
+    } else {
+      residual_point_kernel<false><<<grid, block, 0, s>>>(v, f, r, L, w0,
+                                                          w1, w2);
+    }
+    return (int)cudaGetLastError();
+  }
+  void (*kern)(const float*, const float*, float*, const ResidualLayout,
+               float, float, float) =
+      L.with_f ? residual_walk_kernel<true> : residual_walk_kernel<false>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, block, L.smem_bytes, s>>>(v, f, r, L, w0, w1, w2);
   return (int)cudaGetLastError();
 }
 

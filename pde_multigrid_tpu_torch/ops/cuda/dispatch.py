@@ -42,7 +42,9 @@ with the hand-written kernels.
   * residual + restrict, restrict alone (the FMG f-cascade) and
     prolong + blend in both modes (`ops/cuda/transfer.py`) for every 3D
     wrap level pair with (X, Y, Z) == 2 (Xc, Yc, Zc);
-  * the residual (residual norms) on every 3D wrap level;
+  * the residual (residual norms, FAS's fine residual) on every 3D wrap
+    level, and its f-less mode (`residual_zero_f`, FAS's coarse right
+    side residual(v, 0), no zero f filled and read);
   * the fused coarse-subtree V-cycle (`ops/cuda/subtree.py`), when the
     tier is given the `CycleConfig`: planned once, at construction, by
     `subtree.plan_fused_cycles` (red-black Gauss-Seidel, the correction
@@ -425,6 +427,11 @@ class CudaKernels(TorchKernels):
         if self.geoms[l].ndim < 3:
             return super().residual(l, v, f, aux)
         return transfer_mod.residual(v, f, self.problem, self.geoms[l])
+
+    def residual_zero_f(self, l, v, aux):
+        if self.geoms[l].ndim < 3:
+            return None  # the plain residual of a zero f
+        return transfer_mod.residual_zero_f(v, self.problem, self.geoms[l])
 
     def restrict(self, l_fine, arr, m_int_coarse, m_log_coarse):
         if self.geoms[l_fine].ndim < 3:

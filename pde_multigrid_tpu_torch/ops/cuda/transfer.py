@@ -3,10 +3,12 @@ kernels of `csrc/transfer.cu` and their plain PyTorch versions.
 
 Replaces the TPU kernels `pde_multigrid_tpu/ops/pallas/transfer.py`
 `make_residual_restrict` (both modes), `make_prolong_blend` (both modes)
-and `make_residual`.  The plain versions are the jnp-tier forms the TPU
-kernels are tested against: `stencil.restrict_full_weighting` of the
-residual, `stencil.prolong_linear` (periodic) blended on the interior,
-and `Poisson.kernel_operator` for L v.
+and `make_residual` (with f, and f-less: `residual_zero_f`, the FAS
+cycle's coarse right side, residual(v, 0) without a zero f).  The plain
+versions are the jnp-tier forms the TPU kernels are tested against:
+`stencil.restrict_full_weighting` of the residual, `stencil.prolong_linear`
+(periodic) blended on the interior, and `Poisson.kernel_operator` for
+L v.
 
 The same two transfer kernels serve the sub-lane pairs (fine level of at
 most 32^3 on the 3D presets) for which JAX has its own small resident
@@ -17,8 +19,10 @@ kernels.  `launches_by_fine` splits the launches by the fine level.
 
 Each launch's form and geometry come from the level's shape alone:
 `restrict_layout` (the plane walk where the extents are powers of two and
-a tile of all of z fits one CTA, else one coarse point a thread) and
-`prolong_layout` (one coarse cell a thread).
+a tile of all of z fits one CTA, else one coarse point a thread),
+`prolong_layout` (one coarse cell a thread) and `residual_layout` (the
+residual's walk of x planes where the extents are powers of two and the
+level is not small, else a point a thread).
 
 Each wrapper launches its kernel for CUDA tensors, runs the plain version
 for CPU tensors, and raises for anything else; there is no fallback from
@@ -42,10 +46,12 @@ from pde_multigrid_tpu_torch.ops.cuda.relax import (
     _stream,
 )
 
-launches = {"residual": 0, "residual_restrict": 0, "prolong_blend": 0}
+launches = {"residual": 0, "residual_zero_f": 0, "residual_restrict": 0,
+            "prolong_blend": 0}
 # the same launches of residual_restrict (key "residual_restrict" with the
 # residual, "restrict" without) and prolong_blend by the fine level's
-# shape, counted at the same place as `launches`
+# shape, and of the residual (keys "residual", "residual_zero_f") by the
+# level's, counted at the same place as `launches`
 launches_by_fine: dict[tuple[str, tuple[int, ...]], int] = {}
 
 
@@ -97,9 +103,19 @@ MAX_SMEM_BYTES = 232448
 WALK_ROWS = {512: 2, 256: 4, 128: 8}
 WALK_ROWS_SMALL = 4
 WALK_CTAS = 128
-POINT_THREADS = 256  # the point form's CTA (csrc/transfer.cu kThreads)
-# the cell form's threads a CTA
+POINT_THREADS = 256  # the point form's CTA
+# the cell form's threads a CTA (csrc/transfer.cu kThreads)
 CELL_THREADS = 256
+# the residual's walk (csrc/transfer.cu residual_walk_kernel): rows a tile
+# (all of z a tile), the CTAs the bands aim at, and the largest level
+# (points) left to the point form.  On an H100 4 rows and 512 CTAs (about
+# four 512-thread CTAs an SM at 512^3, co-resident) came within 3 % of the
+# best layout on 512^3 ... 64^3, with f and f-less, where one wave of 128
+# CTAs took 1.25 times as long at 512^3; on 32^3 and below, where a launch
+# is its latency, the point form beat every walk (scripts/probe_residual.py)
+RESIDUAL_ROWS = 4
+RESIDUAL_CTAS = 512
+RESIDUAL_POINT_MAX = 32 ** 3
 
 
 class RestrictLayout(ctypes.Structure):
@@ -125,6 +141,22 @@ class ProlongLayout(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int)
                 for name in ("Xc", "Yc", "Zc", "bx", "by", "gx", "gy", "gz")]
+
+    def as_dict(self) -> dict:
+        return {name: getattr(self, name) for name, _ in self._fields_}
+
+
+class ResidualLayout(ctypes.Structure):
+    """The kernel's `ResidualLayout` (csrc/transfer.cu): the level, the
+    mode (with f or f-less) and form; for the walk the tile's rows TJ, the
+    band's planes NX and the rows of a staged v plane RV; threads a CTA
+    (along z and y), the CTAs (the walk: row tiles, bands, 1; the point
+    form: along z, y and x) and the dynamic shared memory."""
+
+    _fields_ = [(name, ctypes.c_int)
+                for name in ("X", "Y", "Z", "with_f", "form", "TJ", "NX",
+                             "RV", "bx", "by", "gx", "gy", "gz",
+                             "smem_bytes")]
 
     def as_dict(self) -> dict:
         return {name: getattr(self, name) for name, _ in self._fields_}
@@ -207,6 +239,63 @@ def prolong_layout(fine_shape: tuple[int, int, int]) -> ProlongLayout:
     return ProlongLayout(Xc, Yc, Zc, bx, by, -(-Zc // bx), -(-Yc // by), Xc)
 
 
+def residual_walk_layout(shape, with_f: bool, TJ: int,
+                         bands: int) -> ResidualLayout | None:
+    """The residual walk's layout on level `shape` with tiles of TJ rows
+    and `bands` bands of planes, or None where the walk cannot take it: an
+    extent not a power of two, z under 4, TJ or `bands` not dividing the
+    extent, or a CTA past 1024 threads or 227 KB."""
+    X, Y, Z = shape
+    if not all(map(_pow2, shape)) or Z < 4:
+        return None
+    if TJ < 1 or bands < 1 or Y % TJ or X % bands:
+        return None
+    RV = TJ + 2
+    threads = -(-TJ * (Z // 4) // 32) * 32
+    smem = 4 * WALK_STAGES * RV * Z
+    if threads > MAX_WALK_THREADS or smem > MAX_SMEM_BYTES:
+        return None
+    return ResidualLayout(X, Y, Z, int(with_f), WALK, TJ, X // bands, RV,
+                          threads, 1, Y // TJ, bands, 1, smem)
+
+
+def residual_point_layout(shape, with_f: bool) -> ResidualLayout:
+    """The point form's layout: a point a thread, up to 128 threads along
+    z a CTA and the rest of POINT_THREADS along y, a CTA row of planes
+    along x."""
+    X, Y, Z = shape
+    bx = min(Z, 128)
+    by = max(1, min(Y, POINT_THREADS // bx))
+    if -(-Y // by) > 65535 or X > 65535:
+        raise ValueError(f"level {tuple(shape)} is past the point form's "
+                         "grid")
+    return ResidualLayout(X, Y, Z, int(with_f), POINT, 0, 0, 0, bx, by,
+                          -(-Z // bx), -(-Y // by), X, 0)
+
+
+@functools.lru_cache(maxsize=128)
+def residual_layout(shape: tuple[int, int, int],
+                    with_f: bool) -> ResidualLayout:
+    """The launch of the residual (with f or f-less) on level `shape`: the
+    walk on levels of more than RESIDUAL_POINT_MAX points, tiles of
+    RESIDUAL_ROWS rows (at most the level's, and fewer where a tile of 4
+    rows of z would pass 1024 threads) and the fewest bands (a power of
+    two) with which the tiles make RESIDUAL_CTAS CTAs; the point form on
+    the small levels and where the walk cannot take the level.  Cached:
+    the wrapper asks at every launch."""
+    shape = tuple(shape)
+    X, Y, Z = shape
+    if X * Y * Z > RESIDUAL_POINT_MAX:
+        TJ = max(1, min(RESIDUAL_ROWS, Y, 4 * MAX_WALK_THREADS // Z))
+        bands = 1
+        while bands < X and (Y // TJ) * bands < RESIDUAL_CTAS:
+            bands *= 2
+        lay = residual_walk_layout(shape, with_f, TJ, bands)
+        if lay is not None:
+            return lay
+    return residual_point_layout(shape, with_f)
+
+
 def _check_pair(geom_f: LevelGeometry, geom_c: LevelGeometry) -> None:
     if tuple(geom_f.padded_shape) != tuple(
         2 * n for n in geom_c.padded_shape
@@ -221,11 +310,12 @@ def _check_pair(geom_f: LevelGeometry, geom_c: LevelGeometry) -> None:
 
 
 def residual_plain(v, f, problem, geom: LevelGeometry):
-    """m_int * (f - L v) with L v in Poisson.kernel_operator's form."""
+    """m_int * (f - L v) with L v in Poisson.kernel_operator's form; f None
+    is the f-less mode, m_int * (0 - L v), residual(v, 0) bit for bit."""
     Lv = problem.kernel_operator(
         v, geom, lambda a, ax, off: torch.roll(a, -off, dims=ax)
     )
-    return _wrap_m_int(v.shape, v.device) * (f - Lv)
+    return _wrap_m_int(v.shape, v.device) * ((0.0 if f is None else f) - Lv)
 
 
 def residual_restrict_plain(v, f, problem, geom_f, geom_c, with_residual):
@@ -246,23 +336,39 @@ def prolong_blend_plain(c, vb, mode: str):
 # ------------------------------------------------------------ wrappers
 
 
+def _launch_residual(v, f, problem, geom, key):
+    out = torch.empty_like(v)
+    _check_poisson(problem)
+    lay = residual_layout(tuple(v.shape), f is not None)
+    if lay.form == WALK and any(t.data_ptr() % 16 for t in (v, f, out)
+                                if t is not None):
+        raise ValueError("the residual walk takes 16-byte aligned tensors")
+    w0, w1, w2 = inv_h2(geom)
+    rc = build.load().lib.pdemg_residual(
+        v.data_ptr(), None if f is None else f.data_ptr(), out.data_ptr(),
+        ctypes.byref(lay), w0, w1, w2, _stream(),
+    )
+    _count(key, key, v.shape)
+    build.check(rc, key)
+    return out
+
+
 def residual(v, f, problem, geom: LevelGeometry):
     """r = m_int * (f - L v), dense (X, Y, Z)."""
     _check_level(v, geom, "v")
     _check_level(f, geom, "f")
     if not _on_cuda(v, f):
         return residual_plain(v, f, problem, geom)
-    out = torch.empty_like(v)
-    _check_poisson(problem)
-    X, Y, Z = v.shape
-    w0, w1, w2 = inv_h2(geom)
-    rc = build.load().lib.pdemg_residual(
-        v.data_ptr(), f.data_ptr(), out.data_ptr(), X, Y, Z, w0, w1, w2,
-        _stream(),
-    )
-    launches["residual"] += 1
-    build.check(rc, "residual")
-    return out
+    return _launch_residual(v, f, problem, geom, "residual")
+
+
+def residual_zero_f(v, problem, geom: LevelGeometry):
+    """r = m_int * (0 - L v), dense (X, Y, Z): residual(v, 0), reading no
+    f (the FAS cycle's coarse right side)."""
+    _check_level(v, geom, "v")
+    if not _on_cuda(v):
+        return residual_plain(v, None, problem, geom)
+    return _launch_residual(v, None, problem, geom, "residual_zero_f")
 
 
 def residual_restrict(

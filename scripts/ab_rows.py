@@ -16,6 +16,14 @@ A ROW is
             outputs on seeded inputs, and the launches by fine level
             (`transfer.launches_by_fine`) of one step of the 129^3, 257^3
             and 513^3 f32 rows, the FAS 257^3 row and the two 3D presets;
+  residual  row 27 (`transfer.residual`) timed graph-replayed on every
+            level of the 513^3 path and of FAS 257^3 (512^3 ... 2^3), a
+            non-cubic and a non-power-of-two level, with f and f-less as
+            FAS's coarse right side takes it (`transfer.residual_zero_f`
+            where the side has it, else the residual of a zeros_like f,
+            the fill included), the SHA-256 of their outputs on seeded
+            inputs, and the residual launches by level of one FAS 257^3
+            step (`transfer.launches_by_fine`);
   varcoef   `chip_smoke.phase_kernels_stencil(torch)` then
             `chip_smoke.phase_varcoef(torch)`: the varcoef2d 1025^2
             Galerkin row (its gate, the plan's launches, ms a step, the
@@ -81,6 +89,9 @@ in the order PARENT, CHANGE, CHANGE, PARENT, and prints one `AB` JSON line
 a row (its summary, launch counts and the result's SHA-256).  Then one
 line a row: whether every side's result is bitwise the first parent
 run's, and the mean of each side for every number in the summaries.
+Every `AB` line and every row's line also go to
+chiprun_out/ab_rows.jsonl, whole, for runs whose printed output is kept
+only in part.
 Exits 1 if any side failed or a result differs.  Imports nothing of JAX;
 needs a CUDA card.
 """
@@ -368,6 +379,46 @@ def transfers_row():
     return {}, {"ms": ms, "launches_by_fine": by_path}, digest
 
 
+def residual_row():
+    import numpy as np
+    from pde_multigrid_tpu_torch import MultigridSolver, Poisson3D
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.ops.cuda import transfer as T
+
+    prob = Poisson3D()
+    rng = np.random.default_rng(2060)
+    zero_f = getattr(T, "residual_zero_f", None)
+    ms, outs = {}, []
+    shapes = [(n,) * 3 for n in (512, 256, 128, 64, 32, 16, 8, 4, 2)]
+    for shape in shapes + [(64, 32, 128), (24, 12, 20)]:
+        g = build_geometries(tuple(n + 1 for n in shape), ((0.0, 1.0),) * 3,
+                             1, wrap=True)[0]
+        v = torch.tensor((rng.standard_normal(shape) * wrap_interior(shape))
+                         .astype(np.float32), device="cuda")
+        f = torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device="cuda")
+        fless = ((lambda: T.residual(v, torch.zeros_like(v), prob, g))
+                 if zero_f is None else (lambda: zero_f(v, prob, g)))
+        tag = "x".join(map(str, shape))
+        reps = {512: 5, 256: 10}.get(shape[0], 50)
+        for name, fn in (("f", lambda: T.residual(v, f, prob, g)),
+                         ("f_less", fless)):
+            outs.append(fn())
+            ms[f"{name} {tag}"] = c.device_ms(torch, fn, reps)
+        del v, f
+        torch.cuda.empty_cache()
+    solver = MultigridSolver(prob, c.FAS_N, c._fas_cfg(), device="cuda")
+    T.reset_launches()
+    solver.solve()
+    torch.cuda.synchronize()
+    by_level = {f"{k} {s[0]}x{s[1]}x{s[2]}": x
+                for (k, s), x in sorted(T.launches_by_fine.items())
+                if k.startswith("residual") and k != "residual_restrict"}
+    counts = {k: T.launches[k] for k in T.launches if k.startswith(
+        "residual") and k != "residual_restrict"}
+    return counts, {"ms": ms, "fas257_by_level": by_level}, sha(*outs)
+
+
 def blocked_row():
     import os
     import numpy as np
@@ -412,6 +463,8 @@ for row in sys.argv[2:]:
         digest = sha(v)
     elif row == "transfers":
         counts, s, digest = transfers_row()
+    elif row == "residual":
+        counts, s, digest = residual_row()
     elif row == "varcoef":
         legs = c.phase_kernels_stencil(torch)
         counts, s, v = c.phase_varcoef(torch)
@@ -471,6 +524,15 @@ for row in sys.argv[2:]:
 """
 
 
+LOG = os.path.join("chiprun_out", "ab_rows.jsonl")
+
+
+def keep(line: str) -> None:
+    os.makedirs(os.path.dirname(LOG), exist_ok=True)
+    with open(LOG, "a") as fh:
+        fh.write(line + "\n")
+
+
 def run_side(path: str, label: str, rows: list[str]) -> dict:
     proc = subprocess.run([sys.executable, "-c", SIDE, label, *rows],
                           cwd=path, capture_output=True, text=True)
@@ -481,6 +543,7 @@ def run_side(path: str, label: str, rows: list[str]) -> dict:
             rec = json.loads(ln[3:])
             got[rec["row"]] = rec
             print(ln)
+            keep(ln[3:])
         else:
             print(f"  [{label}] {ln}"[:600])
     if proc.returncode != 0 or len(got) != len(rows):
@@ -516,11 +579,13 @@ def main() -> int:
         ok &= all(same.values())
         nums = {lb: numbers(r[row]["summary"]) for lb, r in runs.items()}
         keys = [k for k in nums["P1"] if all(k in n for n in nums.values())]
-        print(json.dumps({
+        line = json.dumps({
             "row": row, "bitwise_vs_P1": same, "sha256_P1": ref,
             "mean": {k: {s: sum(n[k] for lb, n in nums.items()
                                 if lb[0] == s) / 2 for s in "PC"}
-                     for k in keys}}))
+                     for k in keys}})
+        print(line)
+        keep(line)
     return 0 if ok else 1
 
 

@@ -69,6 +69,7 @@ def _struct_name(t):
     ("slab2d.cu", "HJBSlab", SL.HJBSlabLayout),
     ("transfer.cu", "RestrictLayout", TR.RestrictLayout),
     ("transfer.cu", "ProlongLayout", TR.ProlongLayout),
+    ("transfer.cu", "ResidualLayout", TR.ResidualLayout),
 ])
 def test_ctypes_struct_mirrors_the_c_struct(source, struct, cls):
     assert _py_fields(cls) == _c_fields(source, struct)
