@@ -2,6 +2,13 @@
 """On-card smoke check of the PyTorch/CUDA port (pde_multigrid_tpu_torch).
 
     python3 chip_smoke.py            # from the root of a checkout, one GPU
+    python3 chip_smoke.py PHASE ...  # the card, the build and these alone
+
+With arguments it runs only the named phases, each a `phase_PHASE` that
+takes the torch module alone (such as `kernels_line`, `subtree_mu2`,
+`anis3d`, `wcycle_cli`), and ends with one JSON line of their results
+and tables, written also to chiprun_out/chip_smoke_phases.json; it prints
+no result line of the whole check.
 
 Phases, in order; any failure exits non-zero without the final result line:
 
@@ -261,6 +268,26 @@ Phases, in order; any failure exits non-zero without the final result line:
      schedule's launches (`reduced_launches`; no row 16 chunk), eager and
      graph ms per step, busy ms by kernel and relax ms by level.
 
+ 16. line relaxation and W-cycles: after the fused subtree (phase 3),
+     row 22's mu = 2 form bitwise its plain version at the 64^3 and 32^3
+     roots, nu = (1, 1), (2, 3), with and without the root's relax (mu =
+     3 at 32^3), timed at nu = 2 and 100 beside the V-cycle; the zebra
+     line kernel (zebra_line.cu, no Pallas original) bitwise its plain
+     version (relax_zebra_line on the card) at 1, 2 and 16 sweeps on
+     every relaxed level of the anis3d row along x (257^3 ... 17^3), a
+     65^3 level along y and z and a 2D 1025^2 level along both axes, a
+     half-sweep of each
+     colour timed beside the plain one and the bound; after the 3D
+     presets, the bench's anis3d row: 257^3 on a domain squashed 20x
+     along x, FMG(2, 16, 16), mu = 2, line-0, exact coarsest, f32,
+     through `MultigridSolver.solve()` on "cuda": error_linf < 50 h^2,
+     exactly the schedule's 7296 line launches (114 relaxed visits) and
+     no other kernel, ms per step eager and as one CUDA graph,
+     DOF-updates/s, the busy split; at 129^3 the f32 solve against its
+     float64 solve; then `--n 129 --kind fmg --mu 2` through the CLI:
+     error_linf < 50 h^2, exactly the schedule's launches (16 subtree
+     W-cycles).
+
 Every float64 reference but phase 11's is a `MultigridSolver(...,
 dtype="float64", device="cuda")` solve: the plain tier on the card.  Each phase's seconds
 are printed as it ends.
@@ -468,6 +495,13 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/blocked3d.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:3439",
     ),
+    # no Pallas original: JAX runs line relaxation on its jnp tier
+    # (thomas_tridiagonal, relax_zebra_line); the anis3d row's relax
+    "zebra_line": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/zebra_line.cu",
+        "none: jnp pde_multigrid_tpu/ops/stencil.py:85 thomas_tridiagonal "
+        "+ :208 relax_zebra_line",
+    ),
 }
 # the levels (halves shapes) whose wavefront launches each record counts
 TIMESKEW_LEVELS = {"timeskew": (256, 128, 256), "timeskew_jb": (512, 256, 512)}
@@ -541,6 +575,13 @@ PATHS = {
     # 257^3 f32 with the wavefront off: row 19 on 256^3, the half-sweeps on
     # 128^3
     "f32_257_blocked": (*F32_3D, "blocked3d"),
+    # the bench's anis3d row: the line kernel on every relaxed level, the
+    # plain ops on the card for the rest (JAX's jnp tier)
+    "anis3d": ("zebra_line",),
+    # 129^3 FMG(2, 2, 2) W-cycles through the CLI: the presets' kernels,
+    # the fused subtree with mu = 2
+    "wcycle129": (*F32_3D, "subtree", "small_restrict",
+                  "small_prolong_blend"),
 }
 
 # per-sweep barrier floors of the whole-leg kernels, measured on the
@@ -2030,8 +2071,9 @@ def _counter_modules():
     from pde_multigrid_tpu_torch.ops.cuda import stencilop as SO
     from pde_multigrid_tpu_torch.ops.cuda import subtree as ST
     from pde_multigrid_tpu_torch.ops.cuda import transfer as T
+    from pde_multigrid_tpu_torch.ops.cuda import zebra_line as ZL
 
-    return (R, T, D, R2, RS, R1, SL, SO, ST, MB, RS3, RD, BL)
+    return (R, T, D, R2, RS, R1, SL, SO, ST, MB, RS3, RD, BL, ZL)
 
 
 def reset_counts() -> None:
@@ -3838,9 +3880,11 @@ F64_ERR = {}  # n -> the float64 FMG(2,100,100) error_linf of phase_reference
 
 def preset_launches(solver, T: int) -> dict:
     """The launches one FMG step of the solver's schedule implies, by
-    kernel: every V-cycle (nu0 from each level) launches one subtree
-    kernel, at its root or where it reaches the first fused level; a level
-    above that is visited nu0 (l + 1) times, each visit two relax legs
+    kernel: every cycle (nu0 from each level) launches one subtree kernel
+    at its root, or mu^(lf - l) of them where a cycle rooted at l reaches
+    the first fused level lf; a level l above lf is visited
+    nu0 (1 + mu + ... + mu^l) times (nu0 (l + 1) for V-cycles), each
+    visit two relax legs
     (the wavefront's ceil(nu / T) launches or 2 nu half-sweeps per leg, a
     split of v and of f and a merge per leg) and one residual_restrict and
     one prolong_blend ('add') to the level below; the FMG f-cascade
@@ -3853,12 +3897,14 @@ def preset_launches(solver, T: int) -> dict:
     geoms = solver.geoms
     fused = solver.program.kernels._sub_v
     lf = next(l for l, fn in enumerate(fused) if fn is not None)
-    want = {"subtree": cyc.nu0 * len(geoms), "split": 0, "merge": 0,
+    want = {"subtree": cyc.nu0 * (len(geoms) - lf + sum(
+                cyc.mu ** (lf - l) for l in range(lf))),
+            "split": 0, "merge": 0,
             "half_sweep": 0, "timeskew": 0, "residual_restrict": 0,
             "prolong_blend": 0, "small_restrict": 0,
             "small_prolong_blend": 0, "residual": 2}
     for l in range(lf):
-        visits = cyc.nu0 * (l + 1)
+        visits = cyc.nu0 * sum(cyc.mu ** (l - s) for s in range(l + 1))
         if R.timeskew_plan(geoms[l]):
             want["timeskew"] += visits * sum(-(-nu // T)
                                              for nu in (cyc.nu1, cyc.nu2))
@@ -4965,6 +5011,359 @@ def phase_sharded2d(torch, sum_un, v_un):
     return counts, summary, _sha_logical(r1.v, n)
 
 
+# the bench's anis3d row (bench.py:397-433): Poisson(3) on a domain
+# squashed 20x along x, FMG(2, 16, 16) W-cycles (mu = 2) with zebra lines
+# along x (line-0), the exact coarsest level (9^3, the dense inverse), f32
+ANIS_DOMAIN = ((0.0, 0.05), (0.0, 1.0), (0.0, 1.0))
+ANIS_N = 257
+ANIS_NUS = (2, 16, 16)
+# the line kernel's levels: (shape, domain, line axis); every relaxed level
+# of the anis3d row along x, 257^3 ... 17^3 (17^3 the one 3D layout with
+# two columns of lines a CTA), a 65^3 level along y and z, and a 2D level
+# along both axes; each bitwise its plain version at LINE_SWEEPS
+LINE_LEVELS = (*(((n,) * 3, ANIS_DOMAIN, 0) for n in (257, 129, 65, 33, 17)),
+               ((65,) * 3, ANIS_DOMAIN, 1), ((65,) * 3, ANIS_DOMAIN, 2),
+               ((1025, 1025), ANIS_DOMAIN[:2], 0),
+               ((1025, 1025), ANIS_DOMAIN[:2], 1))
+LINE_SWEEPS = (1, 2, 16)
+# the anis3d 129^3 f32 solve against its float64 solve: float32 ulp of
+# max|u| (17 measured on the H100, PR 25's first run)
+ANIS_F32_ULPS = 64
+# a half-sweep by level and axis: kernel and plain ms, its bound
+LINE_AB = {}
+# row 22's W-cycle (mu = 2) beside its V-cycle, ms a call by root and nu
+WCYCLE_AB = {}
+
+
+def _line_cost(p, g) -> tuple:
+    """(bytes, operations) of one zebra half-sweep: v read once and f read
+    on the colour's lines, the colour's interior points of v written;
+    about 12 float operations a point of the colour's lines (the d terms,
+    the blend into d, the two recurrences, the blend into v)."""
+    n = 1
+    for d in g.padded_shape:
+        n *= d
+    lines = p.n_zeb_lines * p.n_thr_lines
+    inter = lines * (p.row_hi - p.row_lo + 1)
+    return 4 * n + 4 * lines * p.n_line + 4 * inter, 12 * lines * p.n_line
+
+
+def phase_kernels_line(torch):
+    """The zebra line kernel (csrc/zebra_line.cu) bitwise (torch.equal)
+    against its plain version (`relax_zebra_line` on the card, float32) on
+    LINE_LEVELS at LINE_SWEEPS sweeps from random v and f; each level's
+    half-sweep of each colour timed (graph-replayed) beside the plain
+    half-sweep's eager time (a few thousand PyTorch operations with a few
+    host-to-device copies of the line's constants: not captured; its masks
+    made once before) and its byte bound.  Returns {"zebra_line":
+    the 257^3 line-0 half-sweep's record}."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.models import Poisson
+    from pde_multigrid_tpu_torch.ops.cuda import zebra_line as ZL
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2045)
+    out, max_err = {}, 0.0
+    for shape, dom, axis in LINE_LEVELS:
+        g = build_geometries(shape, dom, 1)[0]
+        prob = Poisson(len(shape), dom)
+        plan = ZL.LinePlan(prob, g, axis, dev)
+        v0 = torch.tensor(rng.standard_normal(g.padded_shape).astype(
+            np.float32), device=dev)
+        f = torch.tensor(rng.standard_normal(g.padded_shape).astype(
+            np.float32), device=dev)
+        tag = f"zebra_line {shape} line-{axis}"
+        for ns in LINE_SWEEPS:
+            k = ZL.zebra_relax(v0.clone(), f, ns, plan)
+            p = plan.plain.relax(v0, f, ns)
+            err = _max_err(torch, k, p)
+            max_err = max(max_err, err)
+            require(torch.equal(k, p), f"{tag}: {ns} sweeps not bitwise "
+                    f"the plain version, max diff {err!r}")
+            require(bool(torch.isfinite(k).all()), f"{tag}: non-finite")
+        ab = LINE_AB[f"{shape} line-{axis}"] = {}
+        for colour in (0, 1):
+            pc = plan.params[colour]
+            vk = v0.clone()
+            kms = device_ms(torch, lambda: ZL.zebra_half_sweep(
+                vk, f, colour, plan), 20 if len(shape) == 3 else 5)
+            pms = time_ms(torch,
+                          lambda: plan.plain.half_sweep(v0, f, colour), 2)
+            nbytes, ops = _line_cost(pc, g)
+            ab[f"colour {colour}"] = {
+                "ms": kms, "plain_ms": pms, **bound(nbytes, ops),
+                "lines": pc.n_zeb_lines * pc.n_thr_lines,
+                "ctas": pc.ctas, "threads": pc.threads}
+            if shape == (ANIS_N,) * 3 and colour == 0:
+                out["zebra_line"] = {"max_abs_err": 0.0, "ms": kms,
+                                     "plain_ms": pms, **bound(nbytes, ops),
+                                     "library_ms": None}
+        log(f"kernel {tag}: bitwise its plain version at {LINE_SWEEPS} "
+            f"sweeps; a half-sweep, device ms (graph) vs the plain "
+            f"version's eager ms and the bound: {ab!r}")
+    out["zebra_line"]["max_abs_err"] = max_err
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_subtree_mu2(torch):
+    """Row 22's W-cycle form: the fused subtree (csrc/subtree.cu) with
+    mu = 2 bitwise its plain version (`subtree_vcycle_plain(mu=2)`) at the
+    64^3 and 32^3 roots of the 65^3 wrap hierarchy, nu = (1, 1), (2, 3),
+    the whole cycle and the correction alone, and mu = 3 at 32^3; the
+    64^3- and 32^3-rooted W-cycle timed at nu = (2, 2) and 100 beside the
+    V-cycle (mu = 1), the plain version at nu = (2, 2), into WCYCLE_AB
+    (with the 64^3 nu = 100 W-cycle's bound)."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.models import Poisson3D
+    from pde_multigrid_tpu_torch.ops.cuda import subtree as S
+
+    dev = torch.device("cuda")
+    prob = Poisson3D()
+    geoms = build_geometries((65,) * 3, prob.domain, wrap=True)
+    rng = np.random.default_rng(2046)
+    max_err = 0.0
+    for l in (0, 1):
+        sub = tuple(geoms[l:])
+        shp = sub[0].padded_shape
+        v = torch.tensor((rng.standard_normal(shp) * wrap_interior(shp))
+                         .astype(np.float32), device=dev)
+        f = torch.tensor(rng.standard_normal(shp).astype(np.float32),
+                         device=dev)
+        cases = [(1, 1, 2), (2, 3, 2)] + ([(1, 2, 3)] if l == 1 else [])
+        for nu1, nu2, mu in cases:
+            for wr in (True, False):
+                k = S.subtree_vcycle(v.clone(), f, prob, sub, nu1, nu2, wr,
+                                     mu)
+                p = S.subtree_vcycle_plain(v, f, prob, sub, nu1, nu2, wr,
+                                           mu)
+                err = _max_err(torch, k, p)
+                max_err = max(max_err, err)
+                require(torch.equal(k, p), f"subtree root {shp[0]}^3 nu = "
+                        f"({nu1}, {nu2}) mu = {mu} with_root_relax={wr}: "
+                        f"not bitwise the plain version, max diff {err!r}")
+        ab = WCYCLE_AB[f"{shp[0]}^3"] = {}
+        for nu in (2, 100):
+            for mu in (1, 2):
+                vk = v.clone()
+                ab[f"nu={nu} mu={mu}"] = device_ms(
+                    torch, lambda: S.subtree_vcycle(vk, f, prob, sub, nu, nu,
+                                                    True, mu), 5)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        S.subtree_vcycle_plain(v, f, prob, sub, 2, 2, True, 2)
+        e1.record()
+        e1.synchronize()
+        ab["plain nu=2 mu=2"] = e0.elapsed_time(e1)
+        log(f"kernel subtree mu=2 (root {shp[0]}^3): bitwise the plain "
+            f"version at (nu1, nu2, mu) {cases}, with and without the "
+            f"root's relax; device ms a call {ab!r}")
+        if l == 0:
+            nbytes, ops = _subtree_mu_cost(sub, 100, 100, 2)
+            ab["nu=100 mu=2 bound"] = bound(nbytes, ops)
+    WCYCLE_AB["max_abs_err"] = max_err
+    torch.cuda.synchronize()
+
+
+def _subtree_mu_cost(geoms, nu1: int, nu2: int, mu: int) -> tuple:
+    """(bytes, operations) of a fused cycle with mu visits: the root's v
+    read and written and its f read once; 13 operations an updated point
+    and sweep, level k relaxed in mu^k visits of nu1 + nu2 sweeps."""
+    n0 = 1
+    for d in geoms[0].padded_shape:
+        n0 *= d
+    ops = sum(13 * updated_points(g.padded_shape) * (nu1 + nu2) * mu ** k
+              for k, g in enumerate(geoms))
+    return 12 * n0, ops
+
+
+def line_launches(solver) -> int:
+    """zebra_line launches of one FMG step of the solver's schedule: level
+    l (relaxed) is visited nu0 (1 + mu + ... + mu^l) times (nu0 cycles
+    from each level at or above it, each reaching it mu^(l - s) times),
+    each visit nu1 + nu2 sweeps of one launch a colour with lines."""
+    cyc = solver.config.cycle
+    total = 0
+    for l, plan in enumerate(solver.program.kernels.plans):
+        if plan is not None:
+            visits = cyc.nu0 * sum(cyc.mu ** (l - s) for s in range(l + 1))
+            total += visits * plan.launches(cyc.nu1 + cyc.nu2)
+    return total
+
+
+def _anis_solver(n: int, dtype: str = "float32"):
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        MultigridSolver,
+        Poisson,
+        SolverConfig,
+    )
+
+    cyc = CycleConfig("fmg", *ANIS_NUS, mu=2, smoother="line-0",
+                      coarsest="exact")
+    return MultigridSolver(Poisson(3, ANIS_DOMAIN), n,
+                           SolverConfig(cycle=cyc, dtype=dtype),
+                           device="cuda")
+
+
+def phase_anis3d(torch):
+    """The bench's anis3d row through `MultigridSolver(...,
+    device="cuda")`, as bench.py:397-433 builds it: 257^3 on the squashed
+    domain, FMG(2, 16, 16), mu = 2, line-0, exact coarsest, f32; the line
+    kernel's tier (LineKernels: the zebra kernel on 257^3 ... 17^3, the
+    plain ops on the card).  error_linf < 50 h^2 with h the largest
+    spacing (bench.py:714-733), finite residuals, exactly `line_launches`
+    zebra_line launches and no other kernel, the schedule's relaxed visits
+    and ms per step eager and as one CUDA graph, DOF-updates/s, the
+    profiler's busy time split into the line kernel and plain ops.  Then
+    129^3: the f32 solve against the float64 solve of the same schedule
+    (the plain tier on the card, its Thomas scans a Python loop): both
+    under 50 h^2, and since the discretization error there (2.5e-8)
+    lies under float32's resolution of the solution, the f32 solution
+    held to the float32 floor: max|v32 - v64| and its error_linf's excess
+    over float64's within ANIS_F32_ULPS ulp of max|u|.  Returns (launch
+    counts of the 257^3 solve, summary)."""
+    from pde_multigrid_tpu_torch.utils.updates import count_smoother_updates
+
+    from pde_multigrid_tpu_torch.ops.cuda.zebra_line import LineKernels
+
+    solver = _anis_solver(ANIS_N)
+    require(isinstance(solver.program.kernels, LineKernels),
+            f"anis3d: tier {type(solver.program.kernels).__name__}")
+    want = line_launches(solver)
+    levels = solver.fresh_levels()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(levels)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    h = max(solver.geoms[0].spacing)
+    tag = f"anis3d {ANIS_N}^3"
+    cyc = solver.config.cycle
+    visits = [cyc.nu0 * sum(cyc.mu ** (l - s) for s in range(l + 1))
+              for l in range(len(solver.geoms) - 1)]
+    log(f"{tag}: levels {[g.padded_shape for g in solver.geoms]}, relaxed "
+        f"visits by level {visits} ({sum(visits)}), error_linf "
+        f"{res.error_linf!r} (limit 50 h^2 = {50 * h * h!r}), residual_l2 "
+        f"{res.residual_l2!r}, first solve {wall!r} s, launches "
+        f"{ {k: c for k, c in counts.items() if c} }")
+    _check_solve(torch, tag, res, solver, 50 * h * h, "anis3d",
+                 {"zebra_line": want})
+    summary = {"row": "anis3d", "n": ANIS_N, "nus": list(ANIS_NUS), "mu": 2,
+               "smoother": "line-0",
+               "levels": [g.padded_shape for g in solver.geoms],
+               "relaxed_visits": visits, "zebra_line_launches": want,
+               "error_linf": res.error_linf,
+               "residual_l2": res.residual_l2}
+    summary.update(time_step(torch, tag, solver, levels, 3, 1))
+    busy = busy_split_ms(torch, lambda: solver.program.solve_step(levels),
+                         {"zebra_line": "zebra_line_kernel"})
+    summary["busy_ms"] = busy
+    # the line kernel by level: a half-sweep (graph-replayed, the level's
+    # own v and f) beside the plain one (eager) and its bound, and times
+    # the level's launches a step
+    from pde_multigrid_tpu_torch.ops.cuda import zebra_line as ZL
+
+    by_level = {}
+    for l, plan in enumerate(solver.program.kernels.plans):
+        if plan is None:
+            continue
+        lv = levels[l]
+        vk = lv.v.clone()
+        ms = device_ms(torch, lambda: ZL.zebra_half_sweep(vk, lv.f, 0, plan),
+                       10)
+        pms = time_ms(torch,
+                      lambda: plan.plain.half_sweep(lv.v, lv.f, 0), 2)
+        n = visits[l] * plan.launches(cyc.nu1 + cyc.nu2)
+        by_level[plan.geom.padded_shape[0]] = {
+            "half_sweep_ms": ms, "plain_ms": pms,
+            **bound(*_line_cost(plan.params[0], plan.geom)),
+            "launches": n, "ms_a_step": ms * n}
+    summary["line_by_level"] = by_level
+    log(f"{tag}: device busy ms a step {busy!r}; the line kernel by level "
+        f"{by_level!r}")
+    shapes = [g.shape for g in solver.geoms]
+    require(summary["updates_per_step"] == count_smoother_updates(
+        shapes, "fmg", *ANIS_NUS, 2, "exact"), f"{tag}: update count")
+    del levels, res
+    # 129^3: f32 against float64
+    s32, s64 = _anis_solver(129), _anis_solver(129, "float64")
+    r32 = s32.solve()
+    t0 = time.perf_counter()
+    r64 = s64.solve()
+    t64 = time.perf_counter() - t0
+    dv = float(torch.max(torch.abs(r32.v.double() - r64.v)))
+    h = max(s32.geoms[0].spacing)
+    floor = ANIS_F32_ULPS * 2.0 ** -23 * float(torch.max(torch.abs(r64.v)))
+    log(f"anis3d 129^3: f32 error_linf {r32.error_linf!r}, float64 "
+        f"{r64.error_linf!r} (plain tier on the card, {t64:.1f} s), "
+        f"max|v32 - v64| {dv!r} (the float32 floor, {ANIS_F32_ULPS} ulp "
+        f"of max|u|: {floor!r}); limit 50 h^2 = {50 * h * h!r}")
+    require(r32.error_linf < 50 * h * h and r64.error_linf < 50 * h * h,
+            "anis3d 129^3: error_linf over 50 h^2")
+    require(dv <= floor and r32.error_linf <= r64.error_linf + floor,
+            "anis3d 129^3: f32 off its float64 solve by more than the "
+            "float32 floor")
+    summary["f64_129"] = {"error_linf_f32": r32.error_linf,
+                          "error_linf_f64": r64.error_linf,
+                          "max_dv": dv, "floor": floor, "f64_s": t64}
+    return counts, summary
+
+
+def phase_wcycle_cli(torch):
+    """`python -m pde_multigrid_tpu_torch --n 129 --kind fmg --mu 2` in
+    process on "cuda": 3D wrap Poisson, FMG(2, 2, 2) W-cycles relaxed to
+    2^3, every cycle rooted at 64^3 or below one launch of the fused
+    subtree with mu = 2 inside, the 128^3 cycles calling it twice each:
+    error_linf < 50 h^2, exactly the schedule's launches
+    (`preset_launches` with mu) and no other kernel.  Returns (launch
+    counts, summary)."""
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        MultigridSolver,
+        Poisson3D,
+        SolverConfig,
+    )
+    from pde_multigrid_tpu_torch.__main__ import main as cli_main
+    from pde_multigrid_tpu_torch.ops.cuda import relax as R
+
+    n = 129
+    solver = MultigridSolver(Poisson3D(), n, SolverConfig(
+        cycle=CycleConfig("fmg", 2, 2, 2, 2)), device="cuda")
+    want = preset_launches(solver, R.TIMESKEW_T)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(buf), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cli_main(["--n", str(n), "--kind", "fmg", "--mu", "2", "--device",
+                  "cuda"])
+    counts = read_counts()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    h = 1.0 / (n - 1)
+    tag = f"poisson3d {n}^3 --kind fmg --mu 2"
+    log(f"{tag}: error_linf {out['error_linf']!r} (limit 50 h^2 = "
+        f"{50 * h * h!r}), residual_l2 {out['residual_l2']!r}, solve "
+        f"{out['wall_time_s']!r} s, launches "
+        f"{ {k: c for k, c in counts.items() if c} }, the schedule's {want}")
+    require(out["cycle"]["mu"] == 2, f"{tag}: cycle {out['cycle']}")
+    require(out["error_linf"] < 50 * h * h, f"{tag}: error_linf too large")
+    require(all(x == x and abs(x) != float("inf")
+                for x in out["residual_history"]) and not out["diverged"],
+            f"{tag}: non-finite residuals")
+    _check_counts(tag, "wcycle129", {k: want[k] for k in PATHS["wcycle129"]})
+    return counts, {"row": "wcycle_cli", "n": n, "mu": 2,
+                    "error_linf": out["error_linf"],
+                    "residual_l2": out["residual_l2"],
+                    "launches": want}
+
+
 PHASE_S = {}
 
 
@@ -4980,6 +5379,60 @@ def timed(name, fn, *args, **kw):
 
 
 T0 = time.perf_counter()
+
+
+def tables() -> dict:
+    """The timing tables the phases fill, and each phase's seconds."""
+    return {"barrier_floors": FLOORS, "timeskew_ab": TIMESKEW_AB,
+            "subtree_ab": SUBTREE_AB, "shard2d_ab": SHARD2D_AB,
+            "resident3d_ab": RESIDENT3D_AB, "fas_ab": FAS_AB,
+            "masked_ab": MASKED_AB,
+            "reduced_ab": REDUCED_AB, "blocked_ab": BLOCKED_AB,
+            "lyap2d_ab": LYAP2D_AB, "error_ab": ERROR_AB,
+            "hjb_leg_ms": HJB_LEG_MS, "hjb_slab_ms": HJB_SLAB_MS,
+            "merge2d_ab": MERGE2D_AB, "transfer_ab": TRANSFER_AB,
+            "residual_ab": RESIDUAL_AB,
+            "relax1d_leg_ms": RELAX1D_LEG_MS,
+            "line_ab": LINE_AB, "wcycle_ab": WCYCLE_AB,
+            "phase_s": PHASE_S}
+
+
+def run_phases(names) -> int:
+    """The card, the build, then each named phase alone (`phase_NAME`,
+    which must take the torch module alone); their results (tensors by
+    type name) and `tables()` as one JSON line, also written to
+    chiprun_out/chip_smoke_phases.json.  Non-zero on any failure."""
+    import inspect
+
+    sys.path.insert(0, HERE)
+    fns = {}
+    for name in names:
+        fn = globals().get(f"phase_{name}")
+        if fn is None or list(inspect.signature(fn).parameters) != ["torch"]:
+            print(f"chip_smoke: no phase {name!r} that takes torch alone",
+                  file=sys.stderr)
+            return 2
+        fns[name] = fn
+    out = {}
+    try:
+        import torch
+
+        phase_card(torch)
+        timed("build", phase_build)
+        for name, fn in fns.items():
+            out[name] = timed(name, fn, torch)
+    except Exception as e:
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    text = json.dumps({"phases": out, **tables()},
+                      default=lambda o: type(o).__name__)
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke_phases.json"),
+              "w") as fh:
+        fh.write(text)
+    log(text)
+    return 0
 
 
 def main() -> int:
@@ -5004,6 +5457,8 @@ def main() -> int:
                              torch))
         results.update(timed("kernels_subtree", phase_kernels_subtree,
                              torch))
+        timed("subtree_mu2", phase_subtree_mu2, torch)
+        results.update(timed("kernels_line", phase_kernels_line, torch))
         results.update(timed("kernels_resident3d", phase_kernels_resident3d,
                              torch))
         results.update(timed("kernels_blocked3d", phase_kernels_blocked3d,
@@ -5042,6 +5497,10 @@ def main() -> int:
             "preset3d", phase_preset3d, torch)
         summaries += [*spre, timed("preset3d", phase_subtree_identity,
                                    torch)]
+        counts["anis3d"], san = timed("anis3d", phase_anis3d, torch)
+        counts["wcycle129"], swc = timed("wcycle_cli", phase_wcycle_cli,
+                                         torch)
+        summaries += [san, swc]
         counts["fas257"], sfas = timed("fas3d_257", phase_fas3d_257, torch)
         summaries.append(sfas)
         counts["lyapunov"], sly, vly = timed("lyapunov", phase_lyapunov,
@@ -5131,7 +5590,7 @@ def main() -> int:
                         "mixed_257", "f32", "f32_257", "f32_513",
                         "preset129", "fas257",
                         "sharded257", "sharded_lyap", "lyapunov_reduced",
-                        "f32_257_blocked")
+                        "f32_257_blocked", "anis3d")
             if name in PATHS[p])
 
     kernels = [
@@ -5141,18 +5600,7 @@ def main() -> int:
         for name, (src, rep) in KERNELS.items()
     ]
     log(f"chip_smoke: {time.perf_counter() - T0:.1f} s")
-    log(json.dumps({"card": card, "main_path": summaries,
-                    "barrier_floors": FLOORS, "timeskew_ab": TIMESKEW_AB,
-                    "subtree_ab": SUBTREE_AB, "shard2d_ab": SHARD2D_AB,
-                    "resident3d_ab": RESIDENT3D_AB, "fas_ab": FAS_AB,
-                    "masked_ab": MASKED_AB,
-                    "reduced_ab": REDUCED_AB, "blocked_ab": BLOCKED_AB,
-                    "lyap2d_ab": LYAP2D_AB, "error_ab": ERROR_AB,
-                    "hjb_leg_ms": HJB_LEG_MS, "hjb_slab_ms": HJB_SLAB_MS,
-                    "merge2d_ab": MERGE2D_AB, "transfer_ab": TRANSFER_AB,
-                    "residual_ab": RESIDUAL_AB,
-                    "relax1d_leg_ms": RELAX1D_LEG_MS,
-                    "phase_s": PHASE_S}))
+    log(json.dumps({"card": card, "main_path": summaries, **tables()}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -5163,4 +5611,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_phases(sys.argv[1:]) if sys.argv[1:] else main())

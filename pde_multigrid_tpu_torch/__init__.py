@@ -1,7 +1,8 @@
 """pde_multigrid_tpu_torch — the PyTorch/CUDA port of pde_multigrid_tpu.
 
-Full MultiGrid V-cycles with red-black Gauss-Seidel relaxation,
-full-weighting restriction and (bi/tri)linear prolongation for the 1D
+Full MultiGrid V- and W-cycles with red-black Gauss-Seidel (or damped
+Jacobi, or zebra line) relaxation, full-weighting restriction and
+(bi/tri)linear prolongation for the 1D
 ODE, the Poisson family, the 2D Lyapunov equation, the minimum-time
 HJB equation (nonlinear multigrid, FAS) and variable-coefficient
 diffusion (Galerkin coarse operators), on a torch device:

@@ -12,8 +12,9 @@ parameters:
 
 `--device` (cuda | cpu; default cuda) takes the place of `--backend`:
 "cuda" runs on the card (the hand-written kernels for `--smoother rbgs`,
-the plain tensor ops for `jacobi` and `exact`, as the JAX jnp tier), "cpu"
-the plain tensor tier; without CUDA the default raises.  Output: the same
+the line kernel for `line-K`, the plain tensor ops for `jacobi` and
+`exact`, as the JAX jnp tier), "cpu" the plain tensor tier; without CUDA
+the default raises.  `--kind w` with `--mu 2` runs W-cycles.  Output: the same
 one-line summary JSON as the JAX CLI, and the reference-style timing
 footer on stderr with the kernel tier that ran.
 
@@ -89,6 +90,15 @@ def build_problem(name: str, domain_hi: float | None):
     )
 
 
+def _smoother(name: str) -> str:
+    """--smoother's value: rbgs, jacobi, exact or line-K (K an axis)."""
+    if name in ("rbgs", "jacobi", "exact") or (
+            name.startswith("line-") and name[5:].isdigit()):
+        return name
+    raise argparse.ArgumentTypeError(
+        f"{name!r}: choose rbgs, jacobi, exact or line-K (K an axis)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="pde_multigrid_tpu_torch")
     ap.add_argument("--preset", choices=sorted(PRESETS), default=None)
@@ -99,14 +109,16 @@ def main(argv=None):
     )
     ap.add_argument("--n", type=int, default=129, help="points per axis (2^k+1)")
     ap.add_argument("--domain", type=float, default=None, help="domain upper bound")
-    ap.add_argument("--kind", choices=["v", "fmg"], default="fmg")
+    ap.add_argument("--kind", choices=["v", "w", "fmg"], default="fmg")
     ap.add_argument("--nu0", type=int, default=2)
     ap.add_argument("--nu1", type=int, default=2)
     ap.add_argument("--nu2", type=int, default=2)
-    ap.add_argument("--smoother", choices=["rbgs", "jacobi", "exact"],
-                    default="rbgs",
-                    help="red-black Gauss-Seidel | damped Jacobi | exact "
-                    "(the 1D direct scan)")
+    ap.add_argument("--mu", type=int, default=1,
+                    help="coarse visits a level (1: V-cycle, 2: W-cycle)")
+    ap.add_argument("--smoother", type=_smoother, default="rbgs",
+                    help="rbgs (red-black Gauss-Seidel) | jacobi (damped) "
+                    "| line-K (zebra lines along axis K) | exact (the 1D "
+                    "direct scan)")
     ap.add_argument(
         "--scheme",
         choices=["cs", "fas"],
@@ -169,7 +181,7 @@ def main(argv=None):
     problem = build_problem(args.problem, args.domain)
     cfg = SolverConfig(
         cycle=CycleConfig(
-            args.kind, args.nu0, args.nu1, args.nu2,
+            args.kind, args.nu0, args.nu1, args.nu2, args.mu,
             smoother=args.smoother, omega=args.omega,
             coarse_operator=args.coarse_operator, scheme=args.scheme,
             coarsest=args.coarsest,

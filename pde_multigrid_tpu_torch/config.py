@@ -1,14 +1,15 @@
 """Configuration dataclasses, copied field for field from
 `pde_multigrid_tpu.config` so that one set of values drives both packages.
 
-This port covers a part of the JAX package: the correction scheme and
-the full approximation scheme (FAS, for nonlinear problems) with V-cycles
-and FMG, rediscretized and Galerkin (RAP) coarse operators, the red-black
-Gauss-Seidel, damped Jacobi and exact (direct 1D scan) smoothers, float32
-and float64 storage and the bf16 defect-correction smoother
-(`precision="mixed"`).  Every option outside it (mu > 1, line smoothers)
-raises `NotImplementedError` here, at construction, naming the ROADMAP
-item that brings it; nothing is silently ignored.
+The port covers the JAX package's cycles: the correction scheme and the
+full approximation scheme (FAS, for nonlinear problems) with V-, W- (mu
+> 1) cycles and FMG, rediscretized and Galerkin (RAP) coarse operators,
+the red-black Gauss-Seidel, damped Jacobi, zebra line ("line-K") and
+exact (direct 1D scan) smoothers, float32 and float64 storage and the
+bf16 defect-correction smoother (`precision="mixed"`).  Where a tier
+cannot serve an option (a mesh with another smoother than rbgs, say), the
+tier raises at construction, naming the ROADMAP item that brings it;
+nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -19,19 +20,15 @@ from typing import Literal
 CycleKind = Literal["v", "w", "fmg"]
 
 
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to pde_multigrid_tpu_torch yet "
-        f"(ROADMAP.md {item})"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class CycleConfig:
     """Multigrid schedule parameters.
 
     nu0: V-cycles per FMG level; nu1/nu2: pre-/post-smoothing sweeps;
-    mu: recursion count at each level (1 = V-cycle).  `coarsest` is
+    mu: recursion count at each level (1 = V-cycle, 2 = W-cycle).
+    `smoother` is "rbgs", "jacobi" (damped by `omega`), "line-K" (zebra
+    line relaxation along axis K, for problems with a `line_system`) or
+    "exact" (problems with an `exact_solve`).  `coarsest` is
     "relax" (nu1+nu2 sweeps on the coarsest level) or "exact" (the
     fast-diagonalization direct solve, ops/fastdiag.py).
     """
@@ -81,13 +78,6 @@ class CycleConfig:
                 "FAS re-evaluates the nonlinear operator per level; "
                 "galerkin coarse operators are a linear-only concept"
             )
-        # -- outside the ported slice --------------------------------------
-        if self.smoother.startswith("line-"):
-            raise _not_in_slice(
-                f"smoother={self.smoother!r}", "queue 1 item 16"
-            )
-        if self.mu != 1:
-            raise _not_in_slice(f"mu={self.mu}", "queue 1 item 16")
 
 
 @dataclasses.dataclass(frozen=True)

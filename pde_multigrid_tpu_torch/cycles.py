@@ -1,20 +1,22 @@
-"""Cycle schedulers: V-cycle and Full MultiGrid in the correction scheme
-and the full approximation scheme (PyTorch port of
+"""Cycle schedulers: V-cycle, W/mu-cycle and Full MultiGrid in the
+correction scheme and the full approximation scheme (PyTorch port of
 `pde_multigrid_tpu.cycles`).
 
 Execution order matches the JAX package, which matches the reference:
 
   VCycle(l):   relax nu1; if not coarsest: r = f - L v; coarse.f = R r;
-               coarse.v = 0 (whole array); VCycle(l+1); e = P coarse.v;
-               v += e (interior); relax nu2.
+               coarse.v = 0 (whole array); VCycle(l+1) [x mu];
+               e = P coarse.v; v += e (interior); relax nu2.
   FAS(l):      relax nu1; if not coarsest: r = f - N v; v0c = inject v;
                coarse.f = R r + N_c(v0c) (interior); coarse.v = v0c;
-               FAS(l+1); v += P (coarse.v - v0c) (interior); relax nu2.
+               FAS(l+1) [x mu]; v += P (coarse.v - v0c) (interior);
+               relax nu2.
   FMG(l):      restrict f down to the coarsest; coarsest v interior = 0;
                then per level, coarsest->finest: nu0 VCycles, and prolong
                the solution (interior) up one level before the next.
 
-PyTorch runs eagerly: each op launches as the cycle reaches it.  The
+mu > 1 gives W-cycles; kind="w" runs `v_cycle`, as in JAX.  PyTorch
+runs eagerly: each op launches as the cycle reaches it.  The
 level list is updated in place — a level's `v`/`f` tensors are replaced
 or overwritten as the schedule goes — and the same list is returned.
 """
@@ -26,7 +28,7 @@ from typing import Any, Sequence
 import torch
 
 from pde_multigrid_tpu_torch.config import CycleConfig
-from pde_multigrid_tpu_torch.grid import Level, LevelGeometry
+from pde_multigrid_tpu_torch.grid import Level, LevelGeometry, base_aux
 from pde_multigrid_tpu_torch.ops import stencil
 
 Levels = list[Level]
@@ -39,28 +41,39 @@ class TorchKernels:
     CUDA tier (`ops.cuda.dispatch.CudaKernels`) is held against.
 
     `smoother` selects the relaxation as `JnpKernels.relax` does:
-    "rbgs" (red-black Gauss-Seidel), "jacobi" (damped by `omega`) or
-    "exact" (the problem's direct `exact_solve`)."""
+    "rbgs" (red-black Gauss-Seidel), "jacobi" (damped by `omega`),
+    "line-K" (zebra line relaxation along axis K, by the problem's
+    `line_system`: a level's `ZebraLines` made at its first relax) or "exact"
+    (the problem's direct `exact_solve`)."""
 
     def __init__(self, problem, geoms: Sequence[LevelGeometry],
                  smoother: str = "rbgs", omega: float = 1.0):
-        if smoother.startswith("line-"):
-            raise NotImplementedError(
-                "line relaxation is not ported yet (ROADMAP.md queue 1 "
-                "item 16)"
-            )
         if smoother == "exact" and not hasattr(problem, "exact_solve"):
             raise ValueError(f"problem {problem.name} has no exact_solve")
+        if smoother.startswith("line-") and not hasattr(problem,
+                                                        "line_system"):
+            raise ValueError(
+                f"problem {problem.name} has no line_system; line "
+                "relaxation unavailable"
+            )
         self.problem = problem
         self.geoms = tuple(geoms)
         self.smoother = smoother
         self.omega = omega
+        self._lines: dict[tuple, ZebraLines] = {}
 
     def relax(self, l: int, v, f, aux, nsweeps: int, f_zero: bool = False):
         # f_zero: statically-known-zero RHS hint; the plain tier ignores it
         g = self.geoms[l]
         if self.smoother == "exact":
             return self.problem.exact_solve(v, f, g, aux)
+        if self.smoother.startswith("line-"):
+            key = (l, v.dtype, v.device)
+            if key not in self._lines:
+                self._lines[key] = ZebraLines(
+                    self.problem, g, int(self.smoother[5:]), v.dtype,
+                    v.device)
+            return self._lines[key].relax(v, f, nsweeps)
         upd = lambda v_, f_: self.problem.relax_update(v_, f_, g, aux)  # noqa: E731
         if self.smoother == "jacobi":
             return stencil.relax_jacobi(
@@ -171,7 +184,9 @@ class CycleProgram:
         self.problem = problem
         self.geoms = tuple(geoms)
         self.config = config
-        self.kernels = kernels or TorchKernels(problem, geoms)
+        self.kernels = kernels or TorchKernels(
+            problem, geoms, config.smoother, config.omega
+        )
         self._rhs_zero = bool(getattr(problem, "rhs_is_zero", False))
         self._coarse_solvers: list[Any] = [None] * len(self.geoms)
         if config.coarsest == "exact":
@@ -249,7 +264,8 @@ class CycleProgram:
             # zero the whole coarse error vector, boundary included
             # (in place: the old coarse v is dead)
             coarse.v = self.kernels.zero_v(l + 1, coarse.v)
-            levels = self.v_cycle(levels, l + 1, f_is_rhs=False)
+            for _ in range(cfg.mu):
+                levels = self.v_cycle(levels, l + 1, f_is_rhs=False)
             v = self._fused(
                 "prolong_blend", l, fine.v, coarse.v, fine.aux["m_int"],
                 "add",
@@ -295,7 +311,8 @@ class CycleProgram:
             self.kernels.v_written(l + 1)
             coarse.f = fc
             self.kernels.f_written(l + 1)
-            levels = self.fas_v_cycle(levels, l + 1)
+            for _ in range(cfg.mu):
+                levels = self.fas_v_cycle(levels, l + 1)
             # the coarse change, dense and current (so the hook's own
             # dense_v of the coarse level has nothing left to merge)
             coarse.v = self.kernels.dense_v(l + 1, coarse.v)
@@ -392,3 +409,40 @@ class CycleProgram:
         l2 = torch.sqrt(k.level_sum(l, r * r) / n_log)
         linf = k.level_max(l, torch.abs(r))
         return l2, linf
+
+
+def _zebra_masks(geom: LevelGeometry, zebra_axis: int, dtype,
+                 device="cpu"):
+    """(even, odd) parity masks along one axis, broadcastable: the two
+    colours of lines of a zebra sweep."""
+    n = geom.padded_shape[zebra_axis]
+    shape = [1] * geom.ndim
+    shape[zebra_axis] = n
+    par = (torch.arange(n, device=device) % 2).reshape(shape)
+    return (par == 0).to(dtype), (par == 1).to(dtype)
+
+
+class ZebraLines:
+    """One level's plain zebra line relaxation along `axis`
+    (`stencil.relax_zebra_line` with the problem's `line_system`): the
+    line builder, the interior mask and the two zebra masks, made once,
+    in `dtype` on `device`.  The plain tier relaxes with it, and the line
+    kernel (`ops.cuda.zebra_line`) is held against it."""
+
+    def __init__(self, problem, geom: LevelGeometry, axis: int,
+                 dtype=torch.float32, device="cpu"):
+        self.axis, self.zebra_axis = axis, (axis + 1) % geom.ndim
+        self.build = problem.line_system(axis, geom)
+        self.m_int = base_aux(geom, dtype, device)["m_int"]
+        self.masks = _zebra_masks(geom, self.zebra_axis, dtype, device)
+
+    def relax(self, v, f, nsweeps: int):
+        """`nsweeps` zebra sweeps, even lines first; a new tensor."""
+        return stencil.relax_zebra_line(self.build, v, f, self.m_int,
+                                        self.axis, self.zebra_axis,
+                                        self.masks, nsweeps)
+
+    def half_sweep(self, v, f, colour: int):
+        """The colour-`colour` half of one sweep; a new tensor."""
+        return stencil.zebra_half_sweep(self.build, v, f, self.m_int,
+                                        self.axis, self.masks[colour])

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pde_multigrid_tpu_torch.grid import LevelGeometry
@@ -111,6 +112,48 @@ class Poisson(ProblemBase):
             offsets=tuple(offsets),
             coeffs=c.reshape((1,) * self.ndim + (len(offsets),)),
         )
+
+    # -- line relaxation ----------------------------------------------------
+
+    def line_rows(self, line_axis: int, geom: LevelGeometry):
+        """(a_rows, b_rows, c_rows, interior): the tridiagonal couplings of
+        a line along `line_axis` as float32 numpy vectors over its padded
+        extent, and which rows are interior equations (the others are
+        identity rows: a = c = 0, b = 1)."""
+        n_log = geom.shape[line_axis]
+        w = inv_h2(geom)
+        a_l = w[line_axis]
+        b_diag = -2.0 * sum(w)
+        rows = np.arange(geom.padded_shape[line_axis])
+        inter = (rows >= 1) & (rows <= n_log - 2)
+        a_rows = np.where(inter, a_l, 0.0).astype(np.float32)
+        b_rows = np.where(inter, b_diag, 1.0).astype(np.float32)
+        c_rows = np.where(inter, a_l, 0.0).astype(np.float32)
+        return a_rows, b_rows, c_rows, inter
+
+    def line_system(self, line_axis: int, geom: LevelGeometry):
+        """Tridiagonal system builder for exact line solves along
+        `line_axis` (the JAX `Poisson.line_system`): build(v, f) -> (a_rows,
+        b_rows, c_rows, d), the couplings as float32 numpy vectors, every
+        off-line neighbour term moved into d, in axis order; boundary and
+        padding rows are identity equations (d = v there)."""
+        a_rows, b_rows, c_rows, inter = self.line_rows(line_axis, geom)
+        w = inv_h2(geom)
+        bshape = [1] * geom.ndim
+        bshape[line_axis] = len(inter)
+        m_row = inter.astype(np.float32).reshape(bshape)
+
+        def build(v, f):
+            d = f
+            for ax, wa in enumerate(w):
+                if ax == line_axis:
+                    continue
+                d = d - (self.shift(v, ax, -1) + self.shift(v, ax, +1)) * wa
+            m = torch.from_numpy(m_row).to(dtype=v.dtype, device=v.device)
+            d = v + m * (d - v)  # identity rows
+            return a_rows, b_rows, c_rows, d
+
+        return build
 
     def separable_fastdiag(self, geom: LevelGeometry) -> bool:
         """The (2d+1)-point Laplacian is a Kronecker sum of per-axis 1D

@@ -132,6 +132,9 @@ SIGNATURES = {
     # fb) and a pointer to a host struct (resident3d.Resident3DParams)
     "pdemg_resident3d": (_P, _P, _P, _P, _P, _P),
     "pdemg_resident3d_clusters": (_P, _P),
+    # a zebra line half-sweep: v, f, the dp scratch, the per-row constants,
+    # a pointer to a host struct (zebra_line.ZebraLineParams) and ndim
+    "pdemg_zebra_line": (_P, _P, _P, _P, _P, _I, _P),
 }
 
 

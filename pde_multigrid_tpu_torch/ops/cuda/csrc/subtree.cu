@@ -10,11 +10,14 @@
 //
 //   vcycle(k): relax nu1; if k is not the coarsest: r = m_int (f - L v),
 //              f[k+1] = R r (full weighting, injection on the coarse
-//              boundary planes), v[k+1] = 0, vcycle(k + 1),
+//              boundary planes), v[k+1] = 0, vcycle(k + 1) mu times,
 //              v += m_int P v[k+1] (trilinear, periodic); relax nu2
 //
-// or, with with_root_relax = 0, the coarse-grid correction of the root
-// alone (subtree.py:_build(..., with_root_relax=False)).  A relax sweep is
+// (mu = 1 a V-cycle, 2 a W-cycle, at run time like nu: a launch takes
+// the V-cycle's two straight loops for mu = 1 and a walk of the levels
+// with a visit counter a level above), or, with
+// with_root_relax = 0, the coarse-grid correction of the root alone
+// (subtree.py:_build(..., with_root_relax=False)).  A relax sweep is
 // a red half-sweep (x + y + z even) then a black one, each point written
 // old + (upd - old) with upd = Poisson.split_update of its neighbour pair
 // sums, exactly the expression and operand order of relax.cu's
@@ -100,6 +103,7 @@ constexpr int kMaxDynSmem = kMaxSmem - kSyncBytes;
 struct SubtreeParams {
   int nlev;
   int nu1, nu2;
+  int mu;  // visits of each level below the root per correction
   int with_root_relax;
   int nctas;       // CTAs of the launch: one cluster of 8 or 16, or 1
   int threads;     // threads per CTA
@@ -236,27 +240,16 @@ __device__ __forceinline__ void prolong_add(const View& F, const View& C,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    subtree_kernel(float* vg, const float* fg,
-                   const __grid_constant__ SubtreeParams p) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ uint64_t bar[2];  // Halo::bar
-  const int rank = p.nctas > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  Halo halo = {smem + p.halo_off, p.halo_plane, bar, 0u,
-               (rank + p.nctas - 1) % p.nctas, (rank + 1) % p.nctas};
-  if (p.nctas > 1 && threadIdx.x == 0) halo_init(bar);
+// A V-cycle (mu = 1) as two straight loops: down, relax nu1 (the
+// coarsest: nu1 + nu2) and restrict the residual; up, prolong the coarse
+// error, add it and relax nu2.  From the first level CTA 0 holds alone,
+// the other CTAs wait at the cluster barrier before the prolongation back
+// into a split level.
+__device__ __forceinline__ void vcycle_walk(float* smem, float* vg,
+                                            const float* fg,
+                                            const SubtreeParams& p, int rank,
+                                            Halo& halo) {
   const int K = p.nlev;
-  const View root = view_of(p.lev[0], rank, smem, vg, fg);
-  const long long at0 = (long long)root.x0 << root.lyz;
-  root_copy(root, root.v, vg + at0, true);
-  if (!root.fdev) {
-    root_copy(root, root.f, const_cast<float*>(fg) + at0, true);
-  }
-  // every CTA loaded (and running, its barriers initialised) before any
-  // reads another's planes
-  level_sync(p.nctas);
-
-  // down: relax nu1 (the coarsest: nu1 + nu2), restrict the residual
   for (int k = 0; k < K; ++k) {
     const SubLevel& L = p.lev[k];
     if (L.nctas == 1 && rank != 0) break;  // CTA 0 alone from here down
@@ -270,11 +263,9 @@ __global__ void __launch_bounds__(kThreads)
       level_sync(LC.nctas);  // the coarse f and v written
     }
   }
-  // up: prolong the coarse error and add it, relax nu2
   for (int k = K - 2; k >= 0; --k) {
     const SubLevel& L = p.lev[k];
     if (L.nctas == 1 && rank != 0) continue;
-    // the other CTAs wait here while CTA 0 runs the levels it holds alone
     if (L.nctas > 1 && p.lev[k + 1].nctas == 1) cg::this_cluster().sync();
     const View w = view_of(L, rank, smem, vg, fg);
     prolong_add(w, view_of(p.lev[k + 1], rank, smem, vg, fg), rank);
@@ -282,6 +273,89 @@ __global__ void __launch_bounds__(kThreads)
     if (k > 0 || p.with_root_relax) {
       relax_level(smem, w, L, p.nu2, halo);
     }
+  }
+}
+
+// A W-cycle (mu > 1), walked by every CTA alike: a visit of level k
+// relaxes nu1 sweeps (the coarsest: nu1 + nu2), restricts the residual
+// into level k + 1 (its v zeroed) and visits it mu times, then prolongs
+// its error, adds it and relaxes nu2; the root is visited once.
+// visits[k] counts level k's visits of the current correction.  A CTA
+// other than 0 does nothing on the levels CTA 0 holds alone: it walks
+// them and waits at the cluster barrier before the prolongation back into
+// a split level.  With mu = 1 the walk is vcycle_walk's order; it is kept
+// apart because its loop state costs the V-cycle's relax legs registers
+// (a separate instantiation, chosen per launch).
+__device__ __forceinline__ void wcycle_walk(float* smem, float* vg,
+                                            const float* fg,
+                                            const SubtreeParams& p, int rank,
+                                            Halo& halo) {
+  const int K = p.nlev;
+  int visits[kMaxLevels];
+  int k = 0;
+  bool down = true;  // a visit of level k starts
+  for (;;) {
+    const SubLevel& L = p.lev[k];
+    const View w = view_of(L, rank, smem, vg, fg);
+    if (down) {
+      const bool mine = L.nctas > 1 || rank == 0;
+      if (mine && (k > 0 || p.with_root_relax)) {
+        relax_level(smem, w, L, k + 1 == K ? p.nu1 + p.nu2 : p.nu1, halo);
+      }
+      if (k + 1 < K) {
+        const SubLevel& LC = p.lev[k + 1];
+        if (mine) {
+          restrict_residual(w, L, view_of(LC, rank, smem, vg, fg), rank);
+          level_sync(LC.nctas);  // the coarse f and v written
+        }
+        visits[++k] = 0;
+        continue;
+      }
+      down = false;  // the coarsest level's visit is over
+    }
+    // level k's visit is over: visit it again, or go back up to k - 1
+    if (k == 0) break;
+    if (++visits[k] < p.mu) {
+      down = true;
+      continue;
+    }
+    --k;
+    const SubLevel& LF = p.lev[k];
+    // the other CTAs wait here while CTA 0 runs the levels it holds alone
+    if (LF.nctas > 1 && L.nctas == 1) cg::this_cluster().sync();
+    if (LF.nctas == 1 && rank != 0) continue;
+    const View wf = view_of(LF, rank, smem, vg, fg);
+    prolong_add(wf, w, rank);
+    level_sync(LF.nctas);
+    if (k > 0 || p.with_root_relax) {
+      relax_level(smem, wf, LF, p.nu2, halo);
+    }
+  }
+}
+
+template <bool W>
+__global__ void __launch_bounds__(kThreads)
+    subtree_kernel(float* vg, const float* fg,
+                   const __grid_constant__ SubtreeParams p) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint64_t bar[2];  // Halo::bar
+  const int rank = p.nctas > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  Halo halo = {smem + p.halo_off, p.halo_plane, bar, 0u,
+               (rank + p.nctas - 1) % p.nctas, (rank + 1) % p.nctas};
+  if (p.nctas > 1 && threadIdx.x == 0) halo_init(bar);
+  const View root = view_of(p.lev[0], rank, smem, vg, fg);
+  const long long at0 = (long long)root.x0 << root.lyz;
+  root_copy(root, root.v, vg + at0, true);
+  if (!root.fdev) {
+    root_copy(root, root.f, const_cast<float*>(fg) + at0, true);
+  }
+  // every CTA loaded (and running, its barriers initialised) before any
+  // reads another's planes
+  level_sync(p.nctas);
+  if constexpr (W) {
+    wcycle_walk(smem, vg, fg, p, rank, halo);
+  } else {
+    vcycle_walk(smem, vg, fg, p, rank, halo);
   }
   // each phase above ended with the level's barrier (a cluster barrier on
   // a split root): no CTA reads another's shared memory from here on, so
@@ -294,7 +368,7 @@ bool valid(const SubtreeParams& p) {
   if (p.nctas != 1 && p.nctas != 8 && p.nctas != 16) return false;
   if (p.threads < 32 || p.threads > kThreads || p.threads % 32) return false;
   if (p.smem_bytes < 0 || p.smem_bytes > kMaxDynSmem) return false;
-  if (p.nu1 < 0 || p.nu2 < 0) return false;
+  if (p.nu1 < 0 || p.nu2 < 0 || p.mu < 1) return false;
   if (p.with_root_relax != 0 && p.with_root_relax != 1) return false;
   if (p.lev[0].nctas != p.nctas) return false;  // a split root, or one CTA
   const int lc = p.nctas == 16 ? 4 : (p.nctas == 8 ? 3 : 0);
@@ -334,16 +408,27 @@ bool valid(const SubtreeParams& p) {
   return true;
 }
 
-// The kernel's attributes: the shared memory it may take, and clusters
+using Kernel = void (*)(float*, const float*, const SubtreeParams);
+
+// The launch's instantiation: the V-cycle's straight loops, or the walk.
+Kernel kernel_for(const SubtreeParams& p) {
+  return p.mu > 1 ? subtree_kernel<true> : subtree_kernel<false>;
+}
+
+// The kernels' attributes: the shared memory they may take, and clusters
 // past the portable 8 CTAs.  Once per process, outside any capture.
 cudaError_t opt_in() {
   static const cudaError_t status = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        subtree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxDynSmem);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(
-        subtree_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const Kernel kernels[2] = {subtree_kernel<false>, subtree_kernel<true>};
+    for (Kernel k : kernels) {
+      cudaError_t e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+      if (e != cudaSuccess) return e;
+      e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
   }();
   return status;
 }
@@ -372,7 +457,7 @@ int launch_subtree(float* v, const float* f, const SubtreeParams* p,
   cudaError_t e = opt_in();
   if (e != cudaSuccess) return (int)e;
   Launch l(*p, stream);
-  e = cudaLaunchKernelEx(&l.cfg, subtree_kernel, v, f, *p);
+  e = cudaLaunchKernelEx(&l.cfg, kernel_for(*p), v, f, *p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -382,7 +467,7 @@ int max_clusters(const SubtreeParams* p, int* clusters) {
   const cudaError_t e = opt_in();
   if (e != cudaSuccess) return (int)e;
   Launch l(*p, nullptr);
-  return (int)cudaOccupancyMaxActiveClusters(clusters, subtree_kernel,
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel_for(*p),
                                              &l.cfg);
 }
 

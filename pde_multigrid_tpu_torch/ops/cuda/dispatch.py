@@ -45,13 +45,14 @@ with the hand-written kernels.
   * the residual (residual norms, FAS's fine residual) on every 3D wrap
     level, and its f-less mode (`residual_zero_f`, FAS's coarse right
     side residual(v, 0), no zero f filled and read);
-  * the fused coarse-subtree V-cycle (`ops/cuda/subtree.py`), when the
+  * the fused coarse-subtree cycle (`ops/cuda/subtree.py`), when the
     tier is given the `CycleConfig`: planned once, at construction, by
     `subtree.plan_fused_cycles` (red-black Gauss-Seidel, the correction
-    scheme, the relaxed coarsest level, float32), and run through the
+    scheme, the relaxed coarsest level, float32, V- or W-cycles: the
+    cycle's mu goes into the kernel), and run through the
     `fused_vcycle` / `fused_correction` hooks, which return None where the
     plan has no kernel.  On the 3D presets every V-cycle rooted at 64^3
-    or below is one launch.  With `mixed` the fused roots stay fused: the
+    or below is one launch, and so is every W-cycle there.  With `mixed` the fused roots stay fused: the
     hook is consulted before any relax leg, and the kernel is float32.
 
 2D Lyapunov, padded storage (the JAX plan of `plan_split2d_raw`,

@@ -3,8 +3,9 @@
 
 Replaces the TPU kernel `pde_multigrid_tpu/ops/pallas/subtree.py` `_build`
 (planned by its `plan_fused_cycles`): one launch runs a whole V-cycle
-rooted at a small level, every deeper level held on chip, or only the
-coarse-grid correction of the root (`with_root_relax=False`).  In the
+(or, with mu > 1, a W-cycle: each correction visits the next level mu
+times) rooted at a small level, every deeper level held on chip, or only
+the coarse-grid correction of the root (`with_root_relax=False`).  In the
 correction scheme the levels below the root are temporaries of the
 V-cycle (their v is zeroed and their f overwritten before every use), so
 the kernel keeps them out of device memory altogether; `cycles.py`
@@ -81,8 +82,8 @@ class SubtreeParams(ctypes.Structure):
     """csrc/subtree.cu `SubtreeParams`."""
 
     _fields_ = [(n, ctypes.c_int) for n in
-                ("nlev", "nu1", "nu2", "with_root_relax", "nctas", "threads",
-                 "smem_bytes", "halo_off", "halo_plane")]
+                ("nlev", "nu1", "nu2", "mu", "with_root_relax", "nctas",
+                 "threads", "smem_bytes", "halo_off", "halo_plane")]
     _fields_ += [("lev", SubLevelParams * MAX_LEVELS)]
 
 
@@ -164,14 +165,15 @@ def layout(geoms, with_root_relax: bool, capacity: int | None = None,
 
 @functools.lru_cache(maxsize=None)
 def _params(geoms, nu1: int, nu2: int, with_root_relax: bool,
-            capacity: int, ctas: int = CLUSTER_CTAS) -> SubtreeParams:
+            capacity: int, ctas: int = CLUSTER_CTAS,
+            mu: int = 1) -> SubtreeParams:
     lay = layout(geoms, with_root_relax, capacity, ctas)
     if lay is None:
         raise ValueError(
             f"the subtree rooted at {geoms[0].padded_shape} does not fit "
             f"the kernel's shared memory ({capacity} B over "
             f"{CLUSTER_CTAS} CTAs)")
-    p = SubtreeParams(nlev=len(geoms), nu1=nu1, nu2=nu2,
+    p = SubtreeParams(nlev=len(geoms), nu1=nu1, nu2=nu2, mu=mu,
                       with_root_relax=int(with_root_relax),
                       nctas=lay["nctas"], threads=lay["threads"],
                       smem_bytes=lay["smem_bytes"], halo_off=lay["halo"][0],
@@ -238,17 +240,21 @@ def _relax_plain(v, f, problem, geom: LevelGeometry, nsweeps: int):
 
 
 def subtree_vcycle_plain(v, f, problem, geoms, nu1: int, nu2: int,
-                         with_root_relax: bool = True):
-    """The V-cycle rooted at geoms[0] (or, without `with_root_relax`, its
+                         with_root_relax: bool = True, mu: int = 1):
+    """The cycle rooted at geoms[0] (or, without `with_root_relax`, its
     coarse-grid correction alone) from the tier's plain versions, in the
-    order of JAX's `_build` (`vcyc`, `correction`, subtree.py:593-616).
-    In any float dtype; a new tensor, the inputs are not written."""
+    order of JAX's `_build` (`vcyc`, `correction`, subtree.py:593-616):
+    each correction visits the next level `mu` times (1: a V-cycle, 2: a
+    W-cycle) from cv = 0.  In any float dtype; a new tensor, the inputs
+    are not written."""
     geoms = tuple(geoms)
 
     def correction(k, v, f):
         cf = T.residual_restrict_plain(v, f, problem, geoms[k], geoms[k + 1],
                                        True)
-        cv = vcycle(k + 1, torch.zeros_like(cf), cf)
+        cv = torch.zeros_like(cf)
+        for _ in range(mu):
+            cv = vcycle(k + 1, cv, cf)
         return T.prolong_blend_plain(cv, v, "add")
 
     def vcycle(k, v, f):
@@ -269,13 +275,13 @@ def subtree_vcycle_plain(v, f, problem, geoms, nu1: int, nu2: int,
 
 def subtree_vcycle(v, f, problem, geoms, nu1: int, nu2: int,
                    with_root_relax: bool = True, mu: int = 1):
-    """One V-cycle rooted at geoms[0] (or its coarse-grid correction
-    alone) on the root's dense v and f, written into v in place; returns
-    v.  Every deeper level is a temporary of the call."""
-    if mu != 1:
-        raise NotImplementedError(
-            f"mu={mu} inside the fused V-cycle is not ported yet "
-            "(ROADMAP.md queue 2 item 13)")
+    """One cycle rooted at geoms[0] (or its coarse-grid correction alone)
+    on the root's dense v and f, each level below the root visited `mu`
+    times a correction (1: a V-cycle, 2: a W-cycle), written into v in
+    place; returns v.  Every deeper level is a temporary of the call."""
+    if mu < 1:
+        raise ValueError(f"mu={mu}: the fused cycle visits each coarser "
+                         "level at least once")
     geoms = tuple(geoms)
     if not all(g.wrap and g.ndim == 3 for g in geoms):
         raise ValueError("the subtree kernel serves 3D wrap levels only")
@@ -293,9 +299,10 @@ def subtree_vcycle(v, f, problem, geoms, nu1: int, nu2: int,
         raise ValueError(f"negative sweep counts {nu1}, {nu2}")
     if not _on_cuda(v, f):
         return v.copy_(subtree_vcycle_plain(v, f, problem, geoms, nu1, nu2,
-                                            with_root_relax))
+                                            with_root_relax, mu))
     _check_poisson(problem)
-    _launch(v, f, _params(geoms, nu1, nu2, bool(with_root_relax), CAPACITY))
+    _launch(v, f, _params(geoms, nu1, nu2, bool(with_root_relax), CAPACITY,
+                          mu=mu))
     return v
 
 
@@ -305,12 +312,13 @@ def subtree_vcycle(v, f, problem, geoms, nu1: int, nu2: int,
 def plan_fused_cycles(problem, geoms, cycle, dtype=torch.float32):
     """(vfns, cfns), each a per-level list, the counterpart of JAX's
     `plan_fused_cycles` (subtree.py:824): vfns[l](v, f) runs the whole
-    V-cycle rooted at level l, cfns[l](v, f) only its coarse-grid
-    correction (the caller relaxes), each updating v in place.  None where
-    no kernel is planned: a level whose subtree is not 3D wrap Poisson, a
-    cycle other than red-black Gauss-Seidel in the correction scheme with
-    mu = 1 and the relaxed coarsest level, another dtype than float32, or
-    a subtree the kernel's shared memory does not hold.  cfns[l] is
+    cycle (V or W: `cycle.mu` visits a level) rooted at level l, cfns[l](v,
+    f) only its coarse-grid correction (the caller relaxes), each updating
+    v in place.  None where no kernel is planned: a level whose subtree is
+    not 3D wrap Poisson, a cycle other than red-black Gauss-Seidel in the
+    correction scheme with mu >= 1 and the relaxed coarsest level, another
+    dtype than float32, or a subtree the kernel's shared memory does not
+    hold.  cfns[l] is
     planned where JAX's rule puts it: vfns[l] is None and vfns[l + 1] is
     set (the correction variant needs only the deeper levels on chip).
 
@@ -322,7 +330,7 @@ def plan_fused_cycles(problem, geoms, cycle, dtype=torch.float32):
     vfns: list = [None] * n
     cfns: list = [None] * n
     if (cycle is None or cycle.smoother != "rbgs" or cycle.scheme != "cs"
-            or cycle.coarsest != "relax" or cycle.mu != 1
+            or cycle.coarsest != "relax" or cycle.mu < 1
             or dtype != torch.float32):
         return vfns, cfns
     for l in range(n - 1, -1, -1):
@@ -332,10 +340,10 @@ def plan_fused_cycles(problem, geoms, cycle, dtype=torch.float32):
         if layout(sub, True) is not None:
             vfns[l] = functools.partial(
                 subtree_vcycle, problem=problem, geoms=sub, nu1=cycle.nu1,
-                nu2=cycle.nu2, with_root_relax=True)
+                nu2=cycle.nu2, with_root_relax=True, mu=cycle.mu)
         elif (l + 1 < n and vfns[l + 1] is not None
               and layout(sub, False) is not None):
             cfns[l] = functools.partial(
                 subtree_vcycle, problem=problem, geoms=sub, nu1=cycle.nu1,
-                nu2=cycle.nu2, with_root_relax=False)
+                nu2=cycle.nu2, with_root_relax=False, mu=cycle.mu)
     return vfns, cfns

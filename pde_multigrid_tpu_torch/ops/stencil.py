@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -54,6 +55,115 @@ def relax_jacobi(
     for _ in range(nsweeps):
         v.add_((omega * m_int) * (update_fn(v, f) - v))
     return v
+
+
+def thomas_coefficients(a_rows, b_rows, c_rows):
+    """(cp, alpha, beta), float64 numpy vectors: the coefficient half of
+    the Thomas recurrence for per-row constant couplings, in JAX's order
+
+        cp_i    = c_i / (b_i - a_i cp_{i-1})
+        alpha_i = -a_i / (b_i - a_i cp_{i-1})
+        beta_i  =  1   / (b_i - a_i cp_{i-1})
+
+    so that dp_i = alpha_i dp_{i-1} + beta_i d_i and x_i = dp_i -
+    cp_i x_{i+1}.  The line kernel (`ops/cuda/zebra_line.py`) takes them
+    cast to the working dtype."""
+    a64, b64, c64 = (np.asarray(r, np.float64) for r in (a_rows, b_rows,
+                                                         c_rows))
+    n = len(a64)
+    cp, alpha, beta = np.zeros(n), np.zeros(n), np.zeros(n)
+    cp_prev = 0.0
+    for i in range(n):
+        denom = b64[i] - a64[i] * cp_prev
+        cp[i] = c64[i] / denom
+        alpha[i] = -a64[i] / denom
+        beta[i] = 1.0 / denom
+        cp_prev = cp[i]
+    return cp, alpha, beta
+
+
+def thomas_tridiagonal(a_rows, b_rows, c_rows, d: Tensor, axis: int):
+    """Batched Thomas solve of tridiagonal systems along `axis`: every line
+    of `d` along it at once, a row a step.
+
+    a/b/c are per-row coefficient vectors (length d.shape[axis]); rows
+    with (a, b, c) = (0, 1, 0) are identity equations, which is how
+    Dirichlet boundaries and padding fold in.  Host (numpy) vectors, as
+    `line_system` gives them, take JAX's host branch: the coefficient
+    recurrence in float64 on the host (`thomas_coefficients`), cast to d's
+    dtype, and a device recurrence of one multiply-add a point and step,
+    dp_i = alpha_i dp_{i-1} + beta_i d_i, x_i = dp_i - cp_i x_{i+1}.  JAX
+    scans in blocks of 8 rows with identity padding rows (the same
+    values); here the rows run one at a time.  Tensor coefficients take
+    the device branch, the textbook recurrence with its two divides."""
+    d = torch.movedim(d, axis, 0)
+    n = d.shape[0]
+    out = torch.empty_like(d)
+    host = all(isinstance(r, np.ndarray) for r in (a_rows, b_rows, c_rows))
+    if host:
+        cp, alpha, beta = (
+            torch.from_numpy(c).to(dtype=d.dtype, device=d.device)
+            for c in thomas_coefficients(a_rows, b_rows, c_rows))
+        dp = torch.zeros_like(d[0])
+        for i in range(n):
+            dp = alpha[i] * dp + beta[i] * d[i]
+            out[i] = dp
+        x = torch.zeros_like(d[0])
+        for i in range(n - 1, -1, -1):
+            x = out[i] - cp[i] * x
+            out[i] = x
+        return torch.movedim(out, 0, axis)
+    a, b, c = (torch.as_tensor(r, dtype=d.dtype, device=d.device)
+               for r in (a_rows, b_rows, c_rows))
+    cps = torch.empty_like(d)
+    cp = dp = torch.zeros_like(d[0])
+    for i in range(n):
+        denom = b[i] - a[i] * cp
+        cp = c[i] / denom
+        dp = (d[i] - a[i] * dp) / denom
+        cps[i] = cp
+        out[i] = dp
+    x = torch.zeros_like(d[0])
+    for i in range(n - 1, -1, -1):
+        x = out[i] - cps[i] * x
+        out[i] = x
+    return torch.movedim(out, 0, axis)
+
+
+def relax_zebra_line(
+    line_system_fn,
+    v: Tensor,
+    f: Tensor,
+    m_int: Tensor,
+    line_axis: int,
+    zebra_axis: int,
+    zebra_masks: tuple[Tensor, Tensor],
+    nsweeps: int,
+) -> Tensor:
+    """`nsweeps` zebra line relaxation sweeps: whole lines along
+    `line_axis` solved exactly (`thomas_tridiagonal`), the even lines by
+    their parity along `zebra_axis` first, then the odd ones.
+    `line_system_fn(v, f) -> (a_rows, b_rows, c_rows, d)` builds the
+    tridiagonal system with every off-line neighbour term moved to the
+    right side, from the v of the half-sweep's start (so lines of one
+    colour that neighbour each other, along the third axis of a 3D level,
+    see each other's old values).  Returns a new tensor."""
+
+    for _ in range(nsweeps):
+        for m_zebra in zebra_masks:
+            v = zebra_half_sweep(line_system_fn, v, f, m_int, line_axis,
+                                 m_zebra)
+    return v
+
+
+def zebra_half_sweep(line_system_fn, v: Tensor, f: Tensor, m_int: Tensor,
+                     line_axis: int, m_zebra: Tensor) -> Tensor:
+    """One colour's half of a zebra sweep (`relax_zebra_line`): every line
+    solved from the same v, the colour's interior points blended in;
+    a new tensor."""
+    a_r, b_r, c_r, d = line_system_fn(v, f)
+    sol = thomas_tridiagonal(a_r, b_r, c_r, d, line_axis)
+    return v + (m_zebra * m_int) * (sol - v)
 
 
 def residual(

@@ -12,11 +12,13 @@ for "cpu"; without CUDA a "cuda" solver raises, it never carries on on the
 CPU.  The kernel tier follows the smoother and the dtype, as the JAX
 package's `_pick_kernels` does (`_pick_kernels` below): red-black
 Gauss-Seidel in float32 on "cuda" runs the hand-written CUDA kernels
-(`ops.cuda.dispatch.CudaKernels`); the "jacobi" and "exact" smoothers and
-float64 run the plain tensor tier (`cycles.TorchKernels`) on the solver's
-device, as JAX runs `JnpKernels` for them (its Pallas tier implements
-float32 RBGS only), so no kernel is asked for and skipped; on "cpu" the
-plain tier runs everything.  There is no fallback between the tiers: the
+(`ops.cuda.dispatch.CudaKernels`); zebra line relaxation ("line-K") in
+float32 on "cuda" runs the line kernel (`ops.cuda.zebra_line.LineKernels`:
+JAX's jnp tier, whose batched Thomas scan is the one op given a kernel);
+the "jacobi" and "exact" smoothers and float64 run the plain tensor tier
+(`cycles.TorchKernels`) on the solver's device, as JAX runs `JnpKernels`
+for them (its Pallas tier implements float32 RBGS only), so no kernel is
+asked for and skipped; on "cpu" the plain tier runs everything.  There is no fallback between the tiers: the
 choice is made once, at construction.  `SolverConfig.precision="mixed"`
 selects the bf16 defect-correction relax on "cuda" where a defect plan
 covers the level; the plain tier ignores it and relaxes in the working
@@ -132,9 +134,10 @@ def _pick_kernels(problem, geoms, cycle, dtype, device, precision="f32",
     """The kernel tier, chosen once: with a `mesh` the sharded tier; else
     the CUDA kernels for red-black Gauss-Seidel in float32 on "cuda"
     (`CudaKernels`, or the Galerkin tier with its per-level stencil-kernel
-    plans when `galerkin_offsets` is given), else the plain tensor tier on
-    the solver's device.  On the card the kernels library is built (or
-    loaded) here."""
+    plans when `galerkin_offsets` is given), the line kernel's tier for
+    zebra lines ("line-K") in float32 on "cuda" (`LineKernels`), else the
+    plain tensor tier on the solver's device.  On the card the kernels
+    library is built (or loaded) here."""
     on_card = (device.type == "cuda" and dtype == torch.float32
                and cycle.smoother == "rbgs")
     n = len(geoms)
@@ -163,6 +166,13 @@ def _pick_kernels(problem, geoms, cycle, dtype, device, precision="f32",
 
         return CudaKernels(problem, geoms, dtype, relaxed,
                            mixed=precision == "mixed", cycle=cycle)
+    if (device.type == "cuda" and dtype == torch.float32
+            and cycle.smoother.startswith("line-")):
+        from pde_multigrid_tpu_torch.ops.cuda import build
+        from pde_multigrid_tpu_torch.ops.cuda.zebra_line import LineKernels
+
+        build.load()
+        return LineKernels(problem, geoms, cycle.smoother, relaxed, device)
     # the plain tier ignores precision, as the JAX jnp tier does (the JAX
     # solver passes it to the Pallas tier only)
     return TorchKernels(problem, geoms, cycle.smoother, cycle.omega)

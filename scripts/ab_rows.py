@@ -78,6 +78,10 @@ A ROW is
             of row 18 timed on every level the plan reduces (4097^2 ...
             513^2, at its T and the legs' remainder, with and without f),
             and the SHA-256 of both solutions;
+  subtree   row 22's V-cycle (`subtree.subtree_vcycle`, mu = 1, the root
+            relaxed) at nu = 3000 and nu = (2, 3) on every root of the
+            65^3 wrap hierarchy (64^3 ... 2^3), timed graph-replayed, and
+            the SHA-256 of the results on seeded inputs;
   blocked   `chip_smoke.phase_main_path(torch, 257, "f32")` (the
             wavefront solve), `phase_kernels_blocked3d(torch)` and
             `phase_f32_257_blocked(torch, ...)` (the same solve with
@@ -173,6 +177,32 @@ def resident3d_row():
         w = v.clone()
         summary[f"{shape[0]}^3"] = {"ms": c.device_ms(
             torch, lambda: fn(w, f, 100, prob, g), 3)}
+    return {}, summary, sha(*outs)
+
+
+def subtree_row():
+    import numpy as np
+    from pde_multigrid_tpu_torch.grid import build_geometries, wrap_interior
+    from pde_multigrid_tpu_torch.models import Poisson3D
+    from pde_multigrid_tpu_torch.ops.cuda import subtree as S
+
+    prob = Poisson3D()
+    geoms = build_geometries((65,) * 3, prob.domain, wrap=True)
+    rng = np.random.default_rng(2047)
+    summary, outs = {}, []
+    for l, g in enumerate(geoms):
+        shape = g.padded_shape
+        v = torch.tensor((rng.standard_normal(shape) * wrap_interior(shape))
+                         .astype(np.float32), device="cuda")
+        f = torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device="cuda")
+        for nu1, nu2 in ((3000, 3000), (2, 3)):
+            outs.append(S.subtree_vcycle(v.clone(), f, prob, geoms[l:], nu1,
+                                         nu2))
+            w = v.clone()
+            summary[f"{shape[0]}^3 nu=({nu1},{nu2})"] = {"ms": c.device_ms(
+                torch, lambda: S.subtree_vcycle(w, f, prob, geoms[l:], nu1,
+                                                nu2), 1 if nu1 > 100 else 20)}
     return {}, summary, sha(*outs)
 
 
@@ -489,6 +519,8 @@ for row in sys.argv[2:]:
             dist.destroy_process_group()
     elif row == "resident3d":
         counts, s, digest = resident3d_row()
+    elif row == "subtree":
+        counts, s, digest = subtree_row()
     elif row == "reduced":
         counts, s, digest = reduced_row()
     elif row == "blocked":

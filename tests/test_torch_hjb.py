@@ -160,8 +160,9 @@ def test_scheme_and_config_checks():
         T.CycleConfig(scheme="fas", coarsest="exact")
     with pytest.raises(ValueError):
         T.CycleConfig(scheme="fas", coarse_operator="galerkin")
-    with pytest.raises(NotImplementedError, match="queue 1 item 16"):
-        T.CycleConfig(scheme="fas", mu=2)
+    # FAS W-cycles (queue 1 item 16, ported): accepted
+    w = T.CycleConfig(scheme="fas", mu=2)
+    assert (w.scheme, w.mu) == ("fas", 2)
 
 
 # ------------------------------------------------------------- injection

@@ -21,6 +21,7 @@ from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
 from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
 from pde_multigrid_tpu_torch.ops.cuda import subtree as S
 from pde_multigrid_tpu_torch.ops.cuda import transfer as TR
+from pde_multigrid_tpu_torch.ops.cuda import zebra_line as ZL
 
 CSRC = Path(MB.__file__).resolve().parent / "csrc"
 
@@ -70,6 +71,7 @@ def _struct_name(t):
     ("transfer.cu", "RestrictLayout", TR.RestrictLayout),
     ("transfer.cu", "ProlongLayout", TR.ProlongLayout),
     ("transfer.cu", "ResidualLayout", TR.ResidualLayout),
+    ("zebra_line.cu", "ZebraLineParams", ZL.ZebraLineParams),
 ])
 def test_ctypes_struct_mirrors_the_c_struct(source, struct, cls):
     assert _py_fields(cls) == _c_fields(source, struct)

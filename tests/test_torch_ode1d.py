@@ -313,7 +313,7 @@ def test_cli_ode1d_preset_is_the_jax_preset():
     assert PRESETS["ode1d"] == JPRESETS["ode1d"] == dict(
         problem="ode1d", n=8193, kind="fmg", nu0=2, nu1=1000, nu2=1000)
     with pytest.raises(SystemExit):
-        cli_main(["--device", "cpu", "--smoother", "line-0"])
+        cli_main(["--device", "cpu", "--smoother", "line-x"])
 
 
 def test_config_accepts_the_1d_smoothers():

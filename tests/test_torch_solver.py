@@ -226,7 +226,7 @@ def test_cli_prints_the_jax_summary_schema():
     with pytest.raises(SystemExit):
         cli_main(["--precision", "bf16"])
     with pytest.raises(SystemExit):
-        cli_main(["--kind", "w"])  # the W-cycle: queue 1 item 16
+        cli_main(["--kind", "x"])  # not a cycle kind (v, w, fmg)
 
 
 def test_port_never_imports_jax():

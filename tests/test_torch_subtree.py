@@ -315,8 +315,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         S.subtree_vcycle(torch.zeros(padded[0].padded_shape),
                          torch.zeros(padded[0].padded_shape), prob, padded,
                          1, 1)
-    with pytest.raises(NotImplementedError, match="mu=2"):
-        S.subtree_vcycle(v, f, prob, tg, 1, 1, mu=2)
+    with pytest.raises(ValueError, match="mu=0"):
+        S.subtree_vcycle(v, f, prob, tg, 1, 1, mu=0)
     with pytest.raises(ValueError, match="coarser"):
         S.subtree_vcycle(v[:2, :2, :2].contiguous(), f[:2, :2, :2]
                          .contiguous(), prob, tg[-1:], 1, 1, False)
