@@ -287,6 +287,24 @@ Phases, in order; any failure exits non-zero without the final result line:
      float64 solve; then `--n 129 --kind fmg --mu 2` through the CLI:
      error_linf < 50 h^2, exactly the schedule's launches (16 subtree
      W-cycles).
+ 17. 2D Poisson, after the HJB path: kernels_poisson2d, the Poisson
+     forms of rows 1, 3 and 16 (resident.cu's dense leg, slab2d.cu's
+     tiles, color_slab2d_shard.cu's two-sided one-rank chunk) bitwise
+     their plain versions on every level of both 4097^2 hierarchies in
+     the plan's form (wrap 4096^2 ... 512^2 the slab, 256^2 ... 2^2 the
+     leg; padded 4097^2 ... 513^2 the chunk, 257^2 ... 3^2 the leg) at 1,
+     T - 1, T, T + 1 and 500 sweeps, the boundary unchanged, a 500-sweep
+     leg timed on every level, each form's record beside its plain
+     version; poisson2d, FMG(2, 500, 500) exact-coarsest at 4097^2 in wrap
+     storage and padded storage ([0, 1.5]^2): the bench's gate max(10 h,
+     5e-5), exactly the schedule's launches, the halves' conversions
+     within budget, eager/graph ms a step, the busy split and
+     |v - v_float64| (reported: the discretization error lies below
+     float32's reach); poisson2d_cli, `--problem poisson2d --n 4097` in
+     both storages and at 1025^2 `--kind v`, `--kind w --mu 2` (both
+     storages) and `--coarsest exact`; wcycle2d, one W-cycle (mu = 2) of
+     every 2D and 1D plan (2D Poisson wrap and padded, Lyapunov and HJB
+     at 513^2, Ode1D at 1025) against the plain tier on the card.
 
 Every float64 reference but phase 11's is a `MultigridSolver(...,
 dtype="float64", device="cuda")` solve: the plain tier on the card.  Each phase's seconds
@@ -495,6 +513,23 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/blocked3d.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:3439",
     ),
+    # the 2D Poisson forms of rows 1, 3 and 16: the dense leg (resident.cu
+    # on its Poisson stencil; wrap 256^2 ... 2^2, padded 257^2 ... 3^2),
+    # the tiled slab (slab2d.cu on its Poisson stencil; wrap 4096^2 ...
+    # 512^2) and the colour slab's one-rank chunk with its two-sided halo
+    # (padded 4097^2 ... 513^2)
+    "resident_poisson": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/resident.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:143",
+    ),
+    "slab2d_poisson": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/slab2d.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:334",
+    ),
+    "color_slab2d_poisson": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/color_slab2d_shard.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:2547",
+    ),
     # no Pallas original: JAX runs line relaxation on its jnp tier
     # (thomas_tridiagonal, relax_zebra_line); the anis3d row's relax
     "zebra_line": (
@@ -582,6 +617,21 @@ PATHS = {
     # the fused subtree with mu = 2
     "wcycle129": (*F32_3D, "subtree", "small_restrict",
                   "small_prolong_blend"),
+    # 2D Poisson at 4097^2: wrap storage (the slab on 4096^2 ... 512^2, the
+    # dense leg below) and padded storage (row 16's chunk on the split
+    # levels 4097^2 ... 513^2 with their conversions, the leg below); the
+    # transfers and norms are the plain ops (JAX's jnp)
+    "poisson2d_wrap": ("slab2d_poisson", "resident_poisson"),
+    "poisson2d_padded": ("split2d", "merge2d", "color_slab2d_poisson",
+                         "resident_poisson"),
+    # the W-cycles (mu = 2) of the 2D and 1D plans at 513^2 / 1025 points
+    "wcycle_poisson2d_wrap": ("slab2d_poisson", "resident_poisson"),
+    "wcycle_poisson2d_padded": ("split2d", "merge2d", "color_slab2d_poisson",
+                                "resident_poisson"),
+    "wcycle_lyapunov": ("split2d", "merge2d", "color_slab2d_shard",
+                        "resident"),
+    "wcycle_hjb": ("slab2d", "resident_hjb"),
+    "wcycle_ode1d": ("relax1d",),
 }
 
 # per-sweep barrier floors of the whole-leg kernels, measured on the
@@ -3391,7 +3441,7 @@ def phase_hjb(torch):
     summary.update(time_step(torch, tag, solver, levels, 3, 1))
     busy = busy_split_ms(
         torch, lambda: solver.program.solve_step(levels),
-        {"slab2d": "slab2d_kernel", "resident_hjb": "resident2d_hjb_kernel"})
+        {"slab2d": "slab2d_kernel", "resident_hjb": "resident2d_kernel"})
     summary["busy_ms_per_step"] = busy
     log(f"{tag}: device busy ms per step (torch.profiler, eager): {busy!r}")
     return counts, summary, v
@@ -5364,6 +5414,478 @@ def phase_wcycle_cli(torch):
                     "launches": want}
 
 
+# ----------------------------------------------------------- 2D Poisson
+
+P2D_N = 4097
+P2D_NUS = (2, 500, 500)
+# padded storage's domain upper bound: sin(1.5 pi) = -1 on the far edges,
+# a nonzero boundary, so the solver builds the padded hierarchy
+P2D_PADDED_HI = 1.5
+# ms of the 2D Poisson forms by storage and level (phase_kernels_poisson2d)
+P2D_AB = {}
+
+
+def _p2d_problem(wrap: bool):
+    """Poisson(2) on [0, 1]^2 (zero boundary: wrap storage) or on [0,
+    P2D_PADDED_HI]^2 (padded storage)."""
+    from pde_multigrid_tpu_torch import Poisson
+
+    hi = 1.0 if wrap else P2D_PADDED_HI
+    return Poisson(2, domain=((0.0, hi), (0.0, hi)))
+
+
+def _p2d_inputs(torch, rng, prob, g):
+    """(v, f, fixed) of a 2D Poisson level on the card: the initial level
+    (its boundary as the solver holds it) plus N(0, 1) on the interior, f
+    N(0, 1) everywhere, and the mask of the points no sweep may write."""
+    import numpy as np
+
+    lvl = prob.init_level(g, torch.float32, "cuda")
+    noise, f = (torch.tensor(rng.standard_normal(g.padded_shape).astype(
+        np.float32), device="cuda") for _ in range(2))
+    m = lvl.aux["m_int"]
+    return (lvl.v + m * noise).contiguous(), f, m == 0
+
+
+def _p2d_cost(g, nsweeps: int, form: str):
+    """(bytes, operations) of `nsweeps` red-black sweeps of a 2D Poisson
+    form on level `g`: the dense forms ("dense": the leg, the slab) read v
+    and f and write v, 12 B a stored point, and do 9 operations an
+    updated point and sweep (the update's 7: two pair sums, two products,
+    two sums, the reciprocal's product; the blend's 2); the chunk on
+    halves reads r, b, fr, fb and writes r, b, 24 B a slot of a half
+    ("chunk"), or 16 B and 6 operations without f ("chunk_no_f")."""
+    n_int = (g.shape[0] - 2) * (g.shape[1] - 2)
+    X, Y = g.padded_shape
+    if form == "dense":
+        return 12 * X * Y, 9 * n_int * nsweeps
+    Y2 = (Y + 1) // 2
+    if form == "chunk":
+        return 24 * X * Y2, 7 * n_int * nsweeps
+    return 16 * X * Y2, 6 * n_int * nsweeps
+
+
+def _p2d_chunks_plain(r, b, fr, fb, nsweeps, prob, g):
+    """The one-rank chunks' schedule in the plain version: chunks of
+    CHUNK_T sweeps, the remainder last, of color_slab2d_shard_plain."""
+    from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
+
+    done = 0
+    while done < nsweeps:
+        t = min(R2.CHUNK_T, nsweeps - done)
+        r, b = R2.color_slab2d_shard_plain(r, b, fr, fb, 0, t, prob, g,
+                                           g.padded_shape[0])
+        done += t
+    return r, b
+
+
+def phase_kernels_poisson2d(torch):
+    """The 2D Poisson forms of rows 1, 3 and 16 against their plain
+    versions on the card, bitwise (torch.equal: a boundary zero the plain
+    version's masked blend turns from -0 to +0 compares equal; the kernels
+    never write the boundary, which stays as it was), on every level of
+    both 4097^2 hierarchies in the form the plan gives it (`CudaKernels`):
+    wrap storage 4096^2 ... 512^2 the slab (`slab2d.slab_relax`, T = 4
+    sweeps a launch, a whole leg a launch on 512^2), 256^2 ... 2^2 the
+    dense leg (`resident.resident_relax`); padded storage 4097^2 ... 513^2
+    row 16's one-rank chunk on the level's halves
+    (`relax2d.color_slab2d_shard` at t = 1, 3, 4, `relax_halves2d` over 5
+    and 500 sweeps), 257^2 ... 3^2 the dense leg, each dense form at 1,
+    T - 1, T, T + 1 and 500 sweeps (T its sweeps between refreshes or a
+    launch's; a one-CTA leg's T is the leg), with f; the leg also f-less
+    on 256^2 and 257^2, the chunk f-less at t = 4 on 4097^2.  A 500-sweep
+    leg of every level's form graph-replayed (ms into P2D_AB, by storage
+    and level), and each form's record timed beside its plain version in
+    turns (graph replay): slab2d_poisson one T = 4 launch at 4096^2
+    (wrap), resident_poisson a 500-sweep leg at 256^2 (wrap),
+    color_slab2d_poisson a t = 4 chunk at 4097^2 with f (f-less beside
+    it).  Returns {name: record}."""
+    import numpy as np
+
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
+    from pde_multigrid_tpu_torch.ops.cuda import resident as RS
+    from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
+    from pde_multigrid_tpu_torch.ops.cuda.dispatch import CudaKernels
+
+    rng = np.random.default_rng(2031)
+    nsw = P2D_NUS[1]
+    out = {}
+
+    def record(name, err, t, what, cost, **extra):
+        res = {"max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+               **bound(*cost), "library_ms": None, **extra}
+        log(f"kernel {name} ({what}): max|kernel - plain| = {err!r}; device "
+            f"{t['ms']!r} ms vs "
+            f"plain {t['plain_ms']!r} ms (bound {res['bound_ms']!r} ms by "
+            f"{res['bound_by']}); eager call {t['eager_ms']!r} ms vs plain "
+            f"{t['eager_plain_ms']!r} ms")
+        return res
+
+    def same(tag, k, p, v=None, fixed=None):
+        err = _max_err(torch, k, p)
+        require(torch.equal(k, p), f"{tag}: not bitwise its plain version: "
+                f"max diff {err!r}")
+        if fixed is not None:
+            require(torch.equal(k[fixed], v[fixed]),
+                    f"{tag}: a boundary point changed")
+        return err
+
+    for wrap in (True, False):
+        prob = _p2d_problem(wrap)
+        geoms = build_geometries((P2D_N,) * 2, prob.domain, wrap=wrap)
+        kern = CudaKernels(prob, geoms, torch.float32)
+        store = "wrap" if wrap else "padded"
+        legs = P2D_AB.setdefault(f"{store} leg_{nsw}_ms", {})
+        for l, g in enumerate(geoms):
+            v, f, fixed = _p2d_inputs(torch, rng, prob, g)
+            n = g.shape[0]
+            fn = kern._relax[l]
+            if fn == kern._relax_slab:
+                lay = SL.slab_layout(g)
+                T = lay.T
+                tag = (f"slab2d_poisson {store} {n}^2 ({lay.ntx} x {lay.nty} "
+                       f"tiles of {lay.BX} x {lay.BY}, T = {T}, "
+                       f"{SL.slab_launches(nsw, g)} launch(es) a "
+                       f"{nsw}-sweep leg)")
+                for ns in sorted({1, T - 1, T, T + 1, nsw} - {0}):
+                    err = same(f"{tag}, {ns} sweeps",
+                               SL.slab_relax(v, f, ns, prob, g),
+                               SL.slab_relax_plain(v, f, ns, prob, g), v,
+                               fixed)
+                legs[n] = device_ms(
+                    torch, lambda: SL.slab_relax(v, f, nsw, prob, g), 1)
+                if n == P2D_N:
+                    t = paired_times(
+                        torch, lambda: SL.slab_relax(v, f, T, prob, g),
+                        lambda: SL.slab_relax_plain(v, f, T, prob, g), 1)
+                    out["slab2d_poisson"] = record(
+                        "slab2d_poisson", err, t,
+                        f"{tag}: one T = {T} launch",
+                        _p2d_cost(g, T, "dense"))
+            elif fn == kern._relax_resident:
+                lay = RS.poisson_leg_layout(g)
+                T = lay.T or nsw
+                tag = (f"resident_poisson {store} {n}^2 ({lay.nctas} CTA(s) "
+                       f"of {lay.threads} threads, T = {T}, {lay.G} "
+                       f"segment(s) of {lay.L} rows)")
+                for ns in sorted({1, T - 1, T, T + 1, nsw} - {0}):
+                    err = same(f"{tag}, {ns} sweeps",
+                               RS.resident_relax(v.clone(), f, ns, prob, g),
+                               RS.resident_relax_plain(v.clone(), f, ns,
+                                                       prob, g), v, fixed)
+                if n == 257:  # the first level of the leg, either storage
+                    same(f"{tag}, f-less, {nsw} sweeps",
+                         RS.resident_relax(v.clone(), None, nsw, prob, g),
+                         RS.resident_relax_plain(v.clone(), None, nsw, prob,
+                                                 g), v, fixed)
+                w = v.clone()
+                legs[n] = device_ms(
+                    torch, lambda: RS.resident_relax(w, f, nsw, prob, g), 1)
+                if wrap and n == 257:
+                    t = paired_times(
+                        torch, lambda: RS.resident_relax(w, f, nsw, prob, g),
+                        lambda: RS.resident_relax_plain(w, f, nsw, prob, g),
+                        1)
+                    out["resident_poisson"] = record(
+                        "resident_poisson", err, t,
+                        f"{tag}: one {nsw}-sweep leg",
+                        _p2d_cost(g, nsw, "dense"))
+            else:
+                require(fn == kern._relax_split,
+                        f"{store} {n}^2: not a planned Poisson form")
+                X, Y = g.padded_shape
+                r, b = R2.split_colors_2d(v)
+                fr, fb = R2.split_colors_2d(f)
+                tiles = R2.slab_tile(X, (Y + 1) // 2, R2.CHUNK_T, 2)
+                tag = (f"color_slab2d_poisson {n}^2 (tiles of {tiles[0]} x "
+                       f"{tiles[1]} loaded, {tiles[2]} x {tiles[3]} owned, "
+                       f"{tiles[4]} threads)")
+                o = (torch.empty_like(r), torch.empty_like(b))
+                for t_ in (1, R2.CHUNK_T - 1, R2.CHUNK_T):
+                    R2.color_slab2d_shard(r, b, fr, fb, 0, t_, prob, g, X, o,
+                                          one_rank=True)
+                    pr, pb = R2.color_slab2d_shard_plain(r, b, fr, fb, 0, t_,
+                                                         prob, g, X)
+                    err = max(same(f"{tag}, t = {t_}, r", o[0], pr),
+                              same(f"{tag}, t = {t_}, b", o[1], pb))
+                if l == 0:
+                    R2.color_slab2d_shard(r, b, None, None, 0, R2.CHUNK_T,
+                                          prob, g, X, o, one_rank=True)
+                    pr, pb = R2.color_slab2d_shard_plain(
+                        r, b, None, None, 0, R2.CHUNK_T, prob, g, X)
+                    same(f"{tag}, f-less t = {R2.CHUNK_T}, r", o[0], pr)
+                    same(f"{tag}, f-less t = {R2.CHUNK_T}, b", o[1], pb)
+                for ns in (R2.CHUNK_T + 1, nsw):
+                    kr, kb = R2.relax_halves2d(r.clone(), b.clone(), fr, fb,
+                                               ns, prob, g)
+                    pr, pb = _p2d_chunks_plain(r, b, fr, fb, ns, prob, g)
+                    same(f"{tag}, {ns} sweeps, r", kr, pr)
+                    same(f"{tag}, {ns} sweeps, b", kb, pb)
+                    dense = R2.merge_colors_2d(kr, kb, Y)
+                    require(torch.equal(dense[fixed], v[fixed]),
+                            f"{tag}: a boundary point changed")
+                rr, bb = r.clone(), b.clone()
+                spare = (torch.empty_like(r), torch.empty_like(b))
+                legs[n] = device_ms(
+                    torch, lambda: R2.relax_halves2d(rr, bb, fr, fb, nsw,
+                                                     prob, g, spare=spare), 1)
+                chunk = lambda fs: lambda: R2.color_slab2d_shard(  # noqa
+                    r, b, *fs, 0, R2.CHUNK_T, prob, g, X, o, one_rank=True)
+                plain = lambda fs: lambda: R2.color_slab2d_shard_plain(  # noqa
+                    r, b, *fs, 0, R2.CHUNK_T, prob, g, X)
+                P2D_AB.setdefault("chunk_t4_ms", {})[n] = {
+                    "f": device_ms(torch, chunk((fr, fb)), 10),
+                    "no_f": device_ms(torch, chunk((None, None)), 10)}
+                if l == 0:
+                    t = paired_times(torch, chunk((fr, fb)), plain((fr, fb)),
+                                     3)
+                    t0 = paired_times(torch, chunk((None, None)),
+                                      plain((None, None)), 3)
+                    nf = {"ms": t0["ms"], "plain_ms": t0["plain_ms"],
+                          **bound(*_p2d_cost(g, R2.CHUNK_T, "chunk_no_f"))}
+                    out["color_slab2d_poisson"] = record(
+                        "color_slab2d_poisson", err, t,
+                        f"{tag}: one t = {R2.CHUNK_T} chunk with f; f-less "
+                        f"{nf}", _p2d_cost(g, R2.CHUNK_T, "chunk"),
+                        no_f=nf)
+            log(f"{tag}: bitwise; a {nsw}-sweep leg {legs[n]!r} ms")
+    torch.cuda.synchronize()
+    return out
+
+
+def poisson2d_launches(solver) -> dict:
+    """The relax launches of one FMG step of the 2D Poisson plan: level l
+    takes nu0 (l + 1) V-cycles, each a nu1 and a nu2 leg: ceil(nu /
+    CHUNK_T) chunks of row 16 on a split level, `slab_launches` launches
+    of the slab, one launch of the dense leg."""
+    from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
+    from pde_multigrid_tpu_torch.ops.cuda.relax2d import CHUNK_T
+
+    kern = solver.program.kernels
+    cyc = solver.config.cycle
+    want = {"color_slab2d_poisson": 0, "slab2d_poisson": 0,
+            "resident_poisson": 0}
+    for l, fn in enumerate(kern._relax):
+        if fn is None:
+            continue
+        cycles = cyc.nu0 * (l + 1)
+        g = solver.geoms[l]
+        if kern._split[l]:
+            want["color_slab2d_poisson"] += cycles * (
+                -(-cyc.nu1 // CHUNK_T) - (-cyc.nu2 // CHUNK_T))
+        elif fn == kern._relax_slab:
+            want["slab2d_poisson"] += cycles * (
+                SL.slab_launches(cyc.nu1, g) + SL.slab_launches(cyc.nu2, g))
+        else:
+            want["resident_poisson"] += 2 * cycles
+    return want
+
+
+def phase_poisson2d(torch):
+    """2D Poisson at 4097^2: FMG(2, 500, 500) with the exact coarsest
+    level, f32, through `MultigridSolver.solve()` on "cuda", in wrap
+    storage (Poisson(2) on [0, 1]^2: the slab on 4096^2 ... 512^2, the
+    dense leg on 256^2 and 128^2, fast diagonalization on 64^2) and in
+    padded storage (on [0, 1.5]^2: row 16's chunks on the split levels
+    4097^2 ... 513^2, the dense leg on 257^2 ... 65^2, the dense inverse
+    on 33^2).  Each: error_linf under the bench's gate max(10 h, 5e-5),
+    finite residuals, exactly the schedule's relax launches
+    (`poisson2d_launches`), padded also split2d / merge2d within the
+    persistent halves' budget, and no other kernel; the solution's
+    SHA-256; ms per step eager and as one CUDA graph, the profiler's busy
+    time by kernel; then the float64 solve of the same schedule on the
+    card (plain tier), |v - v_float64| and the error gap reported (the
+    float32 solve's error is float32 rounding: the discretization error,
+    ~5e-8, lies below float32's reach, so no 1 % gate).  Returns (launch
+    counts by path, summaries)."""
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        MultigridSolver,
+        SolverConfig,
+    )
+
+    counts_by, out = {}, []
+    for wrap in (True, False):
+        prob = _p2d_problem(wrap)
+        store = "wrap" if wrap else "padded"
+        path = f"poisson2d_{store}"
+        cfg = SolverConfig(cycle=CycleConfig("fmg", *P2D_NUS,
+                                             coarsest="exact"))
+        solver = MultigridSolver(prob, P2D_N, cfg, device="cuda")
+        kern = solver.program.kernels
+        require(solver.geoms[0].wrap == wrap,
+                f"poisson2d {store}: the solver chose other storage")
+        levels = solver.fresh_levels()
+        torch.cuda.synchronize()
+        reset_counts()
+        res = solver.solve(levels)
+        counts = read_counts()
+        conv = dict(kern.conversions)
+        h = max(solver.geoms[0].spacing)
+        limit = max(10 * h, 5e-5)
+        tag = f"poisson2d {P2D_N}^2 {store}"
+        want = {k: c for k, c in poisson2d_launches(solver).items()
+                if k in PATHS[path]}
+        log(f"{tag}: levels {[g.padded_shape for g in solver.geoms]}, relax "
+            f"{[getattr(fn, '__name__', None) for fn in kern._relax]}, "
+            f"error_linf {res.error_linf!r} (limit max(10 h, 5e-5) = "
+            f"{limit!r}), residual_l2 {res.residual_l2!r}, residual_linf "
+            f"{res.residual_linf!r}, launches {counts}, conversions {conv}")
+        counts_by[path] = _check_solve(torch, tag, res, solver, limit, path,
+                                       want)
+        # the budget: per visit of a split level at most one split of v
+        # and one merge, one split of f per visit as a coarse level (nu0
+        # l: its restricted residual) and one for the FMG stage it tops
+        # (its f is not rewritten there), plus the solution's merge
+        split = [l for l, s_ in enumerate(kern._split) if s_]
+        nu0 = P2D_NUS[0]
+        visits = sum(nu0 * (l + 1) for l in split)
+        budget = {"split_v": visits,
+                  "split_f": sum(nu0 * l + 1 for l in split),
+                  "merge": visits + bool(split)}
+        require(all(conv[k] <= budget[k] for k in budget)
+                and counts["split2d"] == conv["split_v"] + conv["split_f"]
+                and counts["merge2d"] == conv["merge"],
+                f"{tag}: conversions {conv} (budget {budget}), split2d "
+                f"{counts['split2d']}, merge2d {counts['merge2d']}")
+        sha = _sha(res.v)
+        log(f"{tag}: relax launches {want} as the schedule implies, "
+            f"conversions {conv} within {budget}; solution SHA-256 {sha}")
+        summary = {"n": P2D_N, "problem": "poisson2d", "storage": store,
+                   "precision": "f32",
+                   "levels": [g.padded_shape for g in solver.geoms],
+                   "error_linf": res.error_linf,
+                   "residual_l2": res.residual_l2, "conversions": conv,
+                   "launches_per_step": want, "sha256": sha}
+        v = res.v.clone()
+        summary.update(time_step(torch, tag, solver, levels, 1, 1))
+        busy = busy_split_ms(
+            torch, lambda: solver.program.solve_step(levels),
+            {"chunk": "color_slab2d_kernel", "slab": "slab2d_kernel",
+             "resident": "resident2d_kernel", "split2d": "split2d_kernel",
+             "merge2d": "merge2d_kernel"})  # the chunk's name holds the
+        # slab's: the first name a kernel holds labels it
+        summary["busy_ms"] = busy
+        log(f"{tag}: device busy ms per step by kernel (profiler) {busy!r}")
+        del solver, levels, res
+        phase_f64_reference(torch, prob, P2D_N, P2D_NUS, summary, v, tag,
+                            wrap=wrap, gate=False)
+        out.append(summary)
+    return counts_by, out
+
+
+def phase_poisson2d_cli(torch):
+    """`python -m pde_multigrid_tpu_torch --problem poisson2d --n 4097` in
+    process on "cuda" (FMG(2, 2, 2), relaxed to the coarsest level: wrap
+    storage, the slab and the dense leg), and the same with `--domain
+    1.5` (padded storage: row 16's chunks, the conversions and the leg);
+    then at 1025^2 the CLI's other cycles: `--kind v --cycles 3`,
+    `--kind w --mu 2 --cycles 3` in both storages, and `--coarsest exact`
+    (wrap: fast diagonalization on 64^2).  Each: finite residuals,
+    error_linf under max(10 h, 5e-5), the plan's kernels launched and no
+    other.  Returns (launch counts by path, summaries)."""
+    from pde_multigrid_tpu_torch.__main__ import main as cli_main
+
+    counts_by, out = {}, []
+    pad = ["--domain", str(P2D_PADDED_HI)]
+    for n, extra, store in (
+            (P2D_N, [], "wrap"), (P2D_N, pad, "padded"),
+            (1025, ["--kind", "v", "--cycles", "3"], "wrap"),
+            (1025, ["--kind", "w", "--mu", "2", "--cycles", "3"], "wrap"),
+            (1025, ["--kind", "w", "--mu", "2", "--cycles", "3", *pad],
+             "padded"),
+            (1025, ["--coarsest", "exact"], "wrap")):
+        args = ["--problem", "poisson2d", "--n", str(n), *extra,
+                "--device", "cuda"]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            cli_main(args)
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        hi = P2D_PADDED_HI if store == "padded" else 1.0
+        limit = max(10 * hi / (n - 1), 5e-5)
+        tag = f"CLI {' '.join(args)}"
+        launched = {k: c for k, c in read_counts().items() if c}
+        log(f"{tag}: error_linf {res['error_linf']!r} (limit {limit!r}), "
+            f"residual_l2 {res['residual_l2']!r}, solve "
+            f"{res['wall_time_s']!r} s, launches {launched}")
+        require(res["error_linf"] < limit and not res["diverged"] and all(
+            x == x and abs(x) != float("inf")
+            for x in res["residual_history"]), f"{tag}: failed its gate")
+        counts = _check_counts(tag, f"poisson2d_{store}")
+        if n == P2D_N:
+            counts_by[f"poisson2d_{store}"] = counts
+        out.append({"cli": args, "error_linf": res["error_linf"],
+                    "residual_l2": res["residual_l2"],
+                    "wall_time_s": res["wall_time_s"], "launches": launched})
+    return counts_by, out
+
+
+def phase_wcycle2d(torch):
+    """One W-cycle (mu = 2, nu = (4, 4), relaxed to the coarsest level) of
+    every 2D and 1D plan on the card, from the initial level, against the
+    plain tensor tier on the card (`cycles.TorchKernels`, the same
+    schedule): 2D Poisson at 513^2 in wrap storage (the slab's leg on
+    512^2, the dense leg below) and in padded storage (row 16's chunks on
+    the persistent halves of 513^2, whose visits a W-cycle orders as no
+    V-cycle does; the leg below), 2D Lyapunov at 513^2 (the same halves),
+    HJB at 513^2 in FAS (the slab, the HJB leg) and Ode1D at 1025 points
+    (relax1d).  Each: the plan's kernels launched and no other, finite
+    residuals, max|v - v_plain| under 1e-4 of max(1, max|v_plain|) (the
+    kernels round as the Pallas forms do, the plain tier as the jnp one;
+    both float32).  Returns the summaries."""
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        HJBMinTime,
+        Lyapunov2D,
+        MultigridSolver,
+        Ode1D,
+        SolverConfig,
+    )
+    from pde_multigrid_tpu_torch.cycles import CycleProgram, TorchKernels
+
+    out = []
+    for name, prob, n, kw in (
+            ("poisson2d_wrap", _p2d_problem(True), 513, {}),
+            ("poisson2d_padded", _p2d_problem(False), 513, {}),
+            ("lyapunov", Lyapunov2D(), 513, {}),
+            ("hjb", HJBMinTime(), 513, {"scheme": "fas"}),
+            ("ode1d", Ode1D(), 1025, {})):
+        cyc = CycleConfig("w", 1, 4, 4, 2, coarsest="relax", **kw)
+        solver = MultigridSolver(prob, n, SolverConfig(cycle=cyc),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        lv = solver.program.solve_step(solver.fresh_levels())
+        torch.cuda.synchronize()
+        tag = f"W-cycle {name} {n}"
+        counts = _check_counts(tag, f"wcycle_{name}")
+        plain = CycleProgram(prob, solver.geoms, cyc,
+                             TorchKernels(prob, solver.geoms),
+                             device=solver.device)
+        pl = plain.solve_step(solver.fresh_levels())
+        v, vp = lv[0].v, pl[0].v
+        dv = _max_err(torch, v, vp)
+        scale = max(1.0, float(torch.max(torch.abs(vp))))
+        l2, _ = solver.program.residual_norms(lv)
+        l2p, _ = plain.residual_norms(pl)
+        l2, l2p = float(l2), float(l2p)
+        mine = {k: counts[k] for k in PATHS[f"wcycle_{name}"]}
+        log(f"{tag}: launches {mine}, residual_l2 {l2!r} (plain tier "
+            f"{l2p!r}), max|v - v_plain| {dv!r} (limit {1e-4 * scale!r})")
+        require(l2 == l2 and abs(l2) != float("inf")
+                and dv <= 1e-4 * scale,
+                f"{tag}: outside the plain tier's gate")
+        out.append({"w_cycle": name, "n": n, "residual_l2": l2,
+                    "plain_residual_l2": l2p, "max_abs_dv_vs_plain": dv,
+                    "launches": mine})
+        del solver, lv, pl
+    return out
+
+
 PHASE_S = {}
 
 
@@ -5394,6 +5916,7 @@ def tables() -> dict:
             "residual_ab": RESIDUAL_AB,
             "relax1d_leg_ms": RELAX1D_LEG_MS,
             "line_ab": LINE_AB, "wcycle_ab": WCYCLE_AB,
+            "poisson2d_ab": P2D_AB,
             "phase_s": PHASE_S}
 
 
@@ -5538,6 +6061,13 @@ def main() -> int:
               cycle_kw={"scheme": "fas", "coarsest": "relax"},
               dv_limit=HJB_DV_LIMIT)
         summaries.append(shj)
+        results.update(timed("kernels_poisson2d", phase_kernels_poisson2d,
+                             torch))
+        cp2, sp2 = timed("poisson2d", phase_poisson2d, torch)
+        counts.update(cp2)
+        summaries += sp2
+        summaries += timed("poisson2d_cli", phase_poisson2d_cli, torch)[1]
+        summaries += timed("wcycle2d", phase_wcycle2d, torch)
         summaries.append(timed("fas3d", phase_fas3d, torch))
         results.update(timed("kernels_stencil", phase_kernels_stencil,
                              torch))
@@ -5590,7 +6120,8 @@ def main() -> int:
                         "mixed_257", "f32", "f32_257", "f32_513",
                         "preset129", "fas257",
                         "sharded257", "sharded_lyap", "lyapunov_reduced",
-                        "f32_257_blocked", "anis3d")
+                        "f32_257_blocked", "anis3d", "poisson2d_wrap",
+                        "poisson2d_padded")
             if name in PATHS[p])
 
     kernels = [

@@ -46,6 +46,10 @@ class Poisson(ProblemBase):
 
     zero on the boundary of any [0, 1]-aligned box."""
 
+    # split_update2d / kernel_update take f=None (the RHS term dropped)
+    split_update2d_f_optional = True
+    kernel_update_f_optional = True
+
     def __init__(
         self,
         ndim: int,
@@ -213,6 +217,31 @@ class Poisson(ProblemBase):
         for ax, wa in enumerate(w):
             num = num + pairs[ax] * wa
         return num * inv_den
+
+    def split_update2d(self, nbr, f, pre, geom: LevelGeometry):
+        """2D colour-split local solve (the JAX `Poisson.split_update2d`):
+        `nbr(axis, off)` gathers the opposite colour's neighbour; num =
+        -f, then num + (nbr(ax, -1) + nbr(ax, +1)) * w per axis, then *
+        inv_den, the constants folded once in double.  `f is None` drops
+        the RHS term.  Poisson has no `split2d_x_offsets`: the split tier
+        reads both x neighbours."""
+        w, inv_den = split_constants(geom)
+        num = None if f is None else -f
+        for ax, wa in enumerate(w):
+            pair = (nbr(ax, -1) + nbr(ax, +1)) * wa
+            num = pair if num is None else num + pair
+        return num * inv_den
+
+    def split_operator2d(self, C, nbr, coords, geom: LevelGeometry):
+        """L v at one colour's points in half layout (ops/split2d.py's
+        persistent-split residual): apply_operator's math and term order,
+        the weights rounded to C's dtype first, as JAX's
+        `Poisson.split_operator2d` rounds them; `coords` is unused."""
+        w = [torch.tensor(x, dtype=C.dtype) for x in inv_h2(geom)]
+        out = 0.0
+        for ax, wa in enumerate(w):
+            out = out + (nbr(ax, -1) - 2.0 * C + nbr(ax, +1)) * wa
+        return out
 
     def split_update_folded(self, pairs, f, geom: LevelGeometry):
         """split_update with the constants folded (the bf16 error-equation

@@ -103,6 +103,17 @@ SIGNATURES = {
     "pdemg_color_slab2d_leg": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
+    # the 2D Poisson kernels take their constants as a pointer to a host
+    # struct (relax2d.Poisson2DParams): the colour slab's chunk, the dense
+    # leg (its layout resident.HJBLegLayout) and the slab (its layout
+    # slab2d.HJBSlabLayout)
+    "pdemg_color_slab2d_poisson": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P,
+    ),
+    "pdemg_resident2d_poisson": (_P, _P, _I, _P, _P, _P),
+    "pdemg_resident2d_poisson_clusters": (_P, _P),
+    "pdemg_slab2d_poisson": (_P, _P, _P, _I, _P, _P, _P, _P, _P),
     # the reduced kernel its layout (reduced2d.Reduced2DLayout)
     "pdemg_reduced2d": (_P, _P, _P, _P, _P, _P, _P, _P, _P),
     # the HJB kernels take their fields as a pointer to a host struct

@@ -1,6 +1,8 @@
 // Red-black sweeps on colour-split halves of a padded 2D Lyapunov level
 // (sm_90a), in three forms of one template: the chunk and the leg of the
-// sharded and unsharded colour slab, and the whole-leg dense resident relax.
+// sharded and unsharded colour slab, and the whole-leg dense resident relax;
+// and the chunk's one-rank form on a padded 2D Poisson level, whose stencil
+// reads both sides (the template's stencil `St`: Lyap2D or Poisson2D).
 //
 // Replaces the TPU kernels
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_split_color_slab_2d_shard
@@ -8,6 +10,8 @@
 //     (its raw form, sweeps_per_call = T: the chunk's one-rank form)
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_resident_relax
 //     (its 2D Lyapunov levels: the dense form)
+//   and, for 2D Poisson, make_split_color_slab_2d's raw form on the padded
+//   split levels 4097^2 ... 513^2 (pdemg_color_slab2d_poisson)
 //
 // The function.  Input: the red and black halves (layout of
 // csrc/relax2d.cu, in the global colour convention: q = (g0 + x) % 2) and
@@ -76,6 +80,21 @@
 // where Y2 <= 64, and fewer rows where the tiles would not fill whole
 // waves of CTAs.
 //
+// Poisson (pdemg_color_slab2d_poisson, the chunk on an unsharded level:
+// XE = x_loc, g0 = 0).  A red point at (x, j) reads B[x - 1, j], B[x + 1,
+// j], B[x, j - 1 + q] and B[x, j + q]; a black one R[x -+ 1, j], R[x, j -
+// q] and R[x, j + 1 - q]: one row or slot either way a half-sweep, so a
+// tile's halo is 2t rows on -x as well as +x and, where the tile does not
+// span the row, 2t slots on both j sides (relax2d.slab_tile, sides = 2),
+// and the tile carries a zero guard row and column before its points as
+// well as after them.  Rows before 0 and past XE and slots before 0 and
+// past Y2 read as 0, never updated: only boundary points and inert slots
+// read them (rows -1 and X are read by rows 0 and X - 1, the boundary;
+// slot -1 by y = 0, slot Y2 by the inert slot y = Y), so the owned rows
+// are bitwise the half-sweep chain's.  The update is poisson2d.cuh's in
+// split_update2d's order, and the select writes it: no coefficient is
+// computed, f is read raw (-f), 7 float operations a point.
+//
 // What bounds it: per point and chunk it reads four halves and writes two
 // (24 B; 16 B without f), plus the tile halo (1.31x the owned points at
 // 4097^2); per interior point and half-sweep 4 float operations (two
@@ -98,7 +117,10 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "lyapunov2d.cuh"  // Lyap2D, lyap_coef, interior
+#include "poisson2d.cuh"   // Poisson2D, poisson_update, poisson_interior
 
 namespace cg = cooperative_groups;
 
@@ -126,12 +148,21 @@ struct Tile {
   int BX, BJ;  // owned rows and slots of a tile (the tile stride)
   int ntj, ntiles;  // tiles along j, tiles in all
   int Y;  // the dense form's columns (Y2 = ceil(Y / 2))
+  int HX, HJ;  // halo rows and slots before the owned ones (0: one-sided)
 };
 
+// Zero guard rows and columns a tile carries before its points: one for a
+// stencil that reads -x and -j (Poisson), none for Lyapunov's.
+template <class St>
+constexpr int kGuard = std::is_same<St, Poisson2D>::value ? 1 : 0;
+
 // floats of one tile buffer: r and b with a zero row and column past the
-// tile, and fr and fb where the sweeps read f
-__host__ __device__ inline int buffer_floats(int RX, int RJ, bool with_f) {
-  return 2 * (RX + 1) * (RJ + 1) + (with_f ? 2 * RX * RJ : 0);
+// tile (and, with a guard, before it), and fr and fb where the sweeps read
+// f
+__host__ __device__ inline int buffer_floats(int RX, int RJ, bool with_f,
+                                             int guard = 0) {
+  return 2 * (RX + 1 + guard) * (RJ + 1 + guard) +
+         (with_f ? 2 * RX * RJ : 0);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -143,11 +174,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
+// The first loaded row and slot of a tile: its owned origin less the halo
+// before it (negative where the halo reaches before the level).
 __device__ __forceinline__ void tile_origin(const Tile& T, bool leg,
                                             int tile, int& x0, int& j0) {
   const int ty = leg ? tile : tile / T.ntj;
-  x0 = ty * T.BX;
-  j0 = leg ? 0 : (tile - ty * T.ntj) * T.BJ;
+  x0 = ty * T.BX - T.HX;
+  j0 = (leg ? 0 : (tile - ty * T.ntj) * T.BJ) - T.HJ;
 }
 
 // The tile coordinates (lx, lj) of a thread's points p = tid + m NT in a
@@ -174,15 +207,15 @@ struct Slots {
 // one group.  DENSE: r and fr are the dense level and its RHS (X rows of
 // Y), split into the halves as they load: red at y = 2j + q, black at
 // y = 2j + 1 - q, zero past Y (the inert slot).
-template <class F, bool DENSE, bool WITH_F>
+template <class F, bool DENSE, bool WITH_F, int GD>
 __device__ __forceinline__ void load_tile(const float* r, const float* b,
                                           const float* fr, const float* fb,
                                           const Tile& T, bool leg, int tile,
                                           float* buf) {
   int x0, j0;
   tile_origin(T, leg, tile, x0, j0);
-  const int S = T.RJ + 1;
-  const int plane = (T.RX + 1) * S;
+  const int S = T.RJ + 1 + GD;
+  const int plane = (T.RX + 1 + GD) * S;
   const int npts = T.RX * T.RJ;
   Slots sl(T.RJ, F::NT);
 #pragma unroll
@@ -193,7 +226,7 @@ __device__ __forceinline__ void load_tile(const float* r, const float* b,
       const int lj = sl.lj;
       const int x = x0 + lx;
       const int j = j0 + lj;
-      const int k = lx * S + lj;
+      const int k = (lx + GD) * S + lj + GD;
       long long gr, gb;  // the red and black points' offsets
       bool in_r, in_b;
       if (DENSE) {
@@ -204,7 +237,7 @@ __device__ __forceinline__ void load_tile(const float* r, const float* b,
         gr = in_r ? row + 2 * j + q : 0;
         gb = in_b ? row + 2 * j + 1 - q : 0;
       } else {
-        in_r = in_b = x < T.XE && j < T.Y2;
+        in_r = in_b = x >= 0 && x < T.XE && j >= 0 && j < T.Y2;
         gr = gb = in_r ? (long long)x * T.Y2 + j : 0;
       }
       cp_async4(buf + k, r + gr, in_r);
@@ -230,41 +263,53 @@ __device__ __forceinline__ void load_tile(const float* r, const float* b,
 // the inbox that refresh writes.  DENSE (a leg): r, fr and ro are the
 // dense level, its RHS and the level again (in place); b, fb, bo unused.
 // No pointer is __restrict__: the dense form reads and writes v.
-template <bool LEG, bool DENSE, bool WITH_F, class F>
+template <bool LEG, bool DENSE, bool WITH_F, class F, class St = Lyap2D>
 __global__ void __launch_bounds__(F::NT, 1)
     color_slab2d_kernel(const float* r, const float* b, const float* fr,
                         const float* fb, float* ro, float* bo, Tile T, int t,
-                        int nchunks, int t_last, Lyap2D p) {
+                        int nchunks, int t_last, St p) {
   static_assert(LEG || !DENSE, "the dense form is a leg");
+  constexpr bool POISSON = std::is_same<St, Poisson2D>::value;
+  static_assert(!POISSON || !LEG, "the Poisson form is the chunk");
+  constexpr int GD = kGuard<St>;
   extern __shared__ float smem[];
-  const int S = T.RJ + 1;  // row stride: a zero column past the tile
-  const int plane = (T.RX + 1) * S;  // and a zero row
+  // row stride: a zero column past the tile (and a guard column before)
+  const int S = T.RJ + 1 + GD;
+  const int plane = (T.RX + 1 + GD) * S;  // and a zero row (and a guard)
   constexpr int NT = F::NT, P = F::P, G = F::G;
   const int npts = T.RX * T.RJ;
   const int nslot = (npts + NT - 1) / NT;  // points a thread holds
   const int nbuf = !LEG && T.ntiles > (int)gridDim.x ? 2 : 1;
-  const int bufsz = buffer_floats(T.RX, T.RJ, WITH_F);
+  const int bufsz = buffer_floats(T.RX, T.RJ, WITH_F, GD);
   const int tid = threadIdx.x;
 
   for (int q = 0; q < nbuf; ++q) {
     float* base = smem + q * bufsz;
     for (int i = tid; i < S; i += NT) {
-      base[T.RX * S + i] = 0.0f;
-      base[plane + T.RX * S + i] = 0.0f;
+      base[(T.RX + GD) * S + i] = 0.0f;
+      base[plane + (T.RX + GD) * S + i] = 0.0f;
+      if (GD) {
+        base[i] = 0.0f;
+        base[plane + i] = 0.0f;
+      }
     }
-    for (int i = tid; i < T.RX; i += NT) {
-      base[i * S + T.RJ] = 0.0f;
-      base[plane + i * S + T.RJ] = 0.0f;
+    for (int i = tid; i < T.RX + GD; i += NT) {
+      base[i * S + T.RJ + GD] = 0.0f;
+      base[plane + i * S + T.RJ + GD] = 0.0f;
+      if (GD) {
+        base[i * S] = 0.0f;
+        base[plane + i * S] = 0.0f;
+      }
     }
   }
 
   int cur = 0;
-  load_tile<F, DENSE, WITH_F>(r, b, fr, fb, T, LEG, blockIdx.x, smem);
+  load_tile<F, DENSE, WITH_F, GD>(r, b, fr, fb, T, LEG, blockIdx.x, smem);
   for (int tile = blockIdx.x; tile < T.ntiles; tile += gridDim.x) {
     const int next = tile + gridDim.x;
     if (!LEG && next < T.ntiles) {
-      load_tile<F, DENSE, WITH_F>(r, b, fr, fb, T, false, next,
-                                  smem + (cur ^ 1) * bufsz);
+      load_tile<F, DENSE, WITH_F, GD>(r, b, fr, fb, T, false, next,
+                                      smem + (cur ^ 1) * bufsz);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -282,12 +327,12 @@ __global__ void __launch_bounds__(F::NT, 1)
 
     // this thread's points: offsets, row parities, interior flags (bit 2m
     // red, 2m + 1 black) and coefficients (f af of each colour rounded
-    // once, as split_update2d rounds it), once a tile
+    // once, as split_update2d rounds it; Poisson: f), once a tile
     int off[P];
     unsigned qbits = 0, live = 0, owned = 0;
     float ae[2][P], as[2][P], ff[2][P];
-    const int bj = min(T.BJ, T.Y2 - j0);
-    const int bx = min(T.BX, T.x_loc - x0);
+    const int bj = min(T.BJ, T.Y2 - (j0 + T.HJ));
+    const int bx = min(T.BX, T.x_loc - (x0 + T.HX));
     Slots sl(T.RJ, NT);
 #pragma unroll
     for (int m = 0; m < P; ++m, sl.next()) {
@@ -298,23 +343,31 @@ __global__ void __launch_bounds__(F::NT, 1)
       if (pt >= npts) continue;
       const int lx = sl.lx;
       const int lj = sl.lj;
-      if (lx < bx && lj < bj) owned |= 1u << m;
+      if (lx >= T.HX && lx - T.HX < bx && lj >= T.HJ && lj - T.HJ < bj) {
+        owned |= 1u << m;
+      }
       const int x = x0 + lx;
       const int j = j0 + lj;
-      off[m] = lx * S + lj;
-      if (x >= T.XE || j >= T.Y2) continue;
+      off[m] = (lx + GD) * S + lj + GD;
+      if (x < 0 || x >= T.XE || j < 0 || j >= T.Y2) continue;
       const int gx = T.g0 + x;
       const int q = gx & 1;
       qbits |= (unsigned)q << m;
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int y = 2 * j + (c == 0 ? q : 1 - q);
-        if (!interior(gx, y, p)) continue;
-        live |= 1u << (2 * m + c);
-        const Coef cf = lyap_coef(gx, y, p);
-        ae[c][m] = cf.ae;
-        as[c][m] = cf.as;
-        if (WITH_F) ff[c][m] = (c == 0 ? sfr[pt] : sfb[pt]) * cf.af;
+        if constexpr (POISSON) {
+          if (!poisson_interior(gx, y, p)) continue;
+          live |= 1u << (2 * m + c);
+          if (WITH_F) ff[c][m] = c == 0 ? sfr[pt] : sfb[pt];
+        } else {
+          if (!interior(gx, y, p)) continue;
+          live |= 1u << (2 * m + c);
+          const Coef cf = lyap_coef(gx, y, p);
+          ae[c][m] = cf.ae;
+          as[c][m] = cf.as;
+          if (WITH_F) ff[c][m] = (c == 0 ? sfr[pt] : sfb[pt]) * cf.af;
+        }
       }
     }
 
@@ -328,31 +381,58 @@ __global__ void __launch_bounds__(F::NT, 1)
 #pragma unroll
           for (int m0 = 0; m0 < P; m0 += G) {
             if (m0 >= nslot) break;
-            // east (gx + 1, y) at slot j, south (gx, y + 1) at slot j +
-            // sft (y = 2j + sft), and the dense form's old values, loaded
-            // for the group before its stores
-            float e[G], so[G], o[G];
+            if constexpr (POISSON) {
+              // x - 1 and x + 1 at slot j; y - 1 and y + 1 at slots j +
+              // jm and j + jm + 1 (red jm = q - 1, black -q), all loaded
+              // for the group before its stores
+              float xm[G], xp[G], ym[G], yp[G];
 #pragma unroll
-            for (int i = 0; i < G; ++i) {
-              const int m = m0 + i;
-              const int q = (qbits >> m) & 1;
-              if (m >= nslot) break;
-              e[i] = w[off[m] + S];
-              so[i] = w[off[m] + (c == 0 ? q : 1 - q)];
-              if (DENSE) o[i] = u[off[m]];
-            }
+              for (int i = 0; i < G; ++i) {
+                const int m = m0 + i;
+                if (m >= nslot) break;
+                const int q = (qbits >> m) & 1;
+                const int jm = c == 0 ? q - 1 : -q;
+                xm[i] = w[off[m] - S];
+                xp[i] = w[off[m] + S];
+                ym[i] = w[off[m] + jm];
+                yp[i] = w[off[m] + jm + 1];
+              }
 #pragma unroll
-            for (int i = 0; i < G; ++i) {
-              const int m = m0 + i;
-              if (!((live >> (2 * m + c)) & 1u)) continue;
-              // the order of split_update2d: east ae + south as (+ f af)
-              float v = e[i] * ae[c][m];
-              v = v + so[i] * as[c][m];
-              if (WITH_F) v = v + ff[c][m];
-              if (DENSE) {
-                u[off[m]] = o[i] + (v - o[i]);  // m = 1: v + m (upd - v)
-              } else {
-                u[off[m]] = v;
+              for (int i = 0; i < G; ++i) {
+                const int m = m0 + i;
+                if (!((live >> (2 * m + c)) & 1u)) continue;
+                // the select: split_update2d's value (no f: f = 0, whose
+                // -0 adds nothing)
+                u[off[m]] = poisson_update(xm[i], xp[i], ym[i], yp[i],
+                                           WITH_F ? ff[c][m] : 0.0f, p);
+              }
+            } else {
+              // east (gx + 1, y) at slot j, south (gx, y + 1) at slot j +
+              // sft (y = 2j + sft), and the dense form's old values, loaded
+              // for the group before its stores
+              float e[G], so[G], o[G];
+#pragma unroll
+              for (int i = 0; i < G; ++i) {
+                const int m = m0 + i;
+                const int q = (qbits >> m) & 1;
+                if (m >= nslot) break;
+                e[i] = w[off[m] + S];
+                so[i] = w[off[m] + (c == 0 ? q : 1 - q)];
+                if (DENSE) o[i] = u[off[m]];
+              }
+#pragma unroll
+              for (int i = 0; i < G; ++i) {
+                const int m = m0 + i;
+                if (!((live >> (2 * m + c)) & 1u)) continue;
+                // the order of split_update2d: east ae + south as (+ f af)
+                float v = e[i] * ae[c][m];
+                v = v + so[i] * as[c][m];
+                if (WITH_F) v = v + ff[c][m];
+                if (DENSE) {
+                  u[off[m]] = o[i] + (v - o[i]);  // m = 1: v + m (upd - v)
+                } else {
+                  u[off[m]] = v;
+                }
               }
             }
           }
@@ -409,10 +489,10 @@ __global__ void __launch_bounds__(F::NT, 1)
 // A kernel's attributes: dynamic shared memory past 48 KB, and clusters
 // past the portable 8 CTAs.  Once per process and form, at its first
 // launch (outside any graph capture: the callers run eagerly first).
-template <bool LEG, bool DENSE, bool WITH_F, class F>
+template <bool LEG, bool DENSE, bool WITH_F, class F, class St = Lyap2D>
 cudaError_t opt_in() {
   static const cudaError_t status = [] {
-    const auto kernel = color_slab2d_kernel<LEG, DENSE, WITH_F, F>;
+    const auto kernel = color_slab2d_kernel<LEG, DENSE, WITH_F, F, St>;
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess || !LEG) return e;
@@ -442,44 +522,76 @@ bool tile_ok(const Tile& T, int pts, size_t smem) {
          smem <= (size_t)kMaxSmem;
 }
 
-template <bool WITH_F, class F>
+// Whether a tile of R loaded and B owned points along an axis of n points
+// (E of them loaded at most) carries the halo t sweeps need: 2t past its
+// owned points (Lyapunov) or on each side (Poisson, `two`: the halo split
+// evenly, (R - B) / 2 before), except where one tile spans the axis.
+inline bool halo_ok(int R, int B, int n, int E, int t, bool two) {
+  if (B >= n && R >= E) return !two || (R - B) % 2 == 0;
+  return two ? R - B >= 4 * t && (R - B) % 2 == 0 : R - B >= 2 * t;
+}
+
+template <bool WITH_F, class F, class St>
 int launch_chunk(const float* r, const float* b, const float* fr,
                  const float* fb, float* ro, float* bo, int XE, int x_loc,
                  int Y2, int g0, int t, int RX, int RJ, int BX, int BJ,
-                 const Lyap2D* p, cudaStream_t stream) {
-  if (t < 1 || x_loc < 1 || Y2 < 1 || XE < x_loc || BX < 1 || BJ < 1) {
+                 const St* p, cudaStream_t stream) {
+  constexpr bool two = std::is_same<St, Poisson2D>::value;
+  if (t < 1 || x_loc < 1 || Y2 < 1 || XE < x_loc || BX < 1 || BJ < 1 ||
+      (two && XE != x_loc)) {
     return (int)cudaErrorInvalidValue;
   }
   const int ntj = (Y2 + BJ - 1) / BJ;
   const int ntiles = ((x_loc + BX - 1) / BX) * ntj;
-  const Tile T{XE, x_loc, Y2, g0, RX, RJ, BX, BJ, ntj, ntiles, 2 * Y2};
-  // the tile's halo covers 2t rows and slots past its owned points, except
-  // where it reaches past the rows (XE) or slots (Y2) that exist
-  const bool halo_x = BX + 2 * t <= RX || (BX >= x_loc && RX >= XE);
-  const bool halo_j = BJ + 2 * t <= RJ || (BJ >= Y2 && RJ >= Y2);
+  const int HX = two ? (RX - BX) / 2 : 0, HJ = two ? (RJ - BJ) / 2 : 0;
+  const Tile T{XE, x_loc, Y2, g0, RX, RJ, BX, BJ, ntj, ntiles, 2 * Y2,
+               HX, HJ};
+  // the tile's halo covers 2t rows and slots beside its owned points (past
+  // them, or on both sides), except where it reaches past the rows (XE) or
+  // slots (Y2) that exist
+  const bool halo_x = halo_ok(RX, BX, x_loc, XE, t, two);
+  const bool halo_j = halo_ok(RJ, BJ, Y2, Y2, t, two);
   const int sms = num_sms();
   if (sms < 1) return (int)cudaErrorInvalidDevice;
   const int grid = ntiles < sms ? ntiles : sms;
   const size_t smem = (ntiles > grid ? 2 : 1) *
-                      buffer_floats(RX, RJ, WITH_F) * sizeof(float);
+                      buffer_floats(RX, RJ, WITH_F, kGuard<St>) *
+                      sizeof(float);
   if (!tile_ok(T, F::NT * F::P, smem) || !halo_x || !halo_j) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t e = opt_in<false, false, WITH_F, F>();
+  cudaError_t e = opt_in<false, false, WITH_F, F, St>();
   if (e != cudaSuccess) return (int)e;
-  color_slab2d_kernel<false, false, WITH_F, F><<<grid, F::NT, smem, stream>>>(
-      r, b, fr, fb, ro, bo, T, t, 1, t, *p);
+  color_slab2d_kernel<false, false, WITH_F, F, St>
+      <<<grid, F::NT, smem, stream>>>(r, b, fr, fb, ro, bo, T, t, 1, t, *p);
   return (int)cudaGetLastError();
 }
 
-template <bool WITH_F, class F>
-int chunk_form(int threads, const float* r, const float* b, const float* fr,
-               const float* fb, float* ro, float* bo, int XE, int x_loc,
-               int Y2, int g0, int t, int RX, int RJ, int BX, int BJ,
-               const Lyap2D* p, cudaStream_t stream) {
-  if (threads != F::NT) return (int)cudaErrorInvalidValue;
-  return launch_chunk<WITH_F, F>(r, b, fr, fb, ro, bo, XE, x_loc, Y2, g0, t,
-                                 RX, RJ, BX, BJ, p, stream);
+// The chunk in the form `threads` names (Chunk512 or Chunk1024), with or
+// without f.
+template <class St>
+int chunk(const float* r, const float* b, const float* fr, const float* fb,
+          float* ro, float* bo, int XE, int x_loc, int Y2, int g0, int t,
+          int RX, int RJ, int BX, int BJ, int threads, const St* p,
+          void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if ((fr == nullptr) != (fb == nullptr) ||
+      (threads != Chunk512::NT && threads != Chunk1024::NT)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool big = threads == Chunk1024::NT;
+  if (fr == nullptr) {
+    return big ? launch_chunk<false, Chunk1024>(r, b, fr, fb, ro, bo, XE,
+                                                x_loc, Y2, g0, t, RX, RJ, BX,
+                                                BJ, p, s)
+               : launch_chunk<false, Chunk512>(r, b, fr, fb, ro, bo, XE,
+                                               x_loc, Y2, g0, t, RX, RJ, BX,
+                                               BJ, p, s);
+  }
+  return big ? launch_chunk<true, Chunk1024>(r, b, fr, fb, ro, bo, XE, x_loc,
+                                             Y2, g0, t, RX, RJ, BX, BJ, p, s)
+             : launch_chunk<true, Chunk512>(r, b, fr, fb, ro, bo, XE, x_loc,
+                                            Y2, g0, t, RX, RJ, BX, BJ, p, s);
 }
 
 // A leg of nsweeps on a one-rank level of X rows (Y2 slots a row; the
@@ -539,24 +651,20 @@ __attribute__((visibility("default"))) int pdemg_color_slab2d_shard(
     const float* r, const float* b, const float* fr, const float* fb,
     float* ro, float* bo, int XE, int x_loc, int Y2, int g0, int t, int RX,
     int RJ, int BX, int BJ, int threads, const Lyap2D* p, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if ((fr == nullptr) != (fb == nullptr)) return (int)cudaErrorInvalidValue;
-  if (fr == nullptr) {
-    return threads == Chunk1024::NT
-               ? chunk_form<false, Chunk1024>(threads, r, b, fr, fb, ro, bo,
-                                              XE, x_loc, Y2, g0, t, RX, RJ,
-                                              BX, BJ, p, s)
-               : chunk_form<false, Chunk512>(threads, r, b, fr, fb, ro, bo,
-                                             XE, x_loc, Y2, g0, t, RX, RJ, BX,
-                                             BJ, p, s);
-  }
-  return threads == Chunk1024::NT
-             ? chunk_form<true, Chunk1024>(threads, r, b, fr, fb, ro, bo, XE,
-                                           x_loc, Y2, g0, t, RX, RJ, BX, BJ,
-                                           p, s)
-             : chunk_form<true, Chunk512>(threads, r, b, fr, fb, ro, bo, XE,
-                                          x_loc, Y2, g0, t, RX, RJ, BX, BJ, p,
-                                          s);
+  return chunk(r, b, fr, fb, ro, bo, XE, x_loc, Y2, g0, t, RX, RJ, BX, BJ,
+               threads, p, stream);
+}
+
+// The 2D Poisson chunk on an unsharded padded level's halves (XE = x_loc
+// = X, g0 = 0), with the constants *p: tiles of RX x RJ loaded points with
+// (RX - BX) / 2 and (RJ - BJ) / 2 halo rows and slots on each side
+// (relax2d.slab_tile, sides = 2).
+__attribute__((visibility("default"))) int pdemg_color_slab2d_poisson(
+    const float* r, const float* b, const float* fr, const float* fb,
+    float* ro, float* bo, int XE, int x_loc, int Y2, int g0, int t, int RX,
+    int RJ, int BX, int BJ, int threads, const Poisson2D* p, void* stream) {
+  return chunk(r, b, fr, fb, ro, bo, XE, x_loc, Y2, g0, t, RX, RJ, BX, BJ,
+               threads, p, stream);
 }
 
 // A whole leg: nsweeps on a one-rank level's (X, Y2) halves, held by

@@ -1,5 +1,7 @@
 // The HJB upwind local solve, shared by the 2D HJB relax kernels (sm_90a):
-// HJBMinTime.kernel_update (models/hjb.py, scheme "upwind") at one point.
+// HJBMinTime.kernel_update (models/hjb.py, scheme "upwind") at one point,
+// and `HJBOp`, the stencil the dense kernels (resident.cu, slab2d.cu) are
+// templated on.
 //
 // The coefficient fields of HJBMinTime.kernel_precompute depend on x2, the
 // column coordinate, alone, so the kernels read them as four vectors of Y
@@ -39,5 +41,29 @@ __device__ __forceinline__ float hjb_update(float e, float w, float n, float s,
   const float w_act = (base + c2 * m2) * inv_act;
   return w_in <= m2 ? w_in : w_act;
 }
+
+// The stencil of the dense HJB kernels (resident.cu's leg, slab2d.cu's
+// tiles): a thread's column coefficients, the update mask byte of a point,
+// and the update.
+struct HJBOp {
+  using Params = HJB2D;
+  float c1, s1, inv_in, inv_act;
+  // load the coefficients of column y
+  __device__ __forceinline__ void column(const HJB2D& p, int y) {
+    c1 = p.c1[y];
+    s1 = p.s1[y];
+    inv_in = p.inv_in[y];
+    inv_act = p.inv_act[y];
+  }
+  // whether a sweep updates point (x, y), at offset gi of the level
+  __device__ __forceinline__ bool keep(const HJB2D& p, int x, int y,
+                                       long long gi) const {
+    return p.mask[gi] != 0;
+  }
+  __device__ __forceinline__ float update(const HJB2D& p, float e, float w,
+                                          float n, float s, float f) const {
+    return hjb_update(e, w, n, s, f, c1, s1, inv_in, inv_act, p.c2);
+  }
+};
 
 }  // namespace

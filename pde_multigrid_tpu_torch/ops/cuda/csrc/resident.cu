@@ -1,21 +1,34 @@
-// Dense red-black Gauss-Seidel over a whole small padded 2D level, all
-// sweeps of a relax leg in one launch (sm_90a), for the HJB minimum-time
-// equation (upwind scheme).
+// Dense red-black Gauss-Seidel over a whole small 2D level, all sweeps of a
+// relax leg in one launch (sm_90a), for the HJB minimum-time equation
+// (upwind scheme) and for 2D Poisson: one template on the stencil (`Op`:
+// hjb2d.cuh's HJBOp, poisson2d.cuh's PoissonOp).
 //
 // Replaces the TPU kernel
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_resident_relax
-// on the HJB 513^2 path's levels 257^2 down to 3^2.  (Its 2D Lyapunov
-// levels are the dense form of csrc/color_slab2d_shard.cu's leg.)  A
+// on the HJB 513^2 path's levels 257^2 down to 3^2, and on the 2D Poisson
+// 4097^2 paths' levels: 256^2 down to 2^2 in wrap storage, 257^2 down to
+// 3^2 in padded storage.  (Its 2D Lyapunov levels are the dense form of
+// csrc/color_slab2d_shard.cu's leg.)  A
 // half-sweep there is far shorter than a host launch: with one launch per
 // half-sweep the legs would be launch-bound.  So, as the Pallas kernel keeps
 // the level in VMEM for the whole leg, this kernel keeps it on chip for the
 // whole leg.  Device memory is read once at the start of the leg and written
 // once at its end.
 //
-// The update (hjb2d.cuh) reads both x neighbours, both y neighbours, f and
-// four coefficients of the point's column.  Red are the points with x + y
-// even; a colour's points read the other colour alone, so the points of a
+// The update reads both x neighbours, both y neighbours and f; HJB's also
+// four coefficients of the point's column (hjb2d.cuh), Poisson's two
+// constants (poisson2d.cuh).  Red are the points with x + y even; a
+// colour's points read the other colour alone, so the points of a
 // half-sweep are independent.
+//
+// Wrap storage (Poisson's default, zero boundary): the level is stored as
+// X - 1 by Y - 1 points and row and column 0 are the boundary both ends
+// share (the +1 neighbour of the last stored row is stored row 0, as
+// torch.roll gives it).  The kernel works on the logical X x Y level whose
+// row X - 1 and column Y - 1 are loaded from stored row and column 0: they
+// are boundary points, never updated, so a leg reads the stored values
+// once, at its start (the last band's +x neighbour row is CTA 0's row 0,
+// which no CTA writes), and never writes them back.
 //
 // Design (the layout, resident.hjb_leg_layout, picks every number):
 //   * Columns in registers.  A thread owns the column y of a segment of
@@ -52,28 +65,31 @@
 //     or the store of v, so no CTA writes v before every CTA has read it.
 //
 // What bounds it: per point and half-sweep of its colour, 15 float
-// operations on a level that fits on chip; the legs are short (30 sweeps),
+// operations (HJB; Poisson 7 and the blend's 2) on a level that fits on
+// chip; the legs are short (30 sweeps),
 // so barrier latency and the issue of each half-sweep's dependent loads
 // and products bound them, not bytes (read v, f, the mask byte once, write
 // v once).  The cluster form recomputes the halo rows (2H per band) to
 // trade a cluster barrier every half-sweep for one every T sweeps.
 //
 // Update form: the Pallas kernel's v + m * (kernel_update - v) with m = 1
-// on the update mask (the interior without the pinned target ball).  Points
-// off the colour or the mask are never written.  Built with --fmad=false,
+// on the update mask (HJB: the interior without the pinned target ball;
+// Poisson: the interior, from the global index).  Points off the colour or
+// the mask are never written.  Built with --fmad=false,
 // in the plain version's operation order: bitwise equal.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hjb2d.cuh"  // HJB2D, hjb_update
+#include "hjb2d.cuh"      // HJB2D, HJBOp
+#include "poisson2d.cuh"  // Poisson2D, PoissonOp
 
 namespace cg = cooperative_groups;
 
 // The layout of a leg (resident.HJBLegLayout fills it in).
 struct HJBLeg {
-  int X, Y;         // the level
+  int X, Y;         // the level (logical: wrap storage holds X - 1 by Y - 1)
   int nctas;        // CTAs; a cluster when > 1
   int B;            // owned rows a CTA (the last may own fewer)
   int H;            // halo rows each side: 2T on a cluster, 0 on one CTA
@@ -86,6 +102,8 @@ struct HJBLeg {
   int rows;         // the band's rows in shared memory: G L + 4
   int threads;      // G NC
   int smem_bytes;   // the band and, on a cluster, two sets of inboxes
+  int wrap;         // 1: wrap storage, row / column X - 1 / Y - 1 read from
+                    // stored row / column 0 and never written
 };
 
 namespace {
@@ -125,10 +143,10 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src,
 // Shared row of global row x: two guard rows before the band's first.
 __device__ __forceinline__ int srow(int x, int xs) { return x - xs + 2; }
 
-template <int L>
+template <int L, class Op>
 __global__ void __launch_bounds__(kMaxThreads)
-    resident2d_hjb_kernel(float* __restrict__ v, const float* __restrict__ f,
-                          int nsweeps, HJBLeg g, HJB2D p) {
+    resident2d_kernel(float* __restrict__ v, const float* __restrict__ f,
+                      int nsweeps, HJBLeg g, typename Op::Params p) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -136,6 +154,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const bool cluster = g.nctas > 1;
   const int rank = cluster ? (int)cg::this_cluster().block_rank() : 0;
   const int X = g.X, Y = g.Y, S = g.S;
+  const int Xs = X - g.wrap, Ys = Y - g.wrap;  // the stored extents
   const int xo = rank * g.B;                 // first owned row
   const int xo_end = min(xo + g.B, X);       // past the last owned row
   const int xs = max(0, xo - g.H);           // first loaded row
@@ -143,23 +162,28 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* sv = smem;
   float* inbox = sv + g.rows * S;  // [2 sets][2 sides][H rows][S]
 
-  // the band: zeros, then the loaded rows, kUnroll loads in flight
+  // the band: zeros, then the loaded rows, kUnroll loads in flight (wrap:
+  // row X - 1 and column Y - 1 from stored row and column 0)
   for (int i = tid; i < g.rows * S; i += nt) sv[i] = 0.0f;
   block_sync(one_warp);
   const int nband = (xe - xs) * Y;
-  const float* vs = v + (long long)xs * Y;
   for (int i0 = tid; i0 < nband; i0 += kUnroll * nt) {
     float t[kUnroll];
-#pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      const int i = i0 + j * nt;
-      t[j] = vs[i < nband ? i : 0];
-    }
+    int at[kUnroll];
 #pragma unroll
     for (int j = 0; j < kUnroll; ++j) {
       const int i = i0 + j * nt;
       const int k = i / Y;
-      if (i < nband) sv[(k + 2) * S + i - k * Y] = t[j];
+      const int yy = i - k * Y;
+      const int x = xs + k;
+      at[j] = (k + 2) * S + yy;
+      t[j] = v[i < nband ? (long long)(x < Xs ? x : 0) * Ys +
+                               (yy < Ys ? yy : 0)
+                         : 0];
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      if (i0 + j * nt < nband) sv[at[j]] = t[j];
     }
   }
 
@@ -172,11 +196,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int seg1 = min(seg0 + L, xe);
   const int xr0 = seg0 - 1 - ((seg0 - 1 + y) & 1);
   float* b = sv + srow(xr0, xs) * S + y;
-  const int yc = col ? y : 1;
-  const float c1 = p.c1[yc], s1 = p.s1[yc];
-  const float inv_in = p.inv_in[yc], inv_act = p.inv_act[yc];
+  Op op;
+  op.column(p, col ? y : 1);  // the column's coefficients
   // bit r: the thread updates row xr0 + r (its segment, strictly inside
-  // the loaded rows, on the mask); every load issued before any is used
+  // the loaded rows, on the mask: an updated point is never on row X - 1
+  // or column Y - 1, so it is stored where the padded level has it, at
+  // x Ys + y); every load issued before any is used.  No f (a Poisson
+  // leg without RHS): f reads as 0, whose -0 term adds nothing.
   unsigned long long bits = 0;
   float fr[L + 3];
   uint8_t mk[L + 3];
@@ -184,9 +210,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int r = 0; r < L + 3; ++r) {
     const int x = xr0 + r;
     const bool in = col && x >= seg0 && x < seg1 && x > xs && x < xe - 1;
-    const long long gi = in ? (long long)x * Y + y : 0;
-    mk[r] = in ? p.mask[gi] : 0;
-    fr[r] = f[gi];
+    const long long gi = in ? (long long)x * Ys + y : 0;
+    mk[r] = in ? op.keep(p, x, y, gi) : 0;
+    fr[r] = f != nullptr ? f[gi] : 0.0f;
   }
 #pragma unroll
   for (int r = 0; r < L + 3; ++r) {
@@ -232,8 +258,8 @@ __global__ void __launch_bounds__(kMaxThreads)
         for (int i = 0; i < NR; ++i) {
           if (i >= nr) break;
           const int r = 2 * i + 2 - c;
-          const float upd = hjb_update(vr[r + 1], vr[r - 1], nn[i], ss[i],
-                                       fr[r], c1, s1, inv_in, inv_act, p.c2);
+          const float upd =
+              op.update(p, vr[r + 1], vr[r - 1], nn[i], ss[i], fr[r]);
           const float old = vr[r];
           // m = 1: v + m * (upd - v); off the mask the point stays
           vr[r] = (bits >> r) & 1ull ? old + (upd - old) : old;
@@ -279,14 +305,19 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
   if (!waited) cluster_wait();  // no CTA writes v before all have read it
-  for (int x = xo; x < xo_end; ++x) {
+  // the owned stored rows (wrap: not row X - 1 or column Y - 1, which are
+  // stored row and column 0, unchanged)
+  for (int x = xo; x < min(xo_end, Xs); ++x) {
     const float* src = sv + srow(x, xs) * S;
-    for (int yy = tid; yy < Y; yy += nt) v[(long long)x * Y + yy] = src[yy];
+    for (int yy = tid; yy < Ys; yy += nt) v[(long long)x * Ys + yy] = src[yy];
   }
 }
 
 bool valid(const HJBLeg& g) {
-  if (g.X < 3 || g.Y < 3 || g.nctas < 1 || g.nctas > kMaxCtas) return false;
+  if (g.X < 3 || g.Y < 3 || g.nctas < 1 || g.nctas > kMaxCtas ||
+      (g.wrap != 0 && g.wrap != 1)) {
+    return false;
+  }
   if (g.B < 1 || (g.nctas - 1) * g.B >= g.X || g.nctas * g.B < g.X) {
     return false;
   }
@@ -310,16 +341,16 @@ bool valid(const HJBLeg& g) {
   return g.smem_bytes == 4 * floats && g.smem_bytes <= kMaxSmem;
 }
 
-template <int L>
+template <int L, class Op>
 struct Kernel {
   static cudaError_t opt_in() {
     static const cudaError_t status = [] {
       const cudaError_t e = cudaFuncSetAttribute(
-          resident2d_hjb_kernel<L>,
+          resident2d_kernel<L, Op>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
       if (e != cudaSuccess) return e;
       return cudaFuncSetAttribute(
-          resident2d_hjb_kernel<L>,
+          resident2d_kernel<L, Op>,
           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     }();
     return status;
@@ -345,38 +376,40 @@ struct Launch {
 };
 
 // the kernel's register rows: the template instances
-template <int L>
+template <int L, class Op>
 int run(float* v, const float* f, int nsweeps, const HJBLeg& g,
-        const HJB2D& p, cudaStream_t stream, int* clusters) {
-  cudaError_t e = Kernel<L>::opt_in();
+        const typename Op::Params& p, cudaStream_t stream, int* clusters) {
+  cudaError_t e = Kernel<L, Op>::opt_in();
   if (e != cudaSuccess) return (int)e;
   Launch l(g, stream);
   if (clusters != nullptr) {
     return (int)cudaOccupancyMaxActiveClusters(
-        clusters, resident2d_hjb_kernel<L>, &l.cfg);
+        clusters, resident2d_kernel<L, Op>, &l.cfg);
   }
-  e = cudaLaunchKernelEx(&l.cfg, resident2d_hjb_kernel<L>, v, f, nsweeps,
-                         g, p);
+  e = cudaLaunchKernelEx(&l.cfg, resident2d_kernel<L, Op>, v, f, nsweeps, g,
+                         p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+template <class Op>
 int dispatch(float* v, const float* f, int nsweeps, const HJBLeg& g,
-             const HJB2D& p, cudaStream_t stream, int* clusters) {
+             const typename Op::Params& p, cudaStream_t stream,
+             int* clusters) {
   if (!valid(g) || nsweeps < 0) return (int)cudaErrorInvalidValue;
   switch (g.L) {
     case 4:
-      return run<4>(v, f, nsweeps, g, p, stream, clusters);
+      return run<4, Op>(v, f, nsweeps, g, p, stream, clusters);
     case 6:
-      return run<6>(v, f, nsweeps, g, p, stream, clusters);
+      return run<6, Op>(v, f, nsweeps, g, p, stream, clusters);
     case 8:
-      return run<8>(v, f, nsweeps, g, p, stream, clusters);
+      return run<8, Op>(v, f, nsweeps, g, p, stream, clusters);
     case 10:
-      return run<10>(v, f, nsweeps, g, p, stream, clusters);
+      return run<10, Op>(v, f, nsweeps, g, p, stream, clusters);
     case 12:
-      return run<12>(v, f, nsweeps, g, p, stream, clusters);
+      return run<12, Op>(v, f, nsweeps, g, p, stream, clusters);
     case 14:
-      return run<14>(v, f, nsweeps, g, p, stream, clusters);
+      return run<14, Op>(v, f, nsweeps, g, p, stream, clusters);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -393,14 +426,33 @@ extern "C" {
 __attribute__((visibility("default"))) int pdemg_resident2d_hjb(
     float* v, const float* f, int nsweeps, const HJBLeg* g, const HJB2D* p,
     void* stream) {
-  return dispatch(v, f, nsweeps, *g, *p, (cudaStream_t)stream, nullptr);
+  if (f == nullptr || g->wrap) return (int)cudaErrorInvalidValue;
+  return dispatch<HJBOp>(v, f, nsweeps, *g, *p, (cudaStream_t)stream,
+                         nullptr);
 }
 
 // How many clusters of the layout *g the card can hold at once (0: it
 // refuses the cluster), into *clusters; a CUDA error code.
 __attribute__((visibility("default"))) int pdemg_resident2d_hjb_clusters(
     const HJBLeg* g, int* clusters) {
-  return dispatch(nullptr, nullptr, 0, *g, HJB2D{}, nullptr, clusters);
+  return dispatch<HJBOp>(nullptr, nullptr, 0, *g, HJB2D{}, nullptr,
+                         clusters);
+}
+
+// The 2D Poisson leg: nsweeps on the level v (in place; wrap or padded
+// storage, g->wrap) with RHS f, or none (f null), in the layout *g
+// (resident.poisson_leg_layout) with the constants *p.
+__attribute__((visibility("default"))) int pdemg_resident2d_poisson(
+    float* v, const float* f, int nsweeps, const HJBLeg* g,
+    const Poisson2D* p, void* stream) {
+  return dispatch<PoissonOp>(v, f, nsweeps, *g, *p, (cudaStream_t)stream,
+                             nullptr);
+}
+
+__attribute__((visibility("default"))) int pdemg_resident2d_poisson_clusters(
+    const HJBLeg* g, int* clusters) {
+  return dispatch<PoissonOp>(nullptr, nullptr, 0, *g, Poisson2D{}, nullptr,
+                             clusters);
 }
 
 }  // extern "C"

@@ -1,10 +1,14 @@
-// Dense red-black Gauss-Seidel on a padded 2D HJB level too large for the
-// HJB leg kernel (csrc/resident.cu), in 2D tiles with a 2T-point halo
-// (sm_90a).
+// Dense red-black Gauss-Seidel on a 2D level too large for the dense leg
+// kernel (csrc/resident.cu), in 2D tiles with a 2T-point halo (sm_90a), for
+// the HJB minimum-time equation (upwind scheme) and for 2D Poisson: one
+// template on the stencil (`Op`: hjb2d.cuh's HJBOp, poisson2d.cuh's
+// PoissonOp).
 //
 // Replaces the TPU kernel
 //   pde_multigrid_tpu/ops/pallas/relax.py:make_slab_relax
-// on the HJB path (the 513^2 finest level of the bench's hjb2d row).  The
+// on the HJB path (the 513^2 finest level of the bench's hjb2d row) and on
+// the 2D Poisson wrap-storage levels 4096^2, 2048^2 and 1024^2 (JAX's plan)
+// and 512^2 (the dense leg's capacity gate: no cluster holds it).  The
 // Pallas kernel walks full-row axis-0 slabs with a 2T-row trapezoid halo,
 // a layout that follows the TPU's (8, 128) tiling and DMA alignment.  Here
 // the level is cut into 2D tiles (ops/cuda/slab2d.py `slab_layout` picks
@@ -16,11 +20,16 @@
 // inward per half-sweep, so after T sweeps the owned points, 2T from any
 // cut edge, are exact (the Pallas kernel's argument, relax.py:342-348).
 //
-// The update (hjb2d.cuh) reads both x neighbours, both y neighbours, f and
-// four coefficients of the point's column; red are the points with x + y
-// even, and a colour's points read the other colour alone.  Per point and
-// half-sweep of its colour 15 float operations; v, f and a mask byte read
-// once and v written once, 13 B a point.  What bounds it on the card: not
+// The update reads both x neighbours, both y neighbours and f, HJB's also
+// four coefficients of the point's column (hjb2d.cuh); red are the points
+// with x + y even, and a colour's points read the other colour alone.  Per
+// point and half-sweep of its colour 15 float operations (Poisson 7 and
+// the blend's 2); v, f and a mask byte read once and v written once, 13 B
+// a point (Poisson 12: no mask).
+// Wrap storage (Poisson): the tiles cut the logical X x Y level whose row
+// X - 1 and column Y - 1 are stored row and column 0, the boundary both
+// ends share (resident.cu's header); a tile loads them from there and no
+// tile writes them.  What bounds it on the card: not
 // bytes (513^2 moves 3.4 MB, 1 us at 3.35 TB/s) but each half-sweep's
 // chain of dependent shared loads and products and its block barrier.
 //
@@ -69,19 +78,20 @@
 // owned points at the start).
 //
 // Update form: v + m * (kernel_update - v) with m = 1 on the update mask
-// (the interior without the pinned target ball); points off the colour or
-// the mask are never written.  Built with --fmad=false, in the plain
-// version's operation order (hjb2d.cuh): bitwise equal to it for any
-// nsweeps and T.
+// (HJB: the interior without the pinned target ball; Poisson: the
+// interior); points off the colour or the mask are never written.  Built
+// with --fmad=false, in the plain version's operation order (hjb2d.cuh,
+// poisson2d.cuh): bitwise equal to it for any nsweeps and T.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hjb2d.cuh"  // HJB2D, hjb_update
+#include "hjb2d.cuh"      // HJB2D, HJBOp
+#include "poisson2d.cuh"  // Poisson2D, PoissonOp
 
 // The layout of a launch (slab2d.HJBSlabLayout fills it in).
 struct HJBSlab {
-  int X, Y;        // the level
+  int X, Y;        // the level (logical: wrap storage holds X - 1 by Y - 1)
   int ntx, nty;    // tiles along x and y, one CTA each, tile (tx, ty) the
                    // CTA tx nty + ty
   int BX, BY;      // rows and columns a tile owns; the last tile of each
@@ -100,6 +110,8 @@ struct HJBSlab {
                    // table
   int leg;         // 1: a whole leg in one cooperative launch, halos
                    // refreshed through device memory; 0: at most T sweeps
+  int wrap;        // 1: wrap storage, row / column X - 1 / Y - 1 read from
+                   // stored row / column 0 and never written
 };
 
 namespace {
@@ -282,14 +294,16 @@ __device__ __forceinline__ int build_table(const HJBSlab& g, const Tile& t,
   return n;
 }
 
-template <int L>
+template <int L, class Op>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     slab2d_kernel(const float* __restrict__ src, float* __restrict__ dst,
                   const float* __restrict__ f, int nsweeps, HJBSlab g,
-                  HJB2D p, unsigned long long* box, unsigned* count) {
+                  typename Op::Params p, unsigned long long* box,
+                  unsigned* count) {
   extern __shared__ float sv[];
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int Y = g.Y, S = g.S;
+  const int S = g.S;
+  const int Xs = g.X - g.wrap, Ys = g.Y - g.wrap;  // the stored extents
   // this launch's number: read by every CTA before the last one finishes
   const unsigned launch = box ? ld_count(count) : 0u;
 
@@ -297,7 +311,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // segment; its register rows r = 0 .. L + 2 are the rows xr0 + r, with
   // xr0 + y even: red at even r, kept in shared memory from b
   float* b;
-  float c1, s1, inv_in, inv_act;
+  Op op;  // the column's coefficients
   // bit r: the thread updates row xr0 + r (its segment, strictly inside
   // the loaded rows, on the mask)
   unsigned long long bits = 0;
@@ -316,7 +330,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int i = tid; i < nload; i += nt) {
       const int k = i / LY;
       const int y = i - k * LY;
-      sv[(k + 2) * S + y] = src[(long long)(t.xs + k) * Y + t.ys + y];
+      const int x = t.xs + k, yy = t.ys + y;
+      sv[(k + 2) * S + y] =
+          src[(long long)(x < Xs ? x : 0) * Ys + (yy < Ys ? yy : 0)];
     }
     const int seg = tid / g.NC;
     const int y = t.ys + 1 + tid - seg * g.NC;
@@ -325,20 +341,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const int seg1 = min(seg0 + L, t.xe);
     const int xr0 = seg0 - 1 - ((seg0 - 1 + y) & 1);
     b = sv + srow(xr0, t.xs) * S + (y - t.ys);
-    const int yc = col ? y : 0;
-    c1 = p.c1[yc];
-    s1 = p.s1[yc];
-    inv_in = p.inv_in[yc];
-    inv_act = p.inv_act[yc];
-    // every load issued before any is used
+    op.column(p, col ? y : 0);
+    // every load issued before any is used; an updated point is never on
+    // row X - 1 or column Y - 1, so it is stored at x Ys + y
     uint8_t mk[L + 3];
 #pragma unroll
     for (int r = 0; r < L + 3; ++r) {
       const int x = xr0 + r;
       const bool in =
           col && x >= seg0 && x < seg1 && x > t.xs && x < t.xe - 1;
-      const long long gi = in ? (long long)x * Y + y : 0;
-      mk[r] = in ? p.mask[gi] : 0;
+      const long long gi = in ? (long long)x * Ys + y : 0;
+      mk[r] = in ? op.keep(p, x, y, gi) : 0;
       fr[r] = f[gi];
     }
 #pragma unroll
@@ -389,8 +402,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
         for (int i = 0; i < NR; ++i) {
           if (i >= nr) break;
           const int r = 2 * i + 2 - c;
-          const float upd = hjb_update(vr[r + 1], vr[r - 1], nn[i], ss[i],
-                                       fr[r], c1, s1, inv_in, inv_act, p.c2);
+          const float upd =
+              op.update(p, vr[r + 1], vr[r - 1], nn[i], ss[i], fr[r]);
           const float old = vr[r];
           // m = 1: v + m * (upd - v); off the mask the point stays
           vr[r] = (bits >> r) & 1ull ? old + (upd - old) : old;
@@ -442,14 +455,18 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
   }
 
-  // the owned points, every one of them (dst is a whole new level)
+  // the owned points, every one of them (dst is a whole new level; wrap:
+  // row X - 1 and column Y - 1 are stored row and column 0, which their
+  // owner writes)
   const Tile t = tile_of(g, cta_id());
   const int OX = t.xo_end - t.xo, OY = t.yo_end - t.yo;
   for (int i = tid; i < OX * OY; i += nt) {
     const int k = i / OY;
     const int yy = i - k * OY;
-    dst[(long long)(t.xo + k) * Y + t.yo + yy] =
-        sv[srow(t.xo + k, t.xs) * S + t.yo + yy - t.ys];
+    const int x = t.xo + k, y = t.yo + yy;
+    if (x < Xs && y < Ys) {
+      dst[(long long)x * Ys + y] = sv[srow(x, t.xs) * S + y - t.ys];
+    }
   }
   // every CTA past its last read of an outbox before the launch number
   // moves on
@@ -484,17 +501,20 @@ bool valid(const HJBSlab& g) {
       g.threads > kMaxThreads) {
     return false;
   }
-  if (g.leg != 0 && g.leg != 1) return false;
+  if ((g.leg != 0 && g.leg != 1) || (g.wrap != 0 && g.wrap != 1)) {
+    return false;
+  }
   return g.smem_bytes == 4 * g.rows * g.S + 8 * table_entries(g) &&
          g.smem_bytes <= kMaxSmem;
 }
 
-template <int L>
+template <int L, class Op>
 cudaError_t run(const float* src, float* dst, const float* f, int nsweeps,
-                const HJBSlab& g, const HJB2D& p, unsigned long long* box,
-                unsigned* count, cudaStream_t stream) {
+                const HJBSlab& g, const typename Op::Params& p,
+                unsigned long long* box, unsigned* count,
+                cudaStream_t stream) {
   static const cudaError_t opted = cudaFuncSetAttribute(  // once, outside
-      slab2d_kernel<L>,                                   // any capture
+      slab2d_kernel<L, Op>,                               // any capture
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (opted != cudaSuccess) return opted;
   cudaLaunchConfig_t cfg = {};
@@ -507,10 +527,34 @@ cudaError_t run(const float* src, float* dst, const float* f, int nsweeps,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = g.leg ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, slab2d_kernel<L>, src, dst,
-                                           f, nsweeps, g, p, box, count);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, slab2d_kernel<L, Op>, src,
+                                           dst, f, nsweeps, g, p, box, count);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <class Op>
+int launch(const float* src, float* dst, const float* f, int nsweeps,
+           const HJBSlab* g, const typename Op::Params* p,
+           unsigned long long* box, unsigned* count, void* stream) {
+  if (!g || !p || !f || !valid(*g) || nsweeps < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int most = g->leg ? (kMaxRefresh + 1) * g->T : g->T;
+  const bool exchange = g->leg && g->ntx * g->nty > 1;
+  if (nsweeps > most || exchange != (box != nullptr) ||
+      (box == nullptr) != (count == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (g->L) {
+    case 4:
+      return (int)run<4, Op>(src, dst, f, nsweeps, *g, *p, box, count, s);
+    case 6:
+      return (int)run<6, Op>(src, dst, f, nsweeps, *g, *p, box, count, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -529,24 +573,17 @@ __attribute__((visibility("default"))) int pdemg_slab2d(
     const float* src, float* dst, const float* f, int nsweeps,
     const HJBSlab* g, const HJB2D* p, unsigned long long* box,
     unsigned* count, void* stream) {
-  if (!g || !p || !valid(*g) || nsweeps < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int most = g->leg ? (kMaxRefresh + 1) * g->T : g->T;
-  const bool exchange = g->leg && g->ntx * g->nty > 1;
-  if (nsweeps > most || exchange != (box != nullptr) ||
-      (box == nullptr) != (count == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (g->L) {
-    case 4:
-      return (int)run<4>(src, dst, f, nsweeps, *g, *p, box, count, s);
-    case 6:
-      return (int)run<6>(src, dst, f, nsweeps, *g, *p, box, count, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (g && g->wrap) return (int)cudaErrorInvalidValue;
+  return launch<HJBOp>(src, dst, f, nsweeps, g, p, box, count, stream);
+}
+
+// The same on a 2D Poisson level (wrap or padded storage, g->wrap) with
+// the constants *p.
+__attribute__((visibility("default"))) int pdemg_slab2d_poisson(
+    const float* src, float* dst, const float* f, int nsweeps,
+    const HJBSlab* g, const Poisson2D* p, unsigned long long* box,
+    unsigned* count, void* stream) {
+  return launch<PoissonOp>(src, dst, f, nsweeps, g, p, box, count, stream);
 }
 
 }  // extern "C"

@@ -102,6 +102,29 @@ vetoed as `HJBMinTime` does by default):
   * `HJBMinTime(scheme="tesi")` raises: its kernels are ROADMAP.md queue 2
     item 30.
 
+2D Poisson, wrap storage (the default: zero boundary) and padded storage
+(a nonzero boundary), the JAX plan of `plan_relax` and
+`plan_split2d_raw`, level by level:
+
+  * wrap levels: the slab kernel (`ops/cuda/slab2d.py`, Poisson form, T
+    sweeps a launch; a leg a launch where its tiles are co-resident) on
+    4096^2, 2048^2 and 1024^2 (JAX's `make_slab_relax`), and the dense leg
+    kernel (`ops/cuda/resident.py`, Poisson form, one launch a leg) on
+    256^2 ... 2^2 (JAX's `make_resident_relax`).  512^2, resident in
+    JAX, goes to the slab kernel: no cluster of the leg kernel holds it
+    (`resident.poisson_leg_layout`, the capacity gate HJB's 513^2 has);
+  * padded split levels (Y // 2 >= SPLIT2D_MIN_Y2: 4097^2 ... 513^2): the
+    persistent colour-split tier as for Lyapunov (row 16's one-rank
+    chunk in its Poisson form, `relax2d.relax_halves2d`, and
+    `ops/split2d.py`'s residual + restrict and prolong + blend on the
+    halves through `Poisson.split_operator2d`); below, the dense leg
+    kernel (257^2 ... 3^2), a level it does not hold going to the slab
+    kernel;
+  * transfers and the residual norms: the plain ops of `ops/stencil.py`
+    on the card, as for Lyapunov (JAX's jnp ops here);
+  * with `mixed` the levels relax in float32 (no defect plan covers a 2D
+    level), as JAX does.
+
 1D levels: Ode1D (padded storage) and Poisson(1) (wrap storage), the
 JAX plan of `plan_relax` (relax.py:3925-3939) and its jnp transfers:
 
@@ -184,9 +207,9 @@ def _padded_2d(g) -> bool:
 
 
 def _plain_ok(g) -> bool:
-    """Levels whose transfers and residual run the plain ops: 1D levels
-    and padded 2D levels."""
-    return g.ndim == 1 or _padded_2d(g)
+    """Levels whose transfers and residual run the plain ops: 1D and 2D
+    levels (2D wrap levels: 2D Poisson's)."""
+    return g.ndim in (1, 2)
 
 
 def _split2d_ok(g) -> bool:
@@ -232,9 +255,9 @@ def _relax3d(problem, g):
 
 def _not_planned(what: str, item: str = "queue 2") -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: the CUDA tier serves 3D wrap-storage Poisson, padded 2D "
-        "Lyapunov and HJB (upwind) and 1D Ode1D / Poisson levels in "
-        f"float32; other problems and layouts are ROADMAP.md {item}"
+        f"{what}: the CUDA tier serves 3D wrap-storage Poisson, 2D Poisson, "
+        "padded 2D Lyapunov and HJB (upwind) and 1D Ode1D / Poisson levels "
+        f"in float32; other problems and layouts are ROADMAP.md {item}"
     )
 
 
@@ -252,9 +275,9 @@ class CudaKernels(TorchKernels):
             resident_mod.check_hjb(problem)
         if not (lyap or hjb or isinstance(problem, (Poisson, Ode1D))):
             raise _not_planned(f"problem {problem.name}")
-        if isinstance(problem, Poisson) and problem.ndim == 2:
-            raise _not_planned("2D Poisson (split_update2d)",
-                               "queue 1 item 11")
+        poisson2d = isinstance(problem, Poisson) and problem.ndim == 2
+        # the colour-split tier's problems (padded storage)
+        split_ok = lyap or poisson2d
         n = len(self.geoms)
         relaxed = range(n) if relaxed_levels is None else relaxed_levels
         self._relax = [None] * n
@@ -274,7 +297,7 @@ class CudaKernels(TorchKernels):
                         f"relax1d kernel's {relax1d_mod.MAX_CTAS} CTAs of "
                         f"{relax1d_mod.MAX_WARPS} warps)", "queue 2 item 29")
                 self._relax[l] = self._relax_1d
-            elif lyap and _split2d_ok(g):
+            elif split_ok and _split2d_ok(g):
                 self._reduced_t[l] = _reduced_t(problem, g)
                 self._split[l] = self._reduced_t[l] is None
                 self._relax[l] = (self._relax_split if self._split[l]
@@ -285,6 +308,14 @@ class CudaKernels(TorchKernels):
                 self._relax[l] = (self._relax_resident
                                   if resident_mod.hjb_leg_layout(g)
                                   else self._relax_slab)
+            elif poisson2d and g.ndim == 2:
+                # the leg where a cluster holds the level, else the slab
+                if resident_mod.poisson_leg_layout(g):
+                    self._relax[l] = self._relax_resident
+                elif slab_mod.slab_layout(g):
+                    self._relax[l] = self._relax_slab
+                else:
+                    raise _not_planned(f"relax on level {g}")
             elif not lyap and _level_ok(g):
                 self.tiers[l], self._relax[l] = _relax3d(problem, g)
             else:
@@ -405,7 +436,8 @@ class CudaKernels(TorchKernels):
         )
 
     def _relax_slab(self, l, v, f, nsweeps, f_zero):
-        # f_zero never holds here (HJB's RHS is not zero)
+        # f_zero never holds here (neither HJB nor Poisson has
+        # rhs_is_zero); the kernel always reads f
         return slab_mod.slab_relax(v, f, nsweeps, self.problem,
                                    self.geoms[l])
 

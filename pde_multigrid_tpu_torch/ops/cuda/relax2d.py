@@ -1,5 +1,5 @@
-"""Color-split red-black Gauss-Seidel on padded 2D Lyapunov levels: the
-CUDA kernels of `csrc/relax2d.cu` (the converters) and
+"""Color-split red-black Gauss-Seidel on padded 2D Lyapunov and Poisson
+levels: the CUDA kernels of `csrc/relax2d.cu` (the converters) and
 `csrc/color_slab2d_shard.cu` (the sweeps) and their plain PyTorch
 versions.
 
@@ -10,6 +10,11 @@ Replaces the TPU kernels `pde_multigrid_tpu/ops/pallas/relax.py`
 chunks of T sweeps) and, on one shard of a sharded level,
 `make_split_color_slab_2d_shard` (`color_slab2d_shard`, a chunk of t
 sweeps, and `color_slab2d_leg`, a whole leg of a one-rank level on chip).
+2D Poisson (`models/poisson.py`, whose stencil reads both x and both y
+neighbours) has the chunk's one-rank form alone (`relax_halves2d`: JAX's
+raw `make_split_color_slab_2d` on its padded split levels), with a halo
+on both sides of each tile (`slab_tile`, sides = 2); its sharded forms
+are ROADMAP.md queue 1 item 17.
 Halves layout (`ops/split2d.py`): a dense (X, Y) level becomes red/black
 (X, ceil(Y/2)) arrays; with q = x % 2, red sits at y = 2j + q and black at
 y = 2j + 1 - q.  With an odd Y the slot y = Y of each row is inert (split
@@ -29,6 +34,7 @@ import torch
 
 from pde_multigrid_tpu_torch.grid import LevelGeometry
 from pde_multigrid_tpu_torch.models.lyapunov2d import Lyapunov2D
+from pde_multigrid_tpu_torch.models.poisson import Poisson, split_constants
 from pde_multigrid_tpu_torch.ops import split2d
 from pde_multigrid_tpu_torch.ops.cuda import build
 from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _stream
@@ -36,7 +42,7 @@ from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _stream
 RED, BLACK = 0, 1
 
 launches = {"split2d": 0, "merge2d": 0, "color_slab2d_shard": 0,
-            "color_slab2d_leg": 0}
+            "color_slab2d_leg": 0, "color_slab2d_poisson": 0}
 
 # csrc/color_slab2d_shard.cu's constants: points a chunk's CTA holds by
 # its threads (its two forms), points a leg's CTA holds, the sweeps
@@ -92,6 +98,27 @@ def lyap_params(problem, geom: LevelGeometry) -> Lyap2DParams:
         problem.alpha * hx * hy, -hx * hy,
         geom.shape[0], geom.shape[1],
     )
+
+
+class Poisson2DParams(ctypes.Structure):
+    """The 2D Poisson kernels' `Poisson2D` (csrc/poisson2d.cuh): the
+    constants of `split_constants`, each rounded once from double to
+    float32 (ctypes' float conversion), and the logical extents."""
+
+    _fields_ = [(name, ctypes.c_float) for name in ("w0", "w1", "inv_den")]
+    _fields_ += [("nx", ctypes.c_int), ("ny", ctypes.c_int)]
+
+
+def poisson_params(problem, geom: LevelGeometry) -> Poisson2DParams:
+    """Kernel constants of Poisson.kernel_update / split_update2d on a 2D
+    level (wrap or padded storage)."""
+    if not (isinstance(problem, Poisson) and problem.ndim == 2):
+        raise TypeError("the 2D Poisson kernels implement Poisson(2); got "
+                        f"{type(problem).__name__}")
+    if geom.ndim != 2:
+        raise ValueError(f"need a 2D level, got {geom}")
+    (w0, w1), inv_den = split_constants(geom)
+    return Poisson2DParams(w0, w1, inv_den, *geom.shape)
 
 
 # ------------------------------------------------------ plain versions
@@ -262,11 +289,13 @@ def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a0 < b0 + b.nbytes and b0 < a0 + a.nbytes
 
 
-def slab_tile(x_loc: int, Y2: int, t: int):
+def slab_tile(x_loc: int, Y2: int, t: int, sides: int = 1):
     """(RX, RJ, BX, BJ, threads): the loaded and owned rows and slots of
     the chunk kernel's tiles for `t` sweeps on a shard of x_loc rows of Y2
     slots, with a 2t halo on +x and, where a tile does not span the row,
-    on +j, and the kernel's form (threads a CTA).  Whole rows where Y2 <=
+    on +j (sides = 2, 2D Poisson's two-sided stencil: 2t on each side of
+    both, the kernel's halo (RX - BX) / 2 before the owned points), and
+    the kernel's form (threads a CTA).  Whole rows where Y2 <=
     SLAB_TILE_J, else SLAB_TILE_J slots; as many rows as the CTA's points
     allow (SLAB_POINTS[threads]), or on a level whose tiles would leave
     SLAB_CTAS CTAs idle, fewer (at least SLAB_MIN_BX owned), so that the
@@ -274,15 +303,17 @@ def slab_tile(x_loc: int, Y2: int, t: int):
     512-thread tiles take more than one wave (2049^2 and up; 1025^2 at
     t = 4), else 512."""
 
+    h = 2 * t * sides  # halo points of a cut axis
+
     def tiling(points):
         RJ = min(Y2, SLAB_TILE_J)
-        BJ = Y2 if RJ >= Y2 else RJ - 2 * t
+        BJ = Y2 if RJ >= Y2 else RJ - h
         ntj = -(-Y2 // BJ) if BJ > 0 else 1
-        bx_max = points // RJ - 2 * t
+        bx_max = points // RJ - h
         waves = -(-(-(-x_loc // max(bx_max, 1)) * ntj) // SLAB_CTAS)
         rows = max(1, waves * SLAB_CTAS // ntj)
         BX = min(bx_max, max(SLAB_MIN_BX, -(-x_loc // rows)))
-        return BX + 2 * t, RJ, BX, BJ, waves
+        return BX + h, RJ, BX, BJ, waves
 
     threads = 1024 if tiling(SLAB_POINTS[512])[4] > 1 else 512
     RX, RJ, BX, BJ, _ = tiling(SLAB_POINTS[threads])
@@ -321,10 +352,21 @@ def color_slab2d_shard(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
     rows past x_loc read as 0 (no interior point reads them), so XE >=
     x_loc and no ext rows are read.  Tiles and the kernel's form:
     `slab_tile`.  One launch of csrc/color_slab2d_shard.cu for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors.  2D Poisson takes the
+    one-rank form of an unsharded level alone (g0 = 0, x_loc the level's
+    rows): rows -1 and X, before and past the level, read as 0, and only
+    its boundary rows read them; the tiles carry a halo on both sides
+    (`slab_tile`, sides = 2), launched as `pdemg_color_slab2d_poisson`."""
     split2d.check_level(geom)
     Y2 = split2d.half_width(geom)
     XE = r_ext.shape[0]
+    poisson = isinstance(problem, Poisson)
+    if poisson and not (one_rank and g0 == 0
+                        and x_loc == geom.padded_shape[0]):
+        raise NotImplementedError(
+            "the 2D Poisson colour slab runs the one-rank chunk of an "
+            "unsharded level; its sharded forms are ROADMAP.md queue 1 "
+            "item 17")
     if (fr_ext is None) != (fb_ext is None):
         raise ValueError("give both RHS halves or neither")
     ins = (r_ext, b_ext) + (() if fr_ext is None else (fr_ext, fb_ext))
@@ -351,7 +393,7 @@ def color_slab2d_shard(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
     if one_rank:
         ins = tuple(a[:x_loc] for a in ins)
         XE = x_loc
-    tiles = slab_tile(x_loc, Y2, t)
+    tiles = slab_tile(x_loc, Y2, t, 2 if poisson else 1)
     fs = ins[2:] or (None, None)
     if not _on_cuda(*ins, *out):
         pr, pb = color_slab2d_shard_plain(*ins[:2], *fs, g0, t, problem,
@@ -359,13 +401,21 @@ def color_slab2d_shard(r_ext, b_ext, fr_ext, fb_ext, g0: int, t: int,
         out[0].copy_(pr)
         out[1].copy_(pb)
         return out
-    params = lyap_params(problem, geom)
-    rc = build.load().lib.pdemg_color_slab2d_shard(
+    lib = build.load().lib
+    if poisson:
+        fn, params = lib.pdemg_color_slab2d_poisson, poisson_params(
+            problem, geom)
+        name = "color_slab2d_poisson"
+    else:
+        fn, params = lib.pdemg_color_slab2d_shard, lyap_params(problem,
+                                                                geom)
+        name = "color_slab2d_shard"
+    rc = fn(
         *(None if a is None else a.data_ptr() for a in (*ins[:2], *fs, *out)),
         XE, x_loc, Y2, g0, t, *tiles, ctypes.addressof(params), _stream(),
     )
-    launches["color_slab2d_shard"] += 1
-    build.check(rc, "color_slab2d_shard")
+    launches[name] += 1
+    build.check(rc, name)
     return out
 
 

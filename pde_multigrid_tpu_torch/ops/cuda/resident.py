@@ -1,6 +1,7 @@
-"""Whole-leg dense red-black Gauss-Seidel on small padded 2D levels (the
-2D Lyapunov equation and the HJB equation's upwind scheme): the CUDA
-kernels and their plain PyTorch version.
+"""Whole-leg dense red-black Gauss-Seidel on small 2D levels (the 2D
+Lyapunov equation and the HJB equation's upwind scheme on padded levels,
+2D Poisson on wrap and padded levels): the CUDA kernels and their plain
+PyTorch version.
 
 Replaces the TPU kernel `pde_multigrid_tpu/ops/pallas/relax.py`
 `make_resident_relax`: all sweeps of a relax leg in one launch, the level
@@ -20,8 +21,15 @@ coefficients) in registers, the band dense in shared memory for the y
 neighbours; one CTA up to 65^2 (its rows in segments), and above, the
 level in x bands on the largest cluster of at most 16 CTAs whose bands
 hold 2T rows, with 2T halo rows each side refreshed every T sweeps
-through distributed shared memory under one cluster barrier.  The update
-is the Pallas kernel's
+through distributed shared memory under one cluster barrier.  2D Poisson
+(`poisson_leg_layout`) runs the same kernel on its own stencil
+(csrc/poisson2d.cuh: no coefficient or mask array, the interior from the
+global index), on padded levels and on wrap levels, which it holds as the
+logical (n, n) level whose last row and column are stored row and column
+0.  Capacity gate: where no cluster holds a level (Poisson's wrap 512^2,
+like HJB's 513^2), `poisson_leg_layout` is None and the level goes to the
+slab kernel (`slab2d.py`), JAX's `make_slab_relax`.  The update is the
+Pallas kernel's
 `v + m * (kernel_update - v)`, red (x + y even) then black, with the masks
 of `_coords_and_masks`: the interior times the problem's
 `kernel_keep_mask` where it has one (HJB's pinned target ball).
@@ -41,12 +49,17 @@ import torch
 
 from pde_multigrid_tpu_torch.grid import LevelGeometry, base_aux
 from pde_multigrid_tpu_torch.models.hjb import HJBMinTime
+from pde_multigrid_tpu_torch.models.poisson import Poisson
 from pde_multigrid_tpu_torch.ops.cuda import build
 from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _stream
-from pde_multigrid_tpu_torch.ops.cuda.relax2d import leg_layout, lyap_params
+from pde_multigrid_tpu_torch.ops.cuda.relax2d import (
+    leg_layout,
+    lyap_params,
+    poisson_params,
+)
 from pde_multigrid_tpu_torch.ops.cuda.subtree import check_cluster
 
-launches = {"resident": 0, "resident_hjb": 0}
+launches = {"resident": 0, "resident_hjb": 0, "resident_poisson": 0}
 
 # csrc/resident.cu's HJB constants: the largest cluster, the threads and
 # shared memory a CTA may take, and the rows a thread's segment may hold
@@ -94,21 +107,22 @@ def fits(geom: LevelGeometry) -> bool:
 
 
 class HJBLegLayout(ctypes.Structure):
-    """The HJB kernel's `HJBLeg` (csrc/resident.cu): the level, the CTAs
-    (a cluster when more than one), owned rows B a CTA, halo rows H = 2T
-    each side and T, row segments G of L rows (the kernel's template
-    instance), threads a segment NC, the band's row stride S and rows,
-    threads a CTA and shared memory bytes."""
+    """The dense leg kernel's `HJBLeg` (csrc/resident.cu): the logical
+    level, the CTAs (a cluster when more than one), owned rows B a CTA,
+    halo rows H = 2T each side and T, row segments G of L rows (the
+    kernel's template instance), threads a segment NC, the band's row
+    stride S and rows, threads a CTA, shared memory bytes, and wrap (1:
+    wrap storage, the level stored as (X - 1, Y - 1))."""
 
     _fields_ = [(name, ctypes.c_int)
                 for name in ("X", "Y", "nctas", "B", "H", "T", "G", "L", "NC",
-                             "S", "rows", "threads", "smem_bytes")]
+                             "S", "rows", "threads", "smem_bytes", "wrap")]
 
     def as_dict(self) -> dict:
         return {name: getattr(self, name) for name, _ in self._fields_}
 
 
-def _hjb_layout(X: int, Y: int, nctas: int, T: int, G: int):
+def _hjb_layout(X: int, Y: int, nctas: int, T: int, G: int, wrap: int = 0):
     """The HJBLegLayout of an X x Y level on `nctas` CTAs (one: the whole
     level, no halo; more: x bands of B = ceil(X / nctas) rows with 2T halo
     rows each side, T sweeps between refreshes) with its band's rows cut
@@ -132,10 +146,10 @@ def _hjb_layout(X: int, Y: int, nctas: int, T: int, G: int):
     if G * NC > HJB_MAX_THREADS or smem > MAX_SMEM_BYTES:
         return None
     return HJBLegLayout(X, Y, nctas, B, H, T if cluster else 0, G, L, NC,
-                        S, rows, G * NC, smem)
+                        S, rows, G * NC, smem, wrap)
 
 
-def _segments(X: int, Y: int, nctas: int, T: int):
+def _segments(X: int, Y: int, nctas: int, T: int, wrap: int = 0):
     """The HJBLegLayout of a level on `nctas` CTAs with T sweeps between
     refreshes, in segments of HJB_SEG_ROWS rows where the threads allow,
     else in as few segments as the largest instance allows; None where
@@ -143,32 +157,51 @@ def _segments(X: int, Y: int, nctas: int, T: int):
     B = -(-X // nctas)
     nload = min(B + 4 * T, X) if nctas > 1 else X
     for rows in (HJB_SEG_ROWS, HJB_ROWS[-1]):
-        lay = _hjb_layout(X, Y, nctas, T, -(-nload // rows))
+        lay = _hjb_layout(X, Y, nctas, T, -(-nload // rows), wrap)
         if lay is not None:
             return lay
     return None
 
 
 @functools.lru_cache(maxsize=64)
-def hjb_leg_layout(geom: LevelGeometry):
-    """The HJB kernel's layout of a padded 2D level, None where it cannot
-    hold the level (513^2: the slab kernel's level).  One CTA where its
-    threads hold the level in segments (`_segments`: 65^2 and below, one
-    warp on 3^2); above, the largest cluster of at most HJB_MAX_CTAS CTAs
-    whose bands hold 2T rows, T the first of HJB_TS that fits.  Cached
-    per level: the wrapper asks at every launch."""
-    if geom.ndim != 2 or geom.wrap:
-        return None
-    X, Y = geom.padded_shape
-    lay = _segments(X, Y, 1, 0)
+def _leg_layout(X: int, Y: int, wrap: int):
+    """The dense leg kernel's layout of a logical X x Y level, None where
+    it cannot hold it: one CTA where its threads hold the level in
+    segments (`_segments`: 65^2 and below, one warp on 3^2); above, the
+    largest cluster of at most HJB_MAX_CTAS CTAs whose bands hold 2T rows,
+    T the first of HJB_TS that fits.  Cached: the wrappers ask at every
+    launch."""
+    lay = _segments(X, Y, 1, 0, wrap)
     if lay is not None:
         return lay
     for n in range(HJB_MAX_CTAS, 1, -1):
         for T in HJB_TS:
-            lay = _segments(X, Y, n, T)
+            lay = _segments(X, Y, n, T, wrap)
             if lay is not None:
                 return lay
     return None
+
+
+def hjb_leg_layout(geom: LevelGeometry):
+    """The HJB kernel's layout of a padded 2D level (`_leg_layout`), None
+    where it cannot hold the level (513^2: the slab kernel's level)."""
+    if geom.ndim != 2 or geom.wrap:
+        return None
+    return _leg_layout(*geom.padded_shape, 0)
+
+
+def poisson_leg_layout(geom: LevelGeometry):
+    """The 2D Poisson kernel's layout of a 2D level in either storage
+    (`_leg_layout` of the logical level: a wrap level's stored extents
+    plus its shared boundary row and column), None where no cluster holds
+    it: padded 257^2 ... 3^2 and wrap 256^2 ... 2^2 fit, wrap 512^2 (the
+    logical 513^2) does not, the capacity gate that sends it to the slab
+    kernel."""
+    if geom.ndim != 2:
+        return None
+    w = int(geom.wrap)
+    X, Y = geom.padded_shape
+    return _leg_layout(X + w, Y + w, w)
 
 
 def check_hjb(problem) -> None:
@@ -224,8 +257,9 @@ def resident_relax_plain(v, f, nsweeps: int, problem, geom: LevelGeometry):
 
 def resident_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
     """`nsweeps` red-black sweeps in place on v (one launch); f None is
-    the f-less leg (Lyapunov only).  The Lyapunov kernel runs on
-    `layout(geom)`, the HJB kernel on `hjb_leg_layout(geom)`."""
+    the f-less leg (Lyapunov and Poisson).  The Lyapunov kernel runs on
+    `layout(geom)`, the HJB kernel on `hjb_leg_layout(geom)`, the 2D
+    Poisson one on `poisson_leg_layout(geom)`."""
     if tuple(v.shape) != tuple(geom.padded_shape) or geom.ndim != 2:
         raise ValueError(
             f"v {tuple(v.shape)} does not match 2D level {geom.padded_shape}"
@@ -238,6 +272,8 @@ def resident_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
         check_hjb(problem)
         if not fs:
             raise ValueError("the HJB resident kernel takes f")
+    if isinstance(problem, Poisson):
+        return _resident_poisson(v, f, nsweeps, problem, geom)
     lay = None if hjb else layout(geom)
     if not hjb and lay is None:
         raise ValueError(
@@ -258,6 +294,32 @@ def resident_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
     )
     launches["resident"] += 1
     build.check(rc, "resident")
+    return v
+
+
+def _resident_poisson(v, f, nsweeps: int, problem, geom: LevelGeometry):
+    lay = poisson_leg_layout(geom)
+    if lay is None:
+        raise ValueError(
+            f"level {geom.padded_shape} does not fit the dense leg kernel "
+            f"({HJB_MAX_CTAS} CTAs of {MAX_SMEM_BYTES} B of shared memory "
+            f"and {HJB_MAX_THREADS} threads): the slab kernel's level")
+    params = poisson_params(problem, geom)
+    if not _on_cuda(v, *(() if f is None else (f,))):
+        return resident_relax_plain(v, f, nsweeps, problem, geom)
+    if nsweeps < 1:
+        return v
+    lib = build.load().lib
+    if lay.nctas > 1:
+        check_cluster(lib.pdemg_resident2d_poisson_clusters, lay,
+                      (lay.nctas, lay.threads, lay.smem_bytes),
+                      "resident_poisson")
+    rc = lib.pdemg_resident2d_poisson(
+        v.data_ptr(), None if f is None else f.data_ptr(), nsweeps,
+        ctypes.byref(lay), ctypes.byref(params), _stream(),
+    )
+    launches["resident_poisson"] += 1
+    build.check(rc, "resident_poisson")
     return v
 
 

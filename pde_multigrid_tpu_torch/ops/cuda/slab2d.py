@@ -1,13 +1,19 @@
-"""Dense red-black Gauss-Seidel on padded 2D HJB levels too large for the
-HJB leg kernel, in 2D tiles with a 2T-point halo: the CUDA kernel of
-`csrc/slab2d.cu` and its plain PyTorch version.
+"""Dense red-black Gauss-Seidel on 2D levels too large for the dense leg
+kernel (padded HJB levels; 2D Poisson levels in wrap or padded storage),
+in 2D tiles with a 2T-point halo: the CUDA kernel of `csrc/slab2d.cu` and
+its plain PyTorch version.
 
 Replaces the TPU kernel `pde_multigrid_tpu/ops/pallas/relax.py`
-`make_slab_relax` (the 513^2 finest level of the HJB row).  The update is
-the Pallas kernel's `v + m * (kernel_update - v)`, red (x + y even) then
-black, with the masks of `resident._plain_fields` (the interior without
-the pinned target ball); the kernel reads the same mask and coefficient
-tensors (`resident.hjb_fields`).  Each tile (one CTA) relaxes its owned
+`make_slab_relax` (the 513^2 finest level of the HJB row; 2D Poisson's
+wrap levels 4096^2 ... 1024^2, and 512^2, which no cluster of the dense
+leg holds).  The update is the Pallas kernel's `v + m * (kernel_update -
+v)`, red (x + y even) then black, with the masks of
+`resident._plain_fields` (the interior, for HJB without the pinned target
+ball); the HJB kernel reads the same mask and coefficient tensors
+(`resident.hjb_fields`), the Poisson one two constants and the interior
+from the global index (`relax2d.poisson_params`).  A wrap level is tiled
+as its logical (n, n) level, whose last row and column are stored row
+and column 0 (csrc/slab2d.cu).  Each tile (one CTA) relaxes its owned
 points with a halo of 2T points; every T sweeps the halos are refreshed
 from the neighbours' owned points.  On a level whose tiles the card holds
 co-resident (`slab_layout`'s `leg`: 513^2) a whole leg is one cooperative
@@ -29,15 +35,17 @@ import torch
 
 from pde_multigrid_tpu_torch.grid import LevelGeometry
 from pde_multigrid_tpu_torch.models.hjb import HJBMinTime
+from pde_multigrid_tpu_torch.models.poisson import Poisson
 from pde_multigrid_tpu_torch.ops.cuda import build
 from pde_multigrid_tpu_torch.ops.cuda.relax import _on_cuda, _sm_count, _stream
+from pde_multigrid_tpu_torch.ops.cuda.relax2d import poisson_params
 from pde_multigrid_tpu_torch.ops.cuda.resident import (
     _plain_fields,
     check_hjb,
     hjb_fields,
 )
 
-launches = {"slab2d": 0}
+launches = {"slab2d": 0, "slab2d_poisson": 0}
 
 # csrc/slab2d.cu's constants: the rows a thread's segment may hold (the
 # kernel's template instances: the layouts of 2^k + 1 and 3 2^k + 1
@@ -64,18 +72,19 @@ def reset_launches() -> None:
 
 
 class HJBSlabLayout(ctypes.Structure):
-    """The kernel's `HJBSlab` (csrc/slab2d.cu): the level, the tiles along
-    x and y (a CTA each), the rows and columns a tile owns (the last of
-    each axis also the level's rest), T and the halo H = 2T, row segments
-    G of L rows (the kernel's template instance), threads a segment NC,
-    the row stride S and rows in shared memory, threads a CTA, shared
-    memory bytes (the tile, and a leg's refresh table), and the form: 1
-    a whole leg in one cooperative launch, 0 at most T sweeps a launch."""
+    """The kernel's `HJBSlab` (csrc/slab2d.cu): the logical level, the
+    tiles along x and y (a CTA each), the rows and columns a tile owns
+    (the last of each axis also the level's rest), T and the halo H = 2T,
+    row segments G of L rows (the kernel's template instance), threads a
+    segment NC, the row stride S and rows in shared memory, threads a CTA,
+    shared memory bytes (the tile, and a leg's refresh table), the form: 1
+    a whole leg in one cooperative launch, 0 at most T sweeps a launch,
+    and wrap (1: wrap storage, the level stored as (X - 1, Y - 1))."""
 
     _fields_ = [(name, ctypes.c_int)
                 for name in ("X", "Y", "ntx", "nty", "BX", "BY", "T", "H",
                              "G", "L", "NC", "S", "rows", "threads",
-                             "smem_bytes", "leg")]
+                             "smem_bytes", "leg", "wrap")]
 
     def as_dict(self) -> dict:
         return {name: getattr(self, name) for name, _ in self._fields_}
@@ -106,8 +115,9 @@ class HJBSlabLayout(ctypes.Structure):
 
 
 def _slab_layout(X: int, Y: int, BX: int, BY: int, T: int, leg: bool,
-                 L: int | None = None):
-    """The HJBSlabLayout of an X x Y level in tiles of BX x BY owned points
+                 L: int | None = None, wrap: int = 0):
+    """The HJBSlabLayout of a logical X x Y level (wrap: stored as X - 1 by
+    Y - 1) in tiles of BX x BY owned points
     ((X - 1) // BX tiles along x, the last owning the rest; one tile owning
     all X rows where that is fewer than two; likewise y), T sweeps between
     refreshes (a leg) or at most T a launch, the widest tile's loaded rows
@@ -128,7 +138,7 @@ def _slab_layout(X: int, Y: int, BX: int, BY: int, T: int, leg: bool,
     for rows in (SLAB_ROWS if L is None else (L,)):
         G = -(-LX // rows)
         lay = HJBSlabLayout(X, Y, ntx, nty, BX, BY, T, H, G, rows, NC,
-                            NC + 2, G * rows + 4, G * NC, 0, int(leg))
+                            NC + 2, G * rows + 4, G * NC, 0, int(leg), wrap)
         lay.smem_bytes = 4 * lay.rows * lay.S + 8 * lay.table_entries()
         if (rows in SLAB_ROWS and lay.threads <= MAX_THREADS
                 and lay.smem_bytes <= MAX_SMEM_BYTES):
@@ -138,19 +148,22 @@ def _slab_layout(X: int, Y: int, BX: int, BY: int, T: int, leg: bool,
 
 @functools.lru_cache(maxsize=64)
 def slab_layout(geom: LevelGeometry):
-    """The kernel's layout of a padded 2D level, None where it has none: a
-    whole leg a launch on the smallest of LEG_TILES whose tiles a
-    co-resident grid holds (513^2: 16 x 8 tiles of 32 x 64 points), else
-    at most SLAB_T sweeps a launch on CHAIN_TILE (1025^2 and up).  Cached
-    per level: the wrapper asks at every call."""
-    if geom.ndim != 2 or geom.wrap:
+    """The kernel's layout of a 2D level, None where it has none: a whole
+    leg a launch on the smallest of LEG_TILES whose tiles a co-resident
+    grid holds (513^2, and wrap 512^2, whose logical level is 513^2: 16 x
+    8 tiles of 32 x 64 points), else at most SLAB_T sweeps a launch on
+    CHAIN_TILE (1025^2 and up, wrap 1024^2 and up).  A wrap level is laid
+    out as its logical level (its stored extents plus the shared boundary
+    row and column).  Cached per level: the wrapper asks at every call."""
+    if geom.ndim != 2:
         return None
-    X, Y = geom.padded_shape
+    w = int(geom.wrap)
+    X, Y = (n + w for n in geom.padded_shape)
     for tile in LEG_TILES:
-        lay = _slab_layout(X, Y, *tile, SLAB_T, True)
+        lay = _slab_layout(X, Y, *tile, SLAB_T, True, None, w)
         if lay is not None:
             return lay
-    return _slab_layout(X, Y, *CHAIN_TILE, SLAB_T, False)
+    return _slab_layout(X, Y, *CHAIN_TILE, SLAB_T, False, None, w)
 
 
 def sweeps_per_launch(lay: HJBSlabLayout) -> int:
@@ -201,21 +214,27 @@ def slab_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
     """`nsweeps` red-black sweeps of v, returned as a new tensor (v is not
     changed; on the card 0 sweeps return v itself), in `slab_launches`
     launches of the kernel on `slab_layout(geom)`: one for a leg on 513^2;
-    a layout whose CTAs the card cannot hold co-resident raises."""
-    if geom.ndim != 2 or geom.wrap or tuple(v.shape) != tuple(
-            geom.padded_shape):
+    a layout whose CTAs the card cannot hold co-resident raises.  HJB on
+    padded levels, 2D Poisson on padded and wrap levels."""
+    poisson = isinstance(problem, Poisson) and problem.ndim == 2
+    if geom.ndim != 2 or (geom.wrap and not poisson) or tuple(
+            v.shape) != tuple(geom.padded_shape):
         raise ValueError(
-            f"v {tuple(v.shape)} does not match padded 2D level "
-            f"{geom.padded_shape}"
+            f"v {tuple(v.shape)} does not match a 2D level "
+            f"{geom.padded_shape} of the slab kernel (wrap storage: 2D "
+            "Poisson only)"
         )
     if f is None or f.shape != v.shape:
         raise ValueError("the slab kernel takes f of v's shape")
-    if not isinstance(problem, HJBMinTime):
+    if poisson:
+        params = poisson_params(problem, geom)
+    elif isinstance(problem, HJBMinTime):
+        check_hjb(problem)
+    else:
         raise TypeError(
-            "the slab kernel implements the HJBMinTime upwind update; got "
-            f"{type(problem).__name__}"
+            "the slab kernel implements the HJBMinTime upwind update and "
+            f"the 2D Poisson one; got {type(problem).__name__}"
         )
-    check_hjb(problem)
     lay = slab_layout(geom)
     if lay is None:
         raise ValueError(f"level {geom.padded_shape} fits no layout of the "
@@ -228,11 +247,14 @@ def slab_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
     if lay.leg and lay.ctas > sms:
         raise ValueError(f"the slab kernel's leg needs {lay.ctas} CTAs "
                          f"co-resident; the card has {sms} SMs")
-    params, _ = hjb_fields(problem, geom, v.device)
+    if not poisson:
+        params, _ = hjb_fields(problem, geom, v.device)
     box, count = None, None
     if lay.leg and lay.ctas > 1:
         box, count = (a.data_ptr() for a in _leg_state(lay, v.device))
-    fn = build.load().lib.pdemg_slab2d
+    lib = build.load().lib
+    name = "slab2d_poisson" if poisson else "slab2d"
+    fn = lib.pdemg_slab2d_poisson if poisson else lib.pdemg_slab2d
     per = sweeps_per_launch(lay)
     bufs = [torch.empty_like(v)]
     if nsweeps > per:
@@ -244,7 +266,7 @@ def slab_relax(v, f, nsweeps: int, problem, geom: LevelGeometry):
         rc = fn(src.data_ptr(), dst.data_ptr(), f.data_ptr(), here,
                 ctypes.byref(lay), ctypes.byref(params), box, count,
                 _stream())
-        launches["slab2d"] += 1
-        build.check(rc, "slab2d")
+        launches[name] += 1
+        build.check(rc, name)
         src, done = dst, done + here
     return src

@@ -89,9 +89,9 @@ def check_sharded(problem, geoms: Sequence[LevelGeometry], smoother: str,
             "queue 2 item 40")
     if g.ndim == 2 and isinstance(problem, Poisson):
         raise NotImplementedError(
-            f"a mesh solve of {problem.name}: 2D Poisson needs a Poisson "
-            "stencil in relax2d.cu and resident.cu; it is ROADMAP.md queue "
-            "1 item 11")
+            f"a mesh solve of {problem.name}: 2D Poisson on a mesh needs a "
+            "two-sided halo in the split2d engine and row 17's Poisson "
+            "form; it is ROADMAP.md queue 1 item 17")
     ok = ((isinstance(problem, Poisson) and g.ndim == 3 and g.wrap)
           or (isinstance(problem, Lyapunov2D) and not g.wrap))
     if not ok:

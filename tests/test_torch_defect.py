@@ -223,8 +223,8 @@ def test_mixed_plan_pins():
     """(f) CudaKernels(mixed=True) on the 129^3 exact-coarsest geometries:
     a defect plan on level 0 with min_sweeps 4, its error sweeps the
     whole-leg kernel (one launch a leg at any nu), none on the exact
-    level; a leg of < 4 sweeps takes the f32 split relax.  float64,
-    padded storage and other problems still raise."""
+    level; a leg of < 4 sweeps takes the f32 split relax.  float64 and
+    padded 3D storage still raise; 2D Poisson relaxes in float32."""
     prob = TPoisson(3)
     geoms = TG.build_geometries((129,) * 3, DOM, 2, wrap=True)
     k = CudaKernels(prob, geoms, torch.float32, range(len(geoms) - 1),
@@ -255,10 +255,12 @@ def test_mixed_plan_pins():
         CudaKernels(prob, geoms, torch.float64, mixed=True)
     with pytest.raises(NotImplementedError):
         CudaKernels(prob, padded, torch.float32, mixed=True)
-    with pytest.raises(NotImplementedError):
-        CudaKernels(TPoisson(2), TG.build_geometries(
-            (17, 17), ((0.0, 1.0),) * 2, wrap=True), torch.float32,
-            mixed=True)
+    # 2D Poisson is planned; with mixed its levels relax in float32 (no
+    # defect plan covers a 2D level), as JAX's do
+    k2 = CudaKernels(TPoisson(2), TG.build_geometries(
+        (17, 17), ((0.0, 1.0),) * 2, wrap=True), torch.float32, mixed=True)
+    assert all(d is None for d in k2._defect)
+    assert all(fn is not None for fn in k2._relax)
 
 
 # ------------------------------------------------------------------- slice

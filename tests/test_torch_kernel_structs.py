@@ -16,6 +16,7 @@ from pde_multigrid_tpu_torch.ops.cuda import blocked3d as BL
 from pde_multigrid_tpu_torch.ops.cuda import masked_block as MB
 from pde_multigrid_tpu_torch.ops.cuda import reduced2d as RD
 from pde_multigrid_tpu_torch.ops.cuda import relax1d as R1
+from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
 from pde_multigrid_tpu_torch.ops.cuda import resident as RS
 from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
 from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
@@ -68,6 +69,7 @@ def _struct_name(t):
     ("reduced2d.cu", "Reduced2DLayout", RD.Reduced2DLayout),
     ("blocked3d.cu", "Blocked3DLayout", BL.Blocked3DLayout),
     ("slab2d.cu", "HJBSlab", SL.HJBSlabLayout),
+    ("poisson2d.cuh", "Poisson2D", R2.Poisson2DParams),
     ("transfer.cu", "RestrictLayout", TR.RestrictLayout),
     ("transfer.cu", "ProlongLayout", TR.ProlongLayout),
     ("transfer.cu", "ResidualLayout", TR.ResidualLayout),

@@ -207,8 +207,8 @@ def test_wrappers_reject_what_kernels_do_not_take():
 
 def test_cuda_dispatch_plan():
     """CudaKernels plans every relaxed 3D wrap level and every level pair,
-    and refuses what it cannot serve instead of running plain ops: 2D
-    Poisson still raises, 2D Lyapunov is planned."""
+    and refuses what it cannot serve instead of running plain ops; 2D
+    Poisson (wrap and padded storage) and 2D Lyapunov are planned."""
     prob = TPoisson(3)
     geoms = TG.build_geometries((17,) * 3, prob.domain, wrap=True)
     k = CudaKernels(prob, geoms, torch.float32, range(len(geoms) - 1))
@@ -219,12 +219,12 @@ def test_cuda_dispatch_plan():
         CudaKernels(prob, padded, torch.float32)
     with pytest.raises(NotImplementedError):
         CudaKernels(prob, geoms, torch.float64)
-    with pytest.raises(NotImplementedError):
-        CudaKernels(TPoisson(2), TG.build_geometries(
-            (17, 17), ((0.0, 1.0),) * 2, wrap=True), torch.float32)
-    with pytest.raises(NotImplementedError):
-        CudaKernels(TPoisson(2), TG.build_geometries(
-            (17, 17), ((0.0, 1.0),) * 2), torch.float32)
+    # 2D Poisson: the dense leg on every 17^2 level of either storage
+    for wrap in (True, False):
+        kp = CudaKernels(TPoisson(2), TG.build_geometries(
+            (17, 17), ((0.0, 1.0),) * 2, wrap=wrap), torch.float32)
+        assert kp._relax == [kp._relax_resident] * 4
+        assert kp._split == [False] * 4
     with pytest.raises(NotImplementedError):
         k.relax(len(geoms) - 1, None, None, None, 1)
     # 2D Lyapunov (padded storage) is planned: no longer refused

@@ -401,7 +401,8 @@ def test_cuda_dispatch_plan_2d():
     """The 4097^2 exact-coarsest hierarchy: 4097^2 ... 513^2 take the
     persistent split tier, 257^2 ... 65^2 the resident kernel, 33^2 the
     dense coarse solve.  With mixed the levels relax in float32 (no defect
-    plan covers a 2D level).  2D Poisson still raises."""
+    plan covers a 2D level).  2D Poisson is planned: its padded split
+    levels take the same persistent tier, in row 16's Poisson form."""
     prob = Lyapunov2D()
     geoms = TG.build_geometries((4097, 4097), prob.domain, 8)
     assert [g.shape[0] for g in geoms] == [
@@ -419,9 +420,11 @@ def test_cuda_dispatch_plan_2d():
     assert [R2.slab_tile(g.shape[0], (g.shape[1] + 1) // 2, R2.CHUNK_T)[4]
             for g in geoms[:4]] == [1024, 1024, 1024, 512]
     assert [RS.layout(g)[2] for g in geoms[4:7]] == [16, 15, 9]
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        CudaKernels(Poisson(2), TG.build_geometries(
-            (17, 17), ((0.0, 1.0),) * 2), torch.float32)
+    pk = CudaKernels(Poisson(2, ((0.0, 1.5),) * 2), TG.build_geometries(
+        (4097, 4097), ((0.0, 1.5),) * 2, 8), torch.float32, range(7))
+    assert pk._split == k._split
+    assert pk._relax[:4] == [pk._relax_split] * 4
+    assert pk._relax[4:7] == [pk._relax_resident] * 3
     with pytest.raises(NotImplementedError):
         CudaKernels(prob, geoms, torch.float64, range(7))
     # a level neither tier serves: too wide for the resident kernel and

@@ -459,12 +459,14 @@ def test_slab_layout_covers_each_level(n):
 
 
 def test_slab_layout_refuses_what_it_cannot_hold():
-    """No layout off padded 2D levels; a leg on more CTAs than the grid
-    holds co-resident, tiles owning fewer than 2T points beside a
-    neighbour, or a CTA short of threads are refused; the wrapper raises
-    on a level without a layout."""
-    assert SL.slab_layout(TG.build_geometries((17, 17), DOM, 1,
-                                              wrap=True)[0]) is None
+    """No layout off 2D levels (a wrap level's is its logical level's, for
+    2D Poisson); a leg on more CTAs than the grid holds co-resident, tiles
+    owning fewer than 2T points beside a neighbour, or a CTA short of
+    threads are refused; the wrapper raises on a level without a layout,
+    and on HJB over a wrap level."""
+    wrap_lay = SL.slab_layout(TG.build_geometries((17, 17), DOM, 1,
+                                                  wrap=True)[0])
+    assert (wrap_lay.X, wrap_lay.Y, wrap_lay.wrap) == (17, 17, 1)
     assert SL.slab_layout(TG.build_geometries((17,) * 3, DOM + DOM[:1],
                                               1)[0]) is None
     assert SL._slab_layout(1025, 1025, 32, 64, 4, True) is None  # 512 CTAs

@@ -410,7 +410,7 @@ def test_refusals_at_construction():
     mesh of another size than the process group, or on a device the mesh
     does not run on, raises."""
     mesh = make_mesh(1, device="cpu")
-    cases = [(Poisson(2), 33, {}, "queue 1 item 11"),
+    cases = [(Poisson(2), 33, {}, "queue 1 item 17"),
              (Lyapunov2D(), 33, {"scheme": "fas"}, "queue 2 item 40"),
              (Poisson(1), 33, {}, "queue 1 item 17"),
              (HJBMinTime(), 33, {}, "queue 2 item 40"),
