@@ -305,6 +305,24 @@ Phases, in order; any failure exits non-zero without the final result line:
      storages) and `--coarsest exact`; wcycle2d, one W-cycle (mu = 2) of
      every 2D and 1D plan (2D Poisson wrap and padded, Lyapunov and HJB
      at 513^2, Ode1D at 1025) against the plain tier on the card.
+ 18. 3D Poisson in padded storage ([0, 1.5]^3, a nonzero boundary), after
+     the 2D Poisson path: kernels_poisson3d_padded, the padded forms of
+     rows 1 and 3 (padded3d.cu's whole leg on a cluster, 65^3 ... 3^3;
+     slab3d.cu's half-sweep a launch, 513^3 ... 129^3) bitwise their
+     plain version (`padded3d.sweeps_plain`) on every level of the 513^3
+     padded hierarchy in the plan's form at 1, 2, 3 and 100 sweeps with
+     f and at 3 and 100 f-less, the boundary unchanged, a 100-sweep leg
+     timed on every level, each form's record beside its plain version;
+     poisson3d_padded, FMG(2, 100, 100) exact-coarsest at 257^3 and 513^3
+     through `MultigridSolver.solve()` on "cuda": error_linf < 50 h^2,
+     exactly the schedule's launches and no other kernel, eager/graph ms
+     a step, DOF-updates/s, the busy split; the mixed plan (float32
+     relax, no defect form); at 129^3 the f32 solve against its float64
+     solve (within 64 ulp of max|u|); one W-cycle (mu = 2) and one FAS
+     V-cycle at 65^3 bitwise the plain tier on the card;
+     poisson3d_padded_cli,
+     `--problem poisson3d --domain 1.5 --n 257 --nu1 100 --nu2 100` with
+     `--coarsest exact` and with the default relaxed coarsest (to 3^3).
 
 Every float64 reference but phase 11's is a `MultigridSolver(...,
 dtype="float64", device="cuda")` solve: the plain tier on the card.  Each phase's seconds
@@ -530,6 +548,16 @@ KERNELS = {
         "pde_multigrid_tpu_torch/ops/cuda/csrc/color_slab2d_shard.cu",
         "pde_multigrid_tpu/ops/pallas/relax.py:2547",
     ),
+    # the 3D padded Poisson forms of rows 1 and 3: the whole leg on a
+    # cluster (65^3 ... 3^3) and a half-sweep a launch (513^3 ... 129^3)
+    "padded3d": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/padded3d.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:143",
+    ),
+    "slab3d": (
+        "pde_multigrid_tpu_torch/ops/cuda/csrc/slab3d.cu",
+        "pde_multigrid_tpu/ops/pallas/relax.py:334",
+    ),
     # no Pallas original: JAX runs line relaxation on its jnp tier
     # (thomas_tridiagonal, relax_zebra_line); the anis3d row's relax
     "zebra_line": (
@@ -632,6 +660,13 @@ PATHS = {
                         "resident"),
     "wcycle_hjb": ("slab2d", "resident_hjb"),
     "wcycle_ode1d": ("relax1d",),
+    # 3D padded Poisson: the leg on 65^3 and below, the sweep kernel above
+    "poisson3d_padded_257": ("padded3d", "slab3d"),
+    "poisson3d_padded_513": ("padded3d", "slab3d"),
+    "poisson3d_padded_129": ("padded3d", "slab3d"),
+    "poisson3d_padded_cli": ("padded3d", "slab3d"),
+    "wcycle_poisson3d_padded": ("padded3d",),
+    "fas_poisson3d_padded": ("padded3d",),
 }
 
 # per-sweep barrier floors of the whole-leg kernels, measured on the
@@ -2111,6 +2146,7 @@ def _counter_modules():
     from pde_multigrid_tpu_torch.ops.cuda import blocked3d as BL
     from pde_multigrid_tpu_torch.ops.cuda import defect as D
     from pde_multigrid_tpu_torch.ops.cuda import masked_block as MB
+    from pde_multigrid_tpu_torch.ops.cuda import padded3d as PD
     from pde_multigrid_tpu_torch.ops.cuda import reduced2d as RD
     from pde_multigrid_tpu_torch.ops.cuda import relax as R
     from pde_multigrid_tpu_torch.ops.cuda import relax1d as R1
@@ -2118,12 +2154,13 @@ def _counter_modules():
     from pde_multigrid_tpu_torch.ops.cuda import resident as RS
     from pde_multigrid_tpu_torch.ops.cuda import resident3d as RS3
     from pde_multigrid_tpu_torch.ops.cuda import slab2d as SL
+    from pde_multigrid_tpu_torch.ops.cuda import slab3d as SB
     from pde_multigrid_tpu_torch.ops.cuda import stencilop as SO
     from pde_multigrid_tpu_torch.ops.cuda import subtree as ST
     from pde_multigrid_tpu_torch.ops.cuda import transfer as T
     from pde_multigrid_tpu_torch.ops.cuda import zebra_line as ZL
 
-    return (R, T, D, R2, RS, R1, SL, SO, ST, MB, RS3, RD, BL, ZL)
+    return (R, T, D, R2, RS, R1, SL, SO, ST, MB, RS3, RD, BL, ZL, PD, SB)
 
 
 def reset_counts() -> None:
@@ -5886,6 +5923,315 @@ def phase_wcycle2d(torch):
     return out
 
 
+P3D_NS = (257, 513)
+P3D_NUS = (2, 100, 100)
+# the domain's upper bound: sin(1.5 pi) = -1 on the far faces, a nonzero
+# boundary, so the solver builds the padded hierarchy
+P3D_HI = 1.5
+# the sweep counts each padded form is held at: 1, 2, 3 (T, T + 1, T + 2
+# of the leg's cycle of two copies, a sweep, and of the half-sweep
+# kernel's pair of launches through the scratch, a sweep) and a bench leg
+P3D_SWEEPS = (1, 2, 3, 100)
+# ms of the padded forms by level (phase_kernels_poisson3d_padded)
+P3D_AB = {}
+
+
+def _p3d_problem():
+    """Poisson(3) on [0, P3D_HI]^3: a nonzero boundary, padded storage."""
+    from pde_multigrid_tpu_torch import Poisson3D
+
+    return Poisson3D(((0.0, P3D_HI),) * 3)
+
+
+def _p3d_cost(g, nsweeps: int):
+    """(bytes, operations) of `nsweeps` red-black sweeps on a padded 3D
+    level: v and f read once and v written once, 12 B a point, and 13
+    float32 operations an interior point and sweep (three pair sums,
+    three products, three sums, the negation, the scale, the blend's
+    difference and sum)."""
+    X, Y, Z = g.shape
+    return 12 * X * Y * Z, 13 * (X - 2) * (Y - 2) * (Z - 2) * nsweeps
+
+
+def phase_kernels_poisson3d_padded(torch):
+    """The padded 3D Poisson forms of rows 1 and 3 against their plain
+    version `padded3d.sweeps_plain` on the card, bitwise (torch.equal),
+    on every level of the 513^3 padded hierarchy in the form the plan
+    gives it (`CudaKernels.tiers`): 513^3, 257^3 and 129^3 the half-sweep
+    kernel (`slab3d.slab3d_relax`, two launches a sweep), 65^3 ... 3^3
+    the whole leg (`padded3d.padded3d_relax`, one launch a leg), at
+    P3D_SWEEPS sweeps with f and at 3 and 100 f-less, from v and f
+    N(0, 1) everywhere (the boundary values nonzero: they must come out
+    as they went in).  A 100-sweep leg of every level's form
+    graph-replayed (ms into P3D_AB by level); the records: padded3d a
+    100-sweep leg at 65^3, slab3d one sweep (a red and a black launch
+    through the scratch, as in the solver's legs) at 513^3, each beside
+    its plain version in turns (graph replay).  Returns {name: record}."""
+    from pde_multigrid_tpu_torch.grid import build_geometries
+    from pde_multigrid_tpu_torch.ops.cuda import padded3d as PD
+    from pde_multigrid_tpu_torch.ops.cuda import slab3d as SB
+    from pde_multigrid_tpu_torch.ops.cuda.dispatch import CudaKernels
+
+    prob = _p3d_problem()
+    geoms = build_geometries((P3D_NS[-1],) * 3, prob.domain, wrap=False)
+    kern = CudaKernels(prob, geoms, torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2027)
+    nsw = P3D_SWEEPS[-1]
+    legs = P3D_AB.setdefault(f"leg_{nsw}_ms", {})
+    out = {}
+
+    def record(name, err, t, what, cost):
+        res = {"max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+               **bound(*cost), "library_ms": None}
+        log(f"kernel {name} ({what}): max|kernel - plain| = {err!r}; device "
+            f"{t['ms']!r} ms vs plain {t['plain_ms']!r} ms (bound "
+            f"{res['bound_ms']!r} ms by {res['bound_by']}); eager call "
+            f"{t['eager_ms']!r} ms vs plain {t['eager_plain_ms']!r} ms")
+        return res
+
+    for l, g in enumerate(geoms):
+        n = g.shape[0]
+        v = torch.randn(g.shape, generator=gen, device="cuda")
+        f = torch.randn(g.shape, generator=gen, device="cuda")
+        m_red, m_black = PD.masks(*g.shape, torch.float32, "cuda")
+        fixed = (m_red + m_black) == 0
+        if kern.tiers[l] == "padded3d":
+            lay = PD.leg_layout(g)
+            relax = lambda w, ff, ns, g=g: PD.padded3d_relax(  # noqa: E731
+                w, ff, ns, prob, g)
+            tag = (f"padded3d {n}^3 ({lay.nctas} CTA(s) of {lay.threads} "
+                   f"threads, {lay.planes} plane(s) x {lay.slots} slot(s) a "
+                   f"thread, instance <{lay.pm}, {lay.jm}>, "
+                   f"{lay.smem_bytes} B of shared memory)")
+        else:
+            require(kern.tiers[l] == "slab3d",
+                    f"{n}^3: not a planned padded form ({kern.tiers[l]})")
+            scratch = torch.empty_like(v)
+            relax = lambda w, ff, ns, g=g, s_=scratch: (  # noqa: E731
+                SB.slab3d_relax(w, ff, ns, prob, g, scratch=s_))
+            tag = f"slab3d {n}^3 (a launch a colour half-sweep)"
+        err = 0.0
+        for ff, fl in ((f, "f"), (None, "f-less")):
+            for ns in P3D_SWEEPS:
+                if ff is None and ns not in (3, nsw):
+                    continue
+                k = relax(v.clone(), ff, ns)
+                p = PD.sweeps_plain(v, ff, ns, prob, g)
+                err = max(err, _max_err(torch, k, p))
+                require(torch.equal(k, p), f"{tag}, {fl}, {ns} sweeps: not "
+                        f"bitwise its plain version: max diff "
+                        f"{_max_err(torch, k, p)!r}")
+                require(torch.equal(k[fixed], v[fixed]),
+                        f"{tag}, {fl}, {ns} sweeps: a boundary point changed")
+                del k, p
+        w = v.clone()
+        legs[n] = device_ms(torch, lambda: relax(w, f, nsw), 1)
+        if n == 65 and kern.tiers[l] == "padded3d":
+            t = paired_times(torch, lambda: relax(w, f, nsw),
+                             lambda: PD.sweeps_plain(v, f, nsw, prob, g), 1)
+            out["padded3d"] = record("padded3d", err, t,
+                                     f"{tag}: one {nsw}-sweep leg",
+                                     _p3d_cost(g, nsw))
+        if l == 0:
+            t = paired_times(torch, lambda: relax(w, f, 1),
+                             lambda: PD.sweeps_plain(v, f, 1, prob, g), 3)
+            out["slab3d"] = record("slab3d", err, t,
+                                   f"{tag}: one sweep (two launches)",
+                                   _p3d_cost(g, 1))
+        log(f"{tag}: bitwise; a {nsw}-sweep leg {legs[n]!r} ms "
+            f"({legs[n] / (2 * nsw) * 1e3!r} us a half-sweep)")
+        del v, f, w, fixed
+    torch.cuda.synchronize()
+    return out
+
+
+def poisson3d_padded_launches(solver) -> dict:
+    """The relax launches of one FMG step of the padded 3D plan: level l
+    takes nu0 (l + 1) V-cycles, each a nu1 and a nu2 leg: one launch of
+    the whole leg on its levels, two launches a sweep (red, black) of the
+    half-sweep kernel on the others."""
+    kern = solver.program.kernels
+    cyc = solver.config.cycle
+    want = {"padded3d": 0, "slab3d": 0}
+    for l, tier in enumerate(kern.tiers):
+        if tier is None:
+            continue
+        cycles = cyc.nu0 * (l + 1)
+        if tier == "padded3d":
+            want["padded3d"] += 2 * cycles
+        else:
+            want["slab3d"] += 2 * cycles * (cyc.nu1 + cyc.nu2)
+    return want
+
+
+def _p3d_solve(torch, n: int, timing: bool):
+    """FMG(2, 100, 100) exact-coarsest f32 at n^3 on [0, 1.5]^3 through
+    `MultigridSolver.solve()` on "cuda": the padded hierarchy, every
+    relaxed level on a padded form, error_linf < 50 h^2, exactly the
+    schedule's launches and no other kernel; with `timing`, ms a step
+    eager and as one CUDA graph and the busy split.  Returns (launch
+    counts, summary, solution)."""
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        MultigridSolver,
+        SolverConfig,
+    )
+
+    prob = _p3d_problem()
+    cfg = SolverConfig(cycle=CycleConfig("fmg", *P3D_NUS, coarsest="exact"))
+    solver = MultigridSolver(prob, n, cfg, device="cuda")
+    kern = solver.program.kernels
+    tag = f"poisson3d padded {n}^3"
+    relaxed = [t for t in kern.tiers if t is not None]
+    require(not solver.geoms[0].wrap and relaxed
+            and set(relaxed) <= {"padded3d", "slab3d"}
+            and kern._relax[-1] is None,
+            f"{tag}: the plan {kern.tiers} is not the padded forms' (wrap "
+            f"{solver.geoms[0].wrap})")
+    levels = solver.fresh_levels()
+    torch.cuda.synchronize()
+    reset_counts()
+    res = solver.solve(levels)
+    h = max(solver.geoms[0].spacing)
+    want = poisson3d_padded_launches(solver)
+    log(f"{tag}: levels {[g.shape for g in solver.geoms]}, tiers "
+        f"{kern.tiers}, error_linf {res.error_linf!r} (limit 50 h^2 = "
+        f"{50 * h * h!r}), residual_l2 {res.residual_l2!r}, residual_linf "
+        f"{res.residual_linf!r}, launches {read_counts()}; the schedule's "
+        f"{want}")
+    counts = _check_solve(torch, tag, res, solver, 50 * h * h,
+                          f"poisson3d_padded_{n}", want)
+    summary = {"n": n, "problem": "poisson3d", "storage": "padded",
+               "domain": [0.0, P3D_HI], "precision": "f32",
+               "levels": [g.padded_shape for g in solver.geoms],
+               "tiers": kern.tiers, "error_linf": res.error_linf,
+               "residual_l2": res.residual_l2, "launches_per_step": want,
+               "sha256": _sha(res.v)}
+    v = res.v.clone()
+    if timing:
+        summary.update(time_step(torch, tag, solver, levels, 1, 1))
+        busy = busy_split_ms(
+            torch, lambda: solver.program.solve_step(levels),
+            {"padded3d": "padded3d_leg_kernel",
+             "slab3d": "slab3d_half_sweep_kernel"})
+        summary["busy_ms"] = busy
+        log(f"{tag}: device busy ms per step by kernel (profiler) {busy!r}")
+    return counts, summary, v
+
+
+def phase_poisson3d_padded(torch):
+    """3D Poisson in padded storage: FMG(2, 100, 100) exact-coarsest at
+    257^3 and 513^3 (`_p3d_solve`, timed), the mixed plan at 257^3 (the
+    same kernels, float32: no defect plan covers a padded level), at
+    129^3 the f32 solve against the float64 solve of the same schedule on
+    the card (plain tier): the error_linf gap within 1 % and max|v -
+    v_float64| within ANIS_F32_ULPS ulp of max|v|, the float32 floor; and
+    at 65^3 one W-cycle (mu = 2) and one FAS V-cycle (nu = (4, 4),
+    relaxed to 3^3) against the plain tier on the card: the leg launched
+    and no other kernel, v bitwise the plain tier's (the same blend, the
+    same plain transfers).  Returns (launch counts by path,
+    summaries)."""
+    from pde_multigrid_tpu_torch import (
+        CycleConfig,
+        MultigridSolver,
+        SolverConfig,
+    )
+    from pde_multigrid_tpu_torch.cycles import CycleProgram, TorchKernels
+
+    counts_by, out = {}, []
+    for n in P3D_NS:
+        counts_by[f"poisson3d_padded_{n}"], summary, v = _p3d_solve(
+            torch, n, True)
+        out.append(summary)
+        del v
+    prob = _p3d_problem()
+    mixed = MultigridSolver(prob, P3D_NS[0], SolverConfig(
+        cycle=CycleConfig("fmg", *P3D_NUS, coarsest="exact"),
+        precision="mixed"), device="cuda").program.kernels
+    require(all(d is None for d in mixed._defect)
+            and mixed.tiers == out[0]["tiers"],
+            f"mixed {P3D_NS[0]}^3: tiers {mixed.tiers}, defect plans "
+            f"{mixed._defect}")
+    log(f"mixed {P3D_NS[0]}^3: the f32 plan {mixed.tiers}, no defect form")
+    _, s129, v129 = _p3d_solve(torch, 129, False)
+    phase_f64_reference(
+        torch, prob, 129, P3D_NUS, s129, v129, "poisson3d padded 129^3",
+        dv_limit=ANIS_F32_ULPS * 2.0 ** -23 * float(torch.max(torch.abs(
+            v129))))
+    out.append(s129)
+    for name, cyc in (
+            ("wcycle_poisson3d_padded",
+             CycleConfig("w", 1, 4, 4, 2, coarsest="relax")),
+            ("fas_poisson3d_padded",
+             CycleConfig("v", 1, 4, 4, scheme="fas", coarsest="relax"))):
+        solver = MultigridSolver(prob, 65, SolverConfig(cycle=cyc),
+                                 device="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        lv = solver.program.solve_step(solver.fresh_levels())
+        torch.cuda.synchronize()
+        tag = f"{name} 65^3"
+        counts = _check_counts(tag, name)
+        plain = CycleProgram(prob, solver.geoms, cyc,
+                             TorchKernels(prob, solver.geoms),
+                             device=solver.device)
+        pl = plain.solve_step(solver.fresh_levels())
+        dv = _max_err(torch, lv[0].v, pl[0].v)
+        l2, _ = solver.program.residual_norms(lv)
+        l2p, _ = plain.residual_norms(pl)
+        l2, l2p = float(l2), float(l2p)
+        same = torch.equal(lv[0].v, pl[0].v)
+        log(f"{tag}: launches {counts['padded3d']} padded3d, residual_l2 "
+            f"{l2!r} (plain tier {l2p!r}), max|v - v_plain| {dv!r}, "
+            f"bitwise: {same}")
+        require(l2 == l2 and abs(l2) != float("inf") and same,
+                f"{tag}: not bitwise the plain tier's solution")
+        out.append({"cycle": name, "n": 65, "residual_l2": l2,
+                    "plain_residual_l2": l2p, "max_abs_dv_vs_plain": dv,
+                    "launches": counts["padded3d"]})
+        del solver, lv, pl
+    return counts_by, out
+
+
+def phase_poisson3d_padded_cli(torch):
+    """`python -m pde_multigrid_tpu_torch --problem poisson3d --domain 1.5
+    --n 257 --nu1 100 --nu2 100` in process on "cuda", with `--coarsest
+    exact` (9^3 the dense inverse) and with the CLI's default relaxed
+    coarsest level (the hierarchy to 3^3, the leg on 65^3 ... 3^3): finite
+    residuals, error_linf < 50 h^2, both padded forms launched and no
+    other kernel.  Returns (launch counts, summaries)."""
+    from pde_multigrid_tpu_torch.__main__ import main as cli_main
+
+    counts, out = {}, []
+    n = 257
+    for extra in (["--coarsest", "exact"], []):
+        args = ["--problem", "poisson3d", "--domain", str(P3D_HI), "--n",
+                str(n), "--nu1", "100", "--nu2", "100", *extra,
+                "--device", "cuda"]
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            cli_main(args)
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        limit = 50 * (P3D_HI / (n - 1)) ** 2
+        tag = f"CLI {' '.join(args)}"
+        launched = {k: c for k, c in read_counts().items() if c}
+        log(f"{tag}: error_linf {res['error_linf']!r} (limit {limit!r}), "
+            f"residual_l2 {res['residual_l2']!r}, solve "
+            f"{res['wall_time_s']!r} s, launches {launched}")
+        require(res["error_linf"] < limit and not res["diverged"] and all(
+            x == x and abs(x) != float("inf")
+            for x in res["residual_history"]), f"{tag}: failed its gate")
+        counts = _check_counts(tag, "poisson3d_padded_cli")
+        out.append({"cli": args, "error_linf": res["error_linf"],
+                    "residual_l2": res["residual_l2"],
+                    "wall_time_s": res["wall_time_s"], "launches": launched})
+    return counts, out
+
+
 PHASE_S = {}
 
 
@@ -5916,7 +6262,7 @@ def tables() -> dict:
             "residual_ab": RESIDUAL_AB,
             "relax1d_leg_ms": RELAX1D_LEG_MS,
             "line_ab": LINE_AB, "wcycle_ab": WCYCLE_AB,
-            "poisson2d_ab": P2D_AB,
+            "poisson2d_ab": P2D_AB, "poisson3d_padded_ab": P3D_AB,
             "phase_s": PHASE_S}
 
 
@@ -6068,6 +6414,13 @@ def main() -> int:
         summaries += sp2
         summaries += timed("poisson2d_cli", phase_poisson2d_cli, torch)[1]
         summaries += timed("wcycle2d", phase_wcycle2d, torch)
+        results.update(timed("kernels_poisson3d_padded",
+                             phase_kernels_poisson3d_padded, torch))
+        cp3, sp3 = timed("poisson3d_padded", phase_poisson3d_padded, torch)
+        counts.update(cp3)
+        summaries += sp3
+        summaries += timed("poisson3d_padded_cli",
+                           phase_poisson3d_padded_cli, torch)[1]
         summaries.append(timed("fas3d", phase_fas3d, torch))
         results.update(timed("kernels_stencil", phase_kernels_stencil,
                              torch))
@@ -6121,7 +6474,7 @@ def main() -> int:
                         "preset129", "fas257",
                         "sharded257", "sharded_lyap", "lyapunov_reduced",
                         "f32_257_blocked", "anis3d", "poisson2d_wrap",
-                        "poisson2d_padded")
+                        "poisson2d_padded", "poisson3d_padded_513")
             if name in PATHS[p])
 
     kernels = [

@@ -143,6 +143,12 @@ SIGNATURES = {
     # fb) and a pointer to a host struct (resident3d.Resident3DParams)
     "pdemg_resident3d": (_P, _P, _P, _P, _P, _P),
     "pdemg_resident3d_clusters": (_P, _P),
+    # the padded 3D Poisson kernels take the constants as a pointer to a
+    # host struct (padded3d.Poisson3DParams), the leg its layout as another
+    # (padded3d.Padded3DLayout)
+    "pdemg_padded3d": (_P, _P, _I, _P, _P, _P),
+    "pdemg_padded3d_clusters": (_P, _P, _P),
+    "pdemg_slab3d": (_P, _P, _P, _I, _P, _P),
     # a zebra line half-sweep: v, f, the dp scratch, the per-row constants,
     # a pointer to a host struct (zebra_line.ZebraLineParams) and ndim
     "pdemg_zebra_line": (_P, _P, _P, _P, _P, _I, _P),

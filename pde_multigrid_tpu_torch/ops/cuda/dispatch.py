@@ -55,6 +55,27 @@ with the hand-written kernels.
     or below is one launch, and so is every W-cycle there.  With `mixed` the fused roots stay fused: the
     hook is consulted before any relax leg, and the kernel is float32.
 
+3D Poisson, padded storage (a nonzero Dirichlet boundary), the JAX plan
+of `plan_relax` (relax.py:3876-4105) with the TPU's VMEM gates replaced by
+the kernels' capacity:
+
+  * relax: the whole-leg kernel (`ops/cuda/padded3d.py`, row 1's padded
+    form, one launch a leg) on every level its cluster holds (65^3 ...
+    3^3), as JAX's `make_resident_relax` on 33^3 and below; the
+    half-sweep kernel (`ops/cuda/slab3d.py`, row 3's padded form, a
+    launch a colour) on the rest (129^3, 257^3, 513^3), as JAX's
+    `make_slab_relax` on 129^3.  Two deliberate differences: 65^3, JAX's
+    slab level, takes the leg, which holds it on chip; 257^3 and 513^3,
+    where JAX's VMEM budget refuses every slab and its jnp tier relaxes,
+    take the half-sweep kernel;
+  * transfers, the residual norms, FAS's injection and coarse right side:
+    the plain ops of `ops/stencil.py` on the card.  These are the JAX
+    package's jnp ops on padded 3D levels (`transfer.planner_ok`,
+    `make_residual` and its small-pair gates take wrap levels only), not a
+    fallback; no fused subtree (`subtree.subtree_ok` takes wrap levels);
+  * with `mixed`, no defect plan covers a padded level (`defect.py:121`),
+    so the levels relax in float32, as JAX does.
+
 2D Lyapunov, padded storage (the JAX plan of `plan_split2d_raw`,
 `plan_relax` and `dispatch.py:56-84`, `:185-284`):
 
@@ -171,6 +192,7 @@ from pde_multigrid_tpu_torch.models.poisson import Poisson
 from pde_multigrid_tpu_torch.ops import split2d
 from pde_multigrid_tpu_torch.ops.cuda import blocked3d as blocked_mod
 from pde_multigrid_tpu_torch.ops.cuda import defect as defect_mod
+from pde_multigrid_tpu_torch.ops.cuda import padded3d as padded3d_mod
 from pde_multigrid_tpu_torch.ops.cuda import reduced2d as reduced_mod
 from pde_multigrid_tpu_torch.ops.cuda import relax as relax_mod
 from pde_multigrid_tpu_torch.ops.cuda import relax1d as relax1d_mod
@@ -178,6 +200,7 @@ from pde_multigrid_tpu_torch.ops.cuda import relax2d as relax2d_mod
 from pde_multigrid_tpu_torch.ops.cuda import resident as resident_mod
 from pde_multigrid_tpu_torch.ops.cuda import resident3d as resident3d_mod
 from pde_multigrid_tpu_torch.ops.cuda import slab2d as slab_mod
+from pde_multigrid_tpu_torch.ops.cuda import slab3d as slab3d_mod
 from pde_multigrid_tpu_torch.ops.cuda import subtree as subtree_mod
 from pde_multigrid_tpu_torch.ops.cuda import transfer as transfer_mod
 
@@ -208,8 +231,8 @@ def _padded_2d(g) -> bool:
 
 def _plain_ok(g) -> bool:
     """Levels whose transfers and residual run the plain ops: 1D and 2D
-    levels (2D wrap levels: 2D Poisson's)."""
-    return g.ndim in (1, 2)
+    levels (2D wrap levels: 2D Poisson's) and padded 3D levels."""
+    return g.ndim in (1, 2) or padded3d_mod.padded_3d(g)
 
 
 def _split2d_ok(g) -> bool:
@@ -255,9 +278,10 @@ def _relax3d(problem, g):
 
 def _not_planned(what: str, item: str = "queue 2") -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: the CUDA tier serves 3D wrap-storage Poisson, 2D Poisson, "
-        "padded 2D Lyapunov and HJB (upwind) and 1D Ode1D / Poisson levels "
-        f"in float32; other problems and layouts are ROADMAP.md {item}"
+        f"{what}: the CUDA tier serves 3D Poisson (wrap and padded "
+        "storage), 2D Poisson, padded 2D Lyapunov and HJB (upwind) and 1D "
+        "Ode1D / Poisson levels in float32; other problems and layouts are "
+        f"ROADMAP.md {item}"
     )
 
 
@@ -276,6 +300,7 @@ class CudaKernels(TorchKernels):
         if not (lyap or hjb or isinstance(problem, (Poisson, Ode1D))):
             raise _not_planned(f"problem {problem.name}")
         poisson2d = isinstance(problem, Poisson) and problem.ndim == 2
+        poisson3d = isinstance(problem, Poisson) and problem.ndim == 3
         # the colour-split tier's problems (padded storage)
         split_ok = lyap or poisson2d
         n = len(self.geoms)
@@ -316,6 +341,15 @@ class CudaKernels(TorchKernels):
                     self._relax[l] = self._relax_slab
                 else:
                     raise _not_planned(f"relax on level {g}")
+            elif poisson3d and padded3d_mod.padded_3d(g):
+                # the leg where its cluster holds the level, else a
+                # sweep a launch
+                if padded3d_mod.fits(g):
+                    self.tiers[l] = "padded3d"
+                    self._relax[l] = self._relax_padded3d
+                else:
+                    self.tiers[l] = "slab3d"
+                    self._relax[l] = self._relax_slab3d
             elif not lyap and _level_ok(g):
                 self.tiers[l], self._relax[l] = _relax3d(problem, g)
             else:
@@ -326,8 +360,9 @@ class CudaKernels(TorchKernels):
                 self._defect[l] = defect_mod.plan_defect_relax(
                     problem, g, dtype
                 )
-        # 1D and 2D levels: plain transfers and residual norms
-        low = self.geoms[0].ndim < 3
+        # 1D, 2D and padded 3D levels: plain transfers and residual norms
+        self._plain = [_plain_ok(g) for g in self.geoms]
+        low = self._plain[0]
         for l in range(n - 1):
             gf, gc = self.geoms[l], self.geoms[l + 1]
             ok = (_plain_ok(gf) and _plain_ok(gc)) if low else _pair_ok(
@@ -435,6 +470,14 @@ class CudaKernels(TorchKernels):
             v, None if f_zero else f, nsweeps, self.problem, self.geoms[l]
         )
 
+    def _relax_padded3d(self, l, v, f, nsweeps, f_zero):
+        return padded3d_mod.padded3d_relax(
+            v, None if f_zero else f, nsweeps, self.problem, self.geoms[l])
+
+    def _relax_slab3d(self, l, v, f, nsweeps, f_zero):
+        return slab3d_mod.slab3d_relax(
+            v, None if f_zero else f, nsweeps, self.problem, self.geoms[l])
+
     def _relax_slab(self, l, v, f, nsweeps, f_zero):
         # f_zero never holds here (neither HJB nor Poisson has
         # rhs_is_zero); the kernel always reads f
@@ -450,24 +493,24 @@ class CudaKernels(TorchKernels):
             return dfn(v, f, nsweeps)
         if nsweeps == 0:
             return v
-        if self.geoms[l].ndim < 3:
+        if self._plain[l]:
             return fn(l, v, f, nsweeps, f_zero)
         return fn(v, f, nsweeps)
 
     # -- transfers ---------------------------------------------------------
 
     def residual(self, l, v, f, aux):
-        if self.geoms[l].ndim < 3:
+        if self._plain[l]:
             return super().residual(l, v, f, aux)
         return transfer_mod.residual(v, f, self.problem, self.geoms[l])
 
     def residual_zero_f(self, l, v, aux):
-        if self.geoms[l].ndim < 3:
+        if self._plain[l]:
             return None  # the plain residual of a zero f
         return transfer_mod.residual_zero_f(v, self.problem, self.geoms[l])
 
     def restrict(self, l_fine, arr, m_int_coarse, m_log_coarse):
-        if self.geoms[l_fine].ndim < 3:
+        if self._plain[l_fine]:
             return super().restrict(l_fine, arr, m_int_coarse, m_log_coarse)
         # wrap levels: m_log == 1, so full weighting with injection on the
         # coarse boundary is exactly the restrict-only kernel
@@ -477,7 +520,7 @@ class CudaKernels(TorchKernels):
         )
 
     def prolong(self, l_fine, arr):
-        if self.geoms[l_fine].ndim < 3:
+        if self._plain[l_fine]:
             return super().prolong(l_fine, arr)
         raise _not_planned(
             "prolongation without a blend (the CUDA tier serves the fused "
@@ -506,14 +549,14 @@ class CudaKernels(TorchKernels):
                 g, self.geoms[l + 1], rr, rb, coarse_aux["m_int"],
                 coarse_aux["m_log"],
             )
-        if self.geoms[l].ndim < 3:
+        if self._plain[l]:
             return None  # the plain residual, then the plain restriction
         return transfer_mod.residual_restrict(
             v, f, self.problem, self.geoms[l], self.geoms[l + 1]
         )
 
     def restrict_direct(self, l, arr, coarse_aux):
-        if self.geoms[l].ndim < 3:
+        if self._plain[l]:
             return None
         return self.restrict(l, arr, None, None)
 
@@ -528,7 +571,7 @@ class CudaKernels(TorchKernels):
             )
             self._v_cur[l_fine] = "halves"
             return base_v
-        if self.geoms[l_fine].ndim < 3:
+        if self._plain[l_fine]:
             return None  # the plain prolongation and blend
         # in place into the fine iterate: each point reads its own base
         # value before writing it, and the old iterate is dead afterwards

@@ -223,8 +223,8 @@ def test_mixed_plan_pins():
     """(f) CudaKernels(mixed=True) on the 129^3 exact-coarsest geometries:
     a defect plan on level 0 with min_sweeps 4, its error sweeps the
     whole-leg kernel (one launch a leg at any nu), none on the exact
-    level; a leg of < 4 sweeps takes the f32 split relax.  float64 and
-    padded 3D storage still raise; 2D Poisson relaxes in float32."""
+    level; a leg of < 4 sweeps takes the f32 split relax.  float64 still
+    raises; padded 3D storage and 2D Poisson relax in float32."""
     prob = TPoisson(3)
     geoms = TG.build_geometries((129,) * 3, DOM, 2, wrap=True)
     k = CudaKernels(prob, geoms, torch.float32, range(len(geoms) - 1),
@@ -253,8 +253,11 @@ def test_mixed_plan_pins():
     assert D.plan_defect_relax(_NotPoisson(), geoms[0], torch.float32) is None
     with pytest.raises(NotImplementedError):
         CudaKernels(prob, geoms, torch.float64, mixed=True)
-    with pytest.raises(NotImplementedError):
-        CudaKernels(prob, padded, torch.float32, mixed=True)
+    # padded 3D levels are planned; with mixed they relax in float32 (no
+    # defect plan covers a padded level), as JAX's do
+    kp = CudaKernels(prob, padded, torch.float32, mixed=True)
+    assert all(d is None for d in kp._defect)
+    assert kp.tiers == ["padded3d"] * len(padded)
     # 2D Poisson is planned; with mixed its levels relax in float32 (no
     # defect plan covers a 2D level), as JAX's do
     k2 = CudaKernels(TPoisson(2), TG.build_geometries(

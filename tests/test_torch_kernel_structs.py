@@ -14,6 +14,7 @@ import pytest
 
 from pde_multigrid_tpu_torch.ops.cuda import blocked3d as BL
 from pde_multigrid_tpu_torch.ops.cuda import masked_block as MB
+from pde_multigrid_tpu_torch.ops.cuda import padded3d as PD
 from pde_multigrid_tpu_torch.ops.cuda import reduced2d as RD
 from pde_multigrid_tpu_torch.ops.cuda import relax1d as R1
 from pde_multigrid_tpu_torch.ops.cuda import relax2d as R2
@@ -74,6 +75,8 @@ def _struct_name(t):
     ("transfer.cu", "ProlongLayout", TR.ProlongLayout),
     ("transfer.cu", "ResidualLayout", TR.ResidualLayout),
     ("zebra_line.cu", "ZebraLineParams", ZL.ZebraLineParams),
+    ("poisson3d.cuh", "Poisson3D", PD.Poisson3DParams),
+    ("padded3d.cu", "Padded3DLayout", PD.Padded3DLayout),
 ])
 def test_ctypes_struct_mirrors_the_c_struct(source, struct, cls):
     assert _py_fields(cls) == _c_fields(source, struct)

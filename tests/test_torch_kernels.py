@@ -207,16 +207,20 @@ def test_wrappers_reject_what_kernels_do_not_take():
 
 def test_cuda_dispatch_plan():
     """CudaKernels plans every relaxed 3D wrap level and every level pair,
-    and refuses what it cannot serve instead of running plain ops; 2D
-    Poisson (wrap and padded storage) and 2D Lyapunov are planned."""
+    and refuses what it cannot serve instead of running plain ops; 3D
+    Poisson in padded storage (the padded leg on every 17^3 level, plain
+    transfers), 2D Poisson (wrap and padded storage) and 2D Lyapunov are
+    planned."""
     prob = TPoisson(3)
     geoms = TG.build_geometries((17,) * 3, prob.domain, wrap=True)
     k = CudaKernels(prob, geoms, torch.float32, range(len(geoms) - 1))
     assert all(fn is not None for fn in k._relax[:-1])
     assert k._relax[-1] is None
     padded = TG.build_geometries((17,) * 3, prob.domain, wrap=False)
-    with pytest.raises(NotImplementedError):
-        CudaKernels(prob, padded, torch.float32)
+    kpad = CudaKernels(prob, padded, torch.float32)
+    assert kpad.tiers == ["padded3d"] * 4
+    assert kpad._relax == [kpad._relax_padded3d] * 4
+    assert all(kpad._plain) and not any(kpad._sub_v)
     with pytest.raises(NotImplementedError):
         CudaKernels(prob, geoms, torch.float64)
     # 2D Poisson: the dense leg on every 17^2 level of either storage
